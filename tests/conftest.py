@@ -22,3 +22,7 @@ def pytest_configure(config):
         "markers",
         "slow: multi-minute kernel/integration sweeps; deselect with "
         "-m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a hand-written CUDA kernel of repro_torch; skips "
+        "without a CUDA device (run on the card with -m cuda)")
