@@ -10,26 +10,33 @@ Each phase prints one JSON object per line:
 
 0. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
 1. the kernel build (``nvcc`` of ``kernels/csrc/routing.cu``);
-2. each CUDA kernel against its plain PyTorch version on the card: the
-   reference package's kernel sweeps, per-request SLO rows with lane
-   exclusions, the guard's boundary cases, and one fleet-scale shape
-   whose Erlang table exceeds a block's shared memory. ``ok`` and
-   ``offloaded`` must match exactly, ``idx`` exactly on feasible rows,
-   g within ``rtol=1e-4`` (the reference's own kernel-vs-oracle bound);
+2. each CUDA kernel (``routing_score``, ``routing_guard``,
+   ``routing_topk``, ``routing_attain``) against its plain PyTorch
+   version on the card: the reference package's kernel sweeps and edge
+   cases, per-request SLO rows with lane exclusions, the guard's
+   boundary cases, full windows at the main path's shapes, and one
+   fleet-scale shape whose Erlang table exceeds a block's shared
+   memory. ``ok`` and ``offloaded`` must match exactly, ``idx`` exactly
+   on feasible rows, g within ``rtol=1e-4`` (the reference's own
+   kernel-vs-oracle bound);
 3. serving: ``BatchRouter`` answering 2048 requests in windows of 256
-   on two clusters, both policies, ``backend="cuda"``, with conservation;
+   on two clusters, all five policies, ``backend="cuda"``, with
+   conservation;
 4. the simulator's pinned windowed golden digests, ``admission_backend=
    "cuda"``;
-5. a flash-crowd stream through the simulator, both policies;
+5. a flash-crowd stream through the simulator, all five policies,
+   against the reference package's digests of the same stream;
 6. the digests again through the default ``vmap`` backend, and a
-   ``torch.profiler`` breakdown of one serving run per policy (device
-   time by kernel against the host's wall time);
+   ``torch.profiler`` breakdown of one serving run per single-kernel
+   policy (device time by kernel against the host's wall time);
 7. kernel and plain-version times (CUDA events) at the main path's
    shapes and at fleet scale.
 
-Launch counters are set to 0 just before each of phases 3-5 and read
-just after; a kernel of the path that did not launch fails the run.
-The line before the last is the kernel table, the last line the device.
+Launch counters are set to 0 just before each policy's run in phases
+3-5 and read just after; a kernel that the policy decides through and
+that did not launch fails the run (``hybrid`` must launch both of its
+constituents' kernels on the flash stream). The line before the last is
+the kernel table, the last line the device.
 """
 from __future__ import annotations
 
@@ -49,6 +56,13 @@ H100_F32_FLOPS = 67e12         # non-tensor float32, SXM data sheet
 G_RTOL = 1e-4                  # the reference's kernel-vs-oracle g bound
 TABLE_T = 65                   # AdmissionConfig.erlang_table_size
 FLOPS_PER_PAIR = 30            # f32 ops to score one (request, candidate)
+# routing_topk adds the headroom gate (a subtract and a compare) to the
+# score; routing_attain adds the attainment probability: two logf (~10
+# ops each), one erff (~15), the z arithmetic and the avail product (~5)
+TOPK_FLOPS_PER_PAIR = FLOPS_PER_PAIR + 2
+ATTAIN_FLOPS_PER_PAIR = FLOPS_PER_PAIR + 40
+TOPK_K = 2                     # AdmissionConfig.redundancy default
+ATTAIN_MARGIN = 0.25           # AdmissionConfig.headroom_margin default
 
 # GOLDEN_WINDOWED of the reference package's tests/test_control_plane.py:
 # (trace, window, policy) -> (n, p50, p99, offload_fast)
@@ -65,12 +79,36 @@ GOLDEN_WINDOWED = {
         599, 0.6568781334853782, 1.3594035287551731, 300),
     ("burst", 0.1, "guarded_alg1"): (
         626, 1.0061975537910977, 3.5180977031426215, 399),
+    ("ramp", 0.1, "safetail"): (
+        599, 0.3878116168755241, 1.0596894136743895, 78),
+    ("burst", 0.1, "safetail"): (
+        626, 0.7315342838806309, 3.470679008271632, 340),
+    ("ramp", 0.1, "reliable"): (
+        599, 0.3925731684935556, 1.0927808101906693, 78),
+    ("burst", 0.1, "reliable"): (
+        626, 0.795859417435981, 3.526403180628132, 340),
+}
+# the reference package's run of the flash-crowd stream (phase 5):
+# policy -> (n, p50, p99, offload_fast, hybrid switches)
+STREAM_GOLDEN = {
+    "route_best": (271, 9.665503173736184, 19.076171451721844, 210, None),
+    "guarded_alg1": (271, 4.089996307045176, 16.973597590998185, 187, None),
+    "safetail": (271, 9.645472497939949, 19.030009152777332, 212, None),
+    "reliable": (271, 9.665503173736184, 19.076171451721844, 210, None),
+    "hybrid": (271, 2.590345378773815, 14.154131343188576, 173, 2),
 }
 # cells the CPU tests mark xfail(strict=True) for a documented libm
 # decision flip (ROADMAP queue 3) -> reason; none so far
 DIGEST_SKIPS: dict = {}
 
-POLICIES = ("route_best", "guarded_alg1")
+POLICIES = ("route_best", "guarded_alg1", "safetail", "reliable", "hybrid")
+# the kernels each policy decides through under backend="cuda"; hybrid
+# launches routing_topk only while its burst detector is on
+POLICY_KERNELS = {
+    "route_best": ("routing_score",), "guarded_alg1": ("routing_guard",),
+    "safetail": ("routing_topk",), "reliable": ("routing_attain",),
+    "hybrid": ("routing_guard",),
+}
 
 
 def emit(obj: dict) -> None:
@@ -136,39 +174,160 @@ def guard_case(i: int, r: int, seed: int, *, lam_rows: bool = False) -> dict:
     return cols
 
 
+def topk_case(op: str, i: int, r: int, seed: int, *, slo_rows: bool = False,
+              lam_rows: bool = False) -> dict:
+    """Inputs of ``routing_topk`` (op "topk": the reference's
+    ``TestRoutingTopK`` draws, slo then cost) or ``routing_attain`` (op
+    "attain": ``TestRoutingAttain``, slo, sigma, avail), optionally with
+    (R, I) SLO rows carrying 20% lane exclusions and (R, I) rates."""
+    from repro_torch.kernels.routing_score import build_erlang_table
+    rng = np.random.default_rng(seed)
+    cols = candidate_columns(rng, i)
+    cols["lam"] = rng.uniform(0.0, 10.0, r).astype(np.float32)
+    cols["table"] = build_erlang_table(cols["mu"], cols["n"], t=TABLE_T)
+    cols["slo"] = rng.uniform(1.0, 4.0, i).astype(np.float32)
+    if op == "topk":
+        cols["cost"] = rng.uniform(1, 3, i).astype(np.float32)
+    else:
+        cols["sigma"] = rng.uniform(0.05, 0.8, i).astype(np.float32)
+        cols["avail"] = rng.uniform(0.7, 1.0, i).astype(np.float32)
+    if slo_rows:
+        rows = rng.uniform(0.5, 4.0, (r, i)).astype(np.float32)
+        rows[rng.uniform(size=(r, i)) < 0.2] = -1.0
+        cols["slo"] = rows
+    if lam_rows:
+        cols["lam"] = rng.uniform(0.0, 10.0, (r, i)).astype(np.float32)
+    return cols
+
+
+def topk_edge_cases() -> list:
+    """The reference's pinned top-k / attainment edge cases, as
+    (label, op, inputs, k, margin): all rows infeasible, k above the
+    feasible count, bit-identical clones (cost tie-break, then duplicates
+    by index), sigma = 0 as a step, uniform sigma degrading to argmin g."""
+    from repro_torch.kernels.routing_score import build_erlang_table
+    out = []
+    c = topk_case("topk", 4, 32, seed=9)
+    c["slo"] = np.full(4, 1e-6, np.float32)
+    out.append(("all_infeasible", "topk", c, 3, 0.0))
+    c = topk_case("topk", 5, 32, seed=13)
+    rows = np.full((32, 5), -1.0, np.float32)
+    rows[:, 1] = rows[:, 3] = 100.0
+    c["slo"] = rows
+    out.append(("k_exceeds_feasible", "topk", c, 5, 0.0))
+    one = lambda v: np.full(4, v, np.float32)
+    clones = dict(alpha=one(0.2), beta=one(0.3), gamma=one(1.2), mu=one(2.0),
+                  n=one(2.0), rtt=one(0.01), slo=one(5.0),
+                  lam=np.linspace(0.0, 3.0, 32).astype(np.float32))
+    clones["table"] = build_erlang_table(clones["mu"], clones["n"], t=TABLE_T)
+    out.append(("clones", "topk",
+                dict(clones, cost=np.asarray([2, 1, 1, 2], np.float32)),
+                4, 0.0))
+    out.append(("clones", "attain",
+                dict(clones, sigma=one(0.3), avail=one(1.0)), 4, 0.0))
+    c = topk_case("attain", 4, 64, seed=91)
+    c.update(sigma=np.zeros(4, np.float32),
+             avail=np.asarray([0.9, 0.99, 0.99, 0.7], np.float32))
+    out.append(("sigma_zero", "attain", c, 2, 0.0))
+    c = topk_case("attain", 5, 64, seed=88)
+    c.update(slo=np.full(5, 3.0, np.float32),
+             sigma=np.full(5, 0.3, np.float32), avail=np.ones(5, np.float32))
+    out.append(("uniform", "attain", c, 2, 0.0))
+    c = topk_case("attain", 3, 32, seed=17)
+    c.update(slo=np.full(3, 1e-6, np.float32),
+             sigma=np.full(3, 0.2, np.float32), avail=np.ones(3, np.float32))
+    out.append(("all_infeasible", "attain", c, 2, 0.0))
+    return out
+
+
 SCORE_ARGS = ("lam", "alpha", "beta", "gamma", "mu", "n", "rtt", "slo",
               "cost", "table")
 GUARD_ARGS = ("lam", "alpha", "beta", "gamma", "mu", "n", "rtt", "tau",
               "home", "up", "table")
+TOPK_ARGS = {"topk": SCORE_ARGS,
+             "attain": ("lam", "alpha", "beta", "gamma", "mu", "n", "rtt",
+                        "slo", "sigma", "avail", "table")}
 
 
-def fragile_rows(case: dict, dev) -> np.ndarray:
-    """Rows whose route_best decision two float32 evaluations of g
-    ~1e-6 apart could decide differently: a candidate within 1e-5
-    (relative) of the SLO cut or of the near-band edge. At fleet scale
-    (a thousand candidates a row) such near-ties occur by chance; the
-    fleet case redraws their rates so that the exact-idx check tests
-    the kernel, not the last ulp of exp/log."""
+def fragile_rows(op: str, case: dict, dev, k: int,
+                 margin: float) -> np.ndarray:
+    """Rows whose decision two float32 evaluations of g ~1e-6 apart
+    could decide differently: a candidate within 1e-5 (relative) of the
+    SLO cut or of the headroom gate, two of the k + 1 lowest feasible g
+    within 1e-5 of each other (the duplicate order), and for
+    ``routing_topk`` (and ``routing_score``, its k = 1 case) a feasible
+    candidate other than the g minimum at the near-band edge. At fleet
+    scale (a thousand candidates a row) such near-ties occur by chance;
+    the fleet cases redraw those rows' rates. For
+    ``routing_attain``: a feasible candidate other than the argmax whose
+    attainment probability p lies within reach of the band edge ``pmax -
+    1e-6``, where a 1e-6 relative shift of g moves p by
+    ``avail * exp(-z^2) / sqrt(pi) * 1e-6 / (sigma * sqrt2)`` (the
+    derivative of Phi) and ``erff`` and ``torch.erf`` differ by a few
+    ulp (1e-7). Such rows test the last bits of exp/log/erf, not the
+    kernel."""
     import torch
 
     from repro_torch.kernels.ref import _table_scores
-    t = to_dev({k: case[k] for k in SCORE_ARGS}, dev)
+    t = to_dev({k_: case[k_] for k_ in TOPK_ARGS[op]}, dev)
     g, rho = _table_scores(t["lam"], t["alpha"], t["beta"], t["gamma"],
                            t["mu"], t["n"], t["rtt"], t["table"])
     slo = t["slo"] if t["slo"].ndim == 2 else t["slo"][None, :]
     feas = (rho < 1.0) & (g <= slo)
-    gmin = torch.where(feas, g, torch.full_like(g, 1e30)).amin(1, True)
-    edge = gmin * (1.0 + 1e-5) + 1e-9
+    big = torch.full_like(g, 1e30)
+    gate = slo - margin
     tight = ((g - slo).abs() <= 1e-5 * slo.abs()) \
-        | (feas & ((g - edge).abs() <= 1e-5 * edge))
-    return tight.any(dim=1).cpu().numpy()
+        | ((g - gate).abs() <= 1e-5 * gate.abs())
+    low = torch.sort(torch.where(feas, g, big), dim=1).values[:, :k + 1]
+    close = (low[:, 1:] - low[:, :-1]) <= 1e-5 * low[:, 1:].abs()
+    bad = tight.any(dim=1) | (close & (low[:, 1:] < 1e29)).any(dim=1)
+    cols = torch.arange(g.shape[1], device=g.device)[None, :]
+    if op == "topk":
+        g_feas = torch.where(feas, g, big)
+        edge = g_feas.amin(1, True) * (1.0 + 1e-5) + 1e-9
+        others = cols != g_feas.argmin(dim=1, keepdim=True)
+        bad |= (feas & others & ((g - edge).abs() <= 1e-5 * edge)).any(dim=1)
+    else:
+        sig = t["sigma"][None, :]
+        avail = t["avail"][None, :]
+        z = ((torch.log(slo.clamp_min(1e-20)) - torch.log(g.clamp_min(1e-20))
+              ) / (sig.clamp_min(1e-20) * 1.4142135623730951)).clamp(-10, 10)
+        p = avail * torch.where(sig > 0, 0.5 * (1 + torch.erf(z)),
+                                (g <= slo).float())
+        dp = torch.where(sig > 0, avail * torch.exp(-z * z) / 1.7724538509
+                         * 1e-6 / (sig.clamp_min(1e-20) * 1.4142135623730951),
+                         torch.zeros_like(p))
+        p = torch.where(feas, p, torch.full_like(p, -1.0))
+        top = p.argmax(dim=1, keepdim=True)
+        edge = torch.gather(p, 1, top) - 1e-6
+        reach = dp + torch.gather(dp, 1, top) + 1e-7
+        bad |= (feas & (cols != top) & ((p - edge).abs() <= reach)).any(dim=1)
+    return bad.cpu().numpy()
+
+
+def fleet_topk_case(op: str, dev, r: int = 4096, i: int = 1024):
+    """The fleet-scale case of ``routing_topk`` / ``routing_attain`` at
+    the defaults k = 2 (margin 0 for topk, 0.25 for attain), with
+    fragile rows redrawn. Returns (case, k, margin, rows redrawn)."""
+    k, margin = TOPK_K, (0.0 if op == "topk" else ATTAIN_MARGIN)
+    case = topk_case(op, i, r, seed=4096 + (op == "attain"), slo_rows=True,
+                     lam_rows=True)
+    rng = np.random.default_rng(4098)
+    redrawn = 0
+    for _ in range(50):
+        bad = fragile_rows(op, case, dev, k, margin)
+        if not bad.any():
+            return case, k, margin, redrawn
+        redrawn += int(bad.sum())
+        case["lam"][bad] = rng.uniform(0.0, 10.0, (int(bad.sum()), i))
+    fail(f"could not draw a fleet {op} case free of near-ties")
 
 
 def fleet_score_case(dev, r: int = 4096, i: int = 1024) -> dict:
     case = score_case(i, r, seed=4096, slo_rows=True, lam_rows=True)
     rng = np.random.default_rng(4097)
     for _ in range(50):
-        bad = fragile_rows(case, dev)
+        bad = fragile_rows("topk", case, dev, 1, 0.0)
         if not bad.any():
             return case
         case["lam"][bad] = rng.uniform(0.0, 10.0, (int(bad.sum()), i))
@@ -225,6 +384,39 @@ def compare_guard(name: str, case: dict, dev, want_off=None) -> float:
     return float(err.max())
 
 
+def compare_topk(op: str, name: str, case: dict, dev, k: int,
+                 margin: float, redrawn: int = 0) -> float:
+    """``routing_topk`` / ``routing_attain`` against the plain version:
+    ``ok`` exact, every idx column exact on feasible rows and -1 on
+    infeasible ones, g within ``G_RTOL``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.routing_decide import routing_attain, \
+        routing_topk
+    kern, plain = ((routing_topk, ref.routing_topk_ref) if op == "topk"
+                   else (routing_attain, ref.routing_attain_ref))
+    t = to_dev({k_: case[k_] for k_ in TOPK_ARGS[op]}, dev)
+    args = [t[k_] for k_ in TOPK_ARGS[op]]
+    ki, kg, kok = (x.cpu().numpy() for x in kern(*args, k=k, margin=margin))
+    ri, rg, rok = (x.cpu().numpy() for x in plain(*args, k=k, margin=margin))
+    what = f"{kern.__name__} {name}"
+    if not np.array_equal(kok, rok):
+        fail(f"{what}: ok differs on {int((kok != rok).sum())} rows")
+    bad = np.flatnonzero((ki != ri).any(axis=1))
+    if bad.size:
+        fail(f"{what}: idx differs on {bad.size} rows (first "
+             f"{bad[:3].tolist()}: {ki[bad[:3]].tolist()} vs "
+             f"{ri[bad[:3]].tolist()})")
+    err = np.abs(kg.astype(np.float64) - rg)
+    if not np.all(err <= G_RTOL * np.abs(rg)):
+        fail(f"{what}: g beyond rtol {G_RTOL}")
+    emit({"phase": "parity", "kernel": kern.__name__, "case": name,
+          "rows": int(len(ki)), "k": k, "margin": margin,
+          "feasible_rows": int(rok.sum()),
+          "duplicates": int((ki[:, 1:] >= 0).sum()),
+          "fragile_rows_redrawn": redrawn, "max_abs_err": float(err.max())})
+    return float(err.max())
+
+
 def guard_boundary_cases() -> list:
     """The reference's pinned guard edges: tau == g_inst must not
     offload (strict >), one f32 ulp below must; up = -1 never offloads;
@@ -262,7 +454,8 @@ def guard_boundary_cases() -> list:
 
 
 def phase_parity(dev) -> dict:
-    errs = {"routing_score": 0.0, "routing_guard": 0.0}
+    errs = {"routing_score": 0.0, "routing_guard": 0.0, "routing_topk": 0.0,
+            "routing_attain": 0.0}
 
     def score(name, case):
         errs["routing_score"] = max(errs["routing_score"],
@@ -286,6 +479,35 @@ def phase_parity(dev) -> dict:
     score("fleet_r4096_i1024", fleet_score_case(dev))
     guard("fleet_r4096_i1024", guard_case(1024, 4096, seed=4096,
                                           lam_rows=True))
+
+    def topk(op, name, case, k, margin, redrawn=0):
+        key = f"routing_{op}"
+        errs[key] = max(errs[key], compare_topk(op, name, case, dev, k,
+                                                margin, redrawn))
+
+    for i, r in ((2, 64), (6, 256), (11, 128)):
+        for k in (1, 2, 4):
+            topk("topk", f"sweep_i{i}_r{r}_k{k}",
+                 topk_case("topk", i, r, seed=40 + i), k, 0.0)
+        for k in (1, 3):
+            topk("attain", f"sweep_i{i}_r{r}_k{k}",
+                 topk_case("attain", i, r, seed=60 + i), k, 0.1)
+    for margin in (0.0, 0.5, 2.0):
+        topk("topk", f"margin_{margin}", topk_case("topk", 5, 64, seed=77),
+             3, margin)
+    for label, op, case, k, margin in topk_edge_cases():
+        topk(op, label, case, k, margin)
+    for op in ("topk", "attain"):
+        margin = 0.0 if op == "topk" else ATTAIN_MARGIN
+        for i, r in ((3, 64), (6, 128)):
+            topk(op, f"slo_rows_i{i}_r{r}",
+                 topk_case(op, i, r, seed=100 + i, slo_rows=True,
+                           lam_rows=True), 3, 0.25)
+        for i in (2, 4):   # a full window at the main path's shapes
+            topk(op, f"window_r256_i{i}", main_path_topk_case(op, i),
+                 TOPK_K, margin)
+        case, k, margin, redrawn = fleet_topk_case(op, dev)
+        topk(op, "fleet_r4096_i1024", case, k, margin, redrawn)
     return errs
 
 
@@ -337,7 +559,10 @@ def sync(dev) -> None:
 
 def serve(cname: str, policy: str, dev, backend: str, n_req: int = 2048):
     """``BatchRouter`` answering ``n_req`` requests in windows of 256 on
-    one cluster; conservation checked. Returns (router, seconds)."""
+    one cluster; conservation checked, one primary decision per request
+    (redundant copies come as extra ``DUPLICATE`` decisions). Returns
+    (router, seconds)."""
+    from repro_torch.control.admission import DUPLICATE
     from repro_torch.core.catalogue import paper_cluster
     from repro_torch.core.scheduler import QualityClass, Request
     from repro_torch.serving.batch_router import (AdmissionConfig,
@@ -357,8 +582,8 @@ def serve(cname: str, policy: str, dev, backend: str, n_req: int = 2048):
     t0 = time.perf_counter()
     decided = 0
     for rq in reqs:
-        out = br.submit(rq, rq.arrival)
-        decided += len(out) if out else 0
+        decided += sum(d.outcome != DUPLICATE
+                       for d in br.submit(rq, rq.arrival) or ())
     sync(dev)
     seconds = time.perf_counter() - t0
     br.check_conservation()
@@ -367,9 +592,9 @@ def serve(cname: str, policy: str, dev, backend: str, n_req: int = 2048):
     return br, seconds
 
 
-def phase_serving(dev, backend: str) -> None:
+def phase_serving(dev, backend: str, policies=POLICIES) -> None:
     for cname in ("paper_cluster", "experiment_cluster"):
-        for policy in POLICIES:
+        for policy in policies:
             br, seconds = serve(cname, policy, dev, backend)
             emit({"phase": "serving", "cluster": cname, "policy": policy,
                   "backend": backend, "requests": br.decided,
@@ -384,7 +609,7 @@ def phase_profile(dev) -> None:
     profiler records no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for policy in POLICIES:
+    for policy in ("route_best", "guarded_alg1", "safetail", "reliable"):
         serve("paper_cluster", policy, dev, "cuda", n_req=256)   # warm
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -406,10 +631,12 @@ def phase_profile(dev) -> None:
                                     for k, (c, ms) in top}})
 
 
-def phase_digests(dev, backend: str) -> None:
+def phase_digests(dev, backend: str, policies=POLICIES) -> None:
     """The pinned windowed digests through ``backend`` on ``dev``."""
     from repro_torch.core.simulator import ClusterSimulator, SimConfig
     for (trace, window, policy), want in sorted(GOLDEN_WINDOWED.items()):
+        if policy not in policies:
+            continue
         key = f"{trace}/{window}/{policy}"
         if key in DIGEST_SKIPS:
             emit({"phase": "digest", "cell": key, "skipped": True,
@@ -434,12 +661,16 @@ def phase_digests(dev, backend: str) -> None:
             fail(f"digest {key}: got {got}, pinned {want}")
 
 
-def phase_stream(dev, backend: str) -> None:
+def phase_stream(dev, backend: str, policies=POLICIES) -> dict:
+    """The flash-crowd stream of ``benchmarks/bench_window_sweep.py``
+    through the simulator, each policy held to the reference package's
+    digest of the same run. Returns policy -> p99."""
     from repro_torch.core.simulator import ClusterSimulator, SimConfig
     from repro_torch.core.workload import flash_crowd_arrivals
-    arr = flash_crowd_arrivals(2.0, 12.0, 60.0, "yolov5m", seed=7,
-                               t_start=15.0, duration=12.0, ramp=5.0)
-    for policy in POLICIES:
+    p99 = {}
+    for policy in policies:
+        arr = flash_crowd_arrivals(2.0, 12.0, 60.0, "yolov5m", seed=7,
+                                   t_start=15.0, duration=12.0, ramp=5.0)
         sim = ClusterSimulator(experiment_cluster(), SimConfig(
             mode="laimr", seed=7, slo=1.8, jitter_sigma=0.2,
             admission_window=0.1, policy=policy, pods_per_deployment=1,
@@ -452,11 +683,23 @@ def phase_stream(dev, backend: str) -> None:
             fail(f"stream {policy}: completed {len(res.completed)}, "
                  f"decided {sim.plane.decided}, arrivals {len(arr)}")
         sim.plane.check_conservation()
+        switches = getattr(sim.plane.policy, "switches", None)
+        got = (int(s["n"]), s["p50"], s["p99"], res.offload_fast, switches)
+        want = STREAM_GOLDEN[policy]
+        match = (got[0] == want[0] and got[3:] == want[3:]
+                 and abs(got[1] - want[1]) <= 1e-9 * abs(want[1])
+                 and abs(got[2] - want[2]) <= 1e-9 * abs(want[2]))
         emit({"phase": "stream", "cell": "flash/experiment_cluster/w0.1",
-              "policy": policy, "arrivals": len(arr), "p50": s["p50"],
-              "p99": s["p99"], "offload_rate": res.offload_fast / len(arr),
+              "policy": policy, "backend": backend, "arrivals": len(arr),
+              "p50": s["p50"], "p99": s["p99"],
+              "offload_rate": res.offload_fast / len(arr),
+              "switches": switches, "match": match,
               "flushes": sim.plane.flushes,
               "decisions_per_s": len(arr) / seconds})
+        if not match:
+            fail(f"stream {policy}: got {got}, reference {want}")
+        p99[policy] = s["p99"]
+    return p99
 
 
 # ----------------------------------------------------------- phase 6 -----
@@ -466,7 +709,10 @@ def time_launches(fn, dev, n: int = 200, chunk: int = 20) -> float:
     enqueued, so every event pair brackets the device work of one call
     and not the host's enqueue time. A chunk whose enqueue outlasted the
     sleep (the device went idle waiting for the host) is discarded and
-    retried with twice the sleep."""
+    retried with half the calls and twice the sleep: a plain version
+    made of many small kernels can fill the stream's queue of pending
+    launches within one chunk, and the host then waits for the device
+    whatever the sleep."""
     import torch
     for _ in range(5):
         fn()
@@ -488,11 +734,12 @@ def time_launches(fn, dev, n: int = 200, chunk: int = 20) -> float:
         torch.cuda.synchronize(dev)
         if covered:
             times += [a.elapsed_time(b) for a, b in pairs]
-        elif cycles >= 2_000_000_000:
-            fail("time_launches: the sleep never covered one chunk's "
+        elif cycles >= 2_000_000_000 and chunk == 1:
+            fail("time_launches: the sleep never covered one call's "
                  "enqueue")
         else:
-            cycles *= 2
+            cycles = min(cycles * 2, 2_000_000_000)
+            chunk = max(1, chunk // 2)
     return statistics.median(times)
 
 
@@ -519,6 +766,31 @@ def score_bytes_ops(case: dict) -> tuple[int, int]:
     nbytes = (case["lam"].nbytes + case["slo"].nbytes + 7 * i * 4
               + min(pairs * 2, i * t) * 4 + r * (4 + 4 + 1))
     return nbytes, pairs * FLOPS_PER_PAIR
+
+
+def topk_bytes_ops(case: dict, k: int) -> tuple[int, int]:
+    """As :func:`score_bytes_ops` for routing_topk: the (R,) or (R, I)
+    rates and SLO rows, seven (I,) columns (six of the latency law plus
+    cost), the table entries the pairs need, and (R, k) idx and g plus
+    (R,) ok out; ``TOPK_FLOPS_PER_PAIR`` f32 operations a pair."""
+    r = case["lam"].shape[0]
+    i, t = case["table"].shape
+    pairs = r * i
+    nbytes = (case["lam"].nbytes + case["slo"].nbytes + 7 * i * 4
+              + min(pairs * 2, i * t) * 4 + r * (8 * k + 1))
+    return nbytes, pairs * TOPK_FLOPS_PER_PAIR
+
+
+def attain_bytes_ops(case: dict, k: int) -> tuple[int, int]:
+    """As :func:`topk_bytes_ops` for routing_attain: eight (I,) columns
+    (six of the latency law, sigma and avail) and
+    ``ATTAIN_FLOPS_PER_PAIR`` f32 operations a pair."""
+    r = case["lam"].shape[0]
+    i, t = case["table"].shape
+    pairs = r * i
+    nbytes = (case["lam"].nbytes + case["slo"].nbytes + 8 * i * 4
+              + min(pairs * 2, i * t) * 4 + r * (8 * k + 1))
+    return nbytes, pairs * ATTAIN_FLOPS_PER_PAIR
 
 
 def guard_bytes_ops(case: dict, off: np.ndarray) -> tuple[int, int]:
@@ -550,11 +822,21 @@ def main_path_guard_case(i: int, r: int = 256) -> dict:
     return guard_case(i, r, seed=400 + i, lam_rows=True)
 
 
+def main_path_topk_case(op: str, i: int, r: int = 256) -> dict:
+    """A full top-k / attainment window at the main path's shapes: (R, I)
+    rates and SLO rows."""
+    return topk_case(op, i, r, seed=(500 if op == "topk" else 600) + i,
+                     slo_rows=True, lam_rows=True)
+
+
 def phase_times(dev) -> dict:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.routing_decide import routing_guard
+    from repro_torch.kernels.routing_decide import (routing_attain,
+                                                    routing_guard,
+                                                    routing_topk)
     from repro_torch.kernels.routing_score import routing_score
-    out = {"routing_score": {}, "routing_guard": {}}
+    out = {"routing_score": {}, "routing_guard": {}, "routing_topk": {},
+           "routing_attain": {}}
     shapes = (("r256_i2", main_path_case(2), main_path_guard_case(2)),
               ("r256_i4", main_path_case(4), main_path_guard_case(4)),
               ("r4096_i1024", fleet_score_case(dev),
@@ -564,27 +846,50 @@ def phase_times(dev) -> dict:
         a = [t[k] for k in SCORE_ARGS]
         nbytes, ops = score_bytes_ops(sc)
         bms, by = bound_ms(nbytes, ops)
-        out["routing_score"][label] = dict(
+        out["routing_score"][label] = row = dict(
             ms=time_launches(lambda: routing_score(*a), dev),
             plain_ms=time_launches(lambda: ref.routing_score_ref(*a), dev),
             host_ms=time_host(lambda: routing_score(*a), dev),
             plain_host_ms=time_host(lambda: ref.routing_score_ref(*a), dev),
             bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+        emit({"phase": "times", "kernel": "routing_score", "shape": label,
+              **row})
         t = to_dev({k: gc[k] for k in GUARD_ARGS}, dev)
         a2 = [t[k] for k in GUARD_ARGS]
         off = routing_guard(*a2)[2].cpu().numpy()
         nbytes, ops = guard_bytes_ops(gc, off)
         bms, by = bound_ms(nbytes, ops)
-        out["routing_guard"][label] = dict(
+        out["routing_guard"][label] = row = dict(
             ms=time_launches(lambda: routing_guard(*a2), dev),
             plain_ms=time_launches(lambda: ref.routing_guard_ref(*a2), dev),
             host_ms=time_host(lambda: routing_guard(*a2), dev),
             plain_host_ms=time_host(lambda: ref.routing_guard_ref(*a2),
                                     dev),
             bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
-        for k in out:
-            emit({"phase": "times", "kernel": k, "shape": label,
-                  **out[k][label]})
+        emit({"phase": "times", "kernel": "routing_guard", "shape": label,
+              **row})
+    for op, kern, plain, bytes_ops in (
+            ("topk", routing_topk, ref.routing_topk_ref, topk_bytes_ops),
+            ("attain", routing_attain, ref.routing_attain_ref,
+             attain_bytes_ops)):
+        name = f"routing_{op}"
+        margin = 0.0 if op == "topk" else ATTAIN_MARGIN
+        for label, case in (("r256_i2", main_path_topk_case(op, 2)),
+                            ("r256_i4", main_path_topk_case(op, 4)),
+                            ("r4096_i1024", fleet_topk_case(op, dev)[0])):
+            t = to_dev({k_: case[k_] for k_ in TOPK_ARGS[op]}, dev)
+            a = [t[k_] for k_ in TOPK_ARGS[op]]
+            kw = dict(k=TOPK_K, margin=margin)
+            nbytes, ops = bytes_ops(case, TOPK_K)
+            bms, by = bound_ms(nbytes, ops)
+            out[name][label] = row = dict(
+                ms=time_launches(lambda: kern(*a, **kw), dev),
+                plain_ms=time_launches(lambda: plain(*a, **kw), dev),
+                host_ms=time_host(lambda: kern(*a, **kw), dev),
+                plain_host_ms=time_host(lambda: plain(*a, **kw), dev),
+                bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops,
+                k=TOPK_K, margin=margin)
+            emit({"phase": "times", "kernel": name, "shape": label, **row})
     return out
 
 
@@ -622,23 +927,42 @@ def main() -> int:
 
     errs = phase_parity(dev)
 
-    from repro_torch.kernels.routing_decide import routing_guard
+    from repro_torch.kernels.routing_decide import (routing_attain,
+                                                    routing_guard,
+                                                    routing_topk)
     from repro_torch.kernels.routing_score import routing_score
-    kernels = (routing_score, routing_guard)
+    kernels = (routing_score, routing_guard, routing_topk, routing_attain)
     launches = {k.__name__: 0 for k in kernels}
-    for name, phase in (("serving", phase_serving),
-                        ("digests", phase_digests),
-                        ("stream", phase_stream)):
-        for k in kernels:
-            k.launches = 0
-        phase(dev, "cuda")
-        torch.cuda.synchronize(dev)
-        counts = {k.__name__: k.launches for k in kernels}
-        emit({"phase": "launches", "path": name, **counts})
-        for k, c in counts.items():
-            if c == 0:
-                fail(f"main path {name}: kernel {k} never launched")
-            launches[k] += c
+    p99 = {}
+    pinned = tuple(p for p in POLICIES
+                   if any(key[2] == p for key in GOLDEN_WINDOWED))
+    for name, phase, policies in (("serving", phase_serving, POLICIES),
+                                  ("digests", phase_digests, pinned),
+                                  ("stream", phase_stream, POLICIES)):
+        for policy in policies:
+            for k in kernels:
+                k.launches = 0
+            out = phase(dev, "cuda", (policy,))
+            torch.cuda.synchronize(dev)
+            counts = {k.__name__: k.launches for k in kernels}
+            emit({"phase": "launches", "path": name, "policy": policy,
+                  **counts})
+            want = POLICY_KERNELS[policy]
+            if name == "stream":
+                p99.update(out)
+                if policy == "hybrid":
+                    want += ("routing_topk",)   # the flash crowd bursts
+            for k in want:
+                if counts[k] == 0:
+                    fail(f"main path {name}/{policy}: kernel {k} never "
+                         f"launched")
+            for k, c in counts.items():
+                launches[k] += c
+    emit({"phase": "stream_p99", "policy_p99_s": {
+        p: p99[p] for p in ("guarded_alg1", "safetail", "hybrid")}})
+    for k, c in launches.items():
+        if c == 0:
+            fail(f"main path: kernel {k} never launched")
 
     # the default backend (the batched torch scorer) on the card, too
     phase_digests(dev, "vmap")
@@ -649,6 +973,8 @@ def main() -> int:
     replaces = {
         "routing_score": "src/repro/kernels/routing_score.py:82",
         "routing_guard": "src/repro/kernels/routing_decide.py:246",
+        "routing_topk": "src/repro/kernels/routing_decide.py:272",
+        "routing_attain": "src/repro/kernels/routing_decide.py:297",
     }
     rows = []
     for k in kernels:

@@ -5,7 +5,8 @@ simulator.
 Layers:
 
 * :mod:`repro_torch.control.policies`  — the strategy registry
-  (``route_best`` / ``guarded_alg1``) over a shared base: batched
+  (``route_best`` / ``guarded_alg1`` / ``safetail`` / ``reliable`` /
+  ``hybrid``) over a shared base: batched
   scoring/selection on the candidate table (torch scorer, CUDA kernels
   or their plain versions), f32-pinned decision boundaries, the float64
   scalar reference loop;
@@ -23,8 +24,12 @@ from repro_torch.control.admission import (ADMITTED, DUPLICATE, OFFLOADED,
                                            SlotBank)
 from repro_torch.control.fleet import FleetPlane, PodGroup
 from repro_torch.control.plane import ControlPlane, hpa_refresh
-from repro_torch.control.policies import (POLICIES, GuardedAlgorithm1Policy,
-                                          RouteBestPolicy, RoutingPolicyBase,
+from repro_torch.control.policies import (POLICIES,
+                                          BurstAdaptiveHybridPolicy,
+                                          GuardedAlgorithm1Policy,
+                                          ReliableSloPolicy, RouteBestPolicy,
+                                          RoutingPolicy, RoutingPolicyBase,
+                                          SafeTailRedundantPolicy,
                                           WindowDecision, get_policy,
                                           make_policy)
 from repro_torch.control.policies.base import CandidateTable
@@ -33,6 +38,8 @@ __all__ = [
     "ADMITTED", "DUPLICATE", "OFFLOADED", "REJECTED", "AdmissionConfig",
     "AdmissionDecision", "AdmissionQueue", "SlotBank", "ControlPlane",
     "FleetPlane", "PodGroup", "hpa_refresh", "CandidateTable",
-    "POLICIES", "GuardedAlgorithm1Policy", "RouteBestPolicy",
-    "RoutingPolicyBase", "WindowDecision", "get_policy", "make_policy",
+    "POLICIES", "BurstAdaptiveHybridPolicy", "GuardedAlgorithm1Policy",
+    "ReliableSloPolicy", "RouteBestPolicy", "RoutingPolicy",
+    "RoutingPolicyBase", "SafeTailRedundantPolicy", "WindowDecision",
+    "get_policy", "make_policy",
 ]

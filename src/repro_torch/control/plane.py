@@ -4,8 +4,9 @@
 
 * a :class:`~repro_torch.control.policies.base.RoutingPolicyBase` strategy —
   batched scoring + selection over the (request x candidate) matrix (one
-  vmap/Pallas call per window). Which *decision rule* runs is pluggable
-  (``route_best`` / ``guarded_alg1`` / ``safetail`` — the
+  batched-scorer or kernel call per window). Which *decision rule* runs
+  is pluggable (``route_best`` / ``guarded_alg1`` / ``safetail`` /
+  ``reliable`` / ``hybrid`` — the
   :mod:`repro_torch.control.policies` registry); the plane owns everything
   strategy-independent;
 * :class:`~repro_torch.control.admission.AdmissionQueue` — window

@@ -9,11 +9,20 @@ WindowDecision``. The registry maps stable string names — usable from
 
 * ``route_best``   — cross-tier argmin (the default);
 * ``guarded_alg1`` — home-tier binding + the paper's per-request offload
-  guard (Algorithm 1 lines 8-11), one vectorised comparison per window.
+  guard (Algorithm 1 lines 8-11), one vectorised comparison per window;
+* ``safetail``     — top-k feasible redundant dispatch with
+  first-completion cancellation (SafeTail, arXiv:2408.17171);
+* ``reliable``     — SLO-attainment-probability routing with
+  headroom-gated duplication (FogROS2-PLR, arXiv:2410.05562);
+* ``hybrid``       — burst-adaptive composite: an EWMA burst detector
+  on the arrival stream delegates to ``guarded_alg1`` under steady
+  load and ``safetail`` during bursts, and exports a reactive scaling
+  floor through the PM-HPA hook (arXiv:2512.14290).
 
-The reference package's ``safetail``, ``reliable`` and ``hybrid``
-strategies are not ported yet: :func:`get_policy` names them in its
-error instead of pretending they do not exist.
+Under ``backend="cuda"`` each strategy decides a window in one kernel
+launch: ``routing_score``, ``routing_guard``, ``routing_topk`` and
+``routing_attain`` respectively (``hybrid`` launches its active
+constituent's).
 """
 from __future__ import annotations
 
@@ -27,9 +36,6 @@ from repro_torch.core.catalogue import Cluster
 from repro_torch.core.router import Router
 
 POLICIES: dict[str, type] = {}
-
-#: registered in the reference package, still to be ported
-NOT_PORTED = ("safetail", "reliable", "hybrid")
 
 
 def register(cls: type) -> type:
@@ -46,10 +52,6 @@ def get_policy(name: str) -> type:
     try:
         return POLICIES[name]
     except KeyError:
-        if name in NOT_PORTED:
-            raise KeyError(f"routing policy {name!r} is not ported to "
-                           f"repro_torch yet; ported: {sorted(POLICIES)}"
-                           ) from None
         raise KeyError(f"unknown routing policy {name!r}; registered: "
                        f"{sorted(POLICIES)}") from None
 
@@ -75,13 +77,25 @@ def make_policy(spec: PolicySpec, cluster: Cluster, router: Router,
 
 
 from repro_torch.control.policies.guarded import GuardedAlgorithm1Policy  # noqa: E402
+from repro_torch.control.policies.hybrid import BurstAdaptiveHybridPolicy  # noqa: E402
+from repro_torch.control.policies.reliable import ReliableSloPolicy  # noqa: E402
 from repro_torch.control.policies.route_best import RouteBestPolicy  # noqa: E402
+from repro_torch.control.policies.safetail import SafeTailRedundantPolicy  # noqa: E402
 
 register(RouteBestPolicy)
 register(GuardedAlgorithm1Policy)
+register(SafeTailRedundantPolicy)
+register(ReliableSloPolicy)
+register(BurstAdaptiveHybridPolicy)
+
+#: back-compat alias: the single strategy of the first control plane was
+#: the route_best window mode
+RoutingPolicy = RouteBestPolicy
 
 __all__ = [
-    "BIG", "CandidateTable", "GuardedAlgorithm1Policy", "NOT_PORTED",
-    "POLICIES", "PolicySpec", "RouteBestPolicy", "RoutingPolicyBase",
-    "WindowDecision", "get_policy", "make_policy", "register",
+    "BIG", "BurstAdaptiveHybridPolicy", "CandidateTable",
+    "GuardedAlgorithm1Policy", "POLICIES", "PolicySpec",
+    "ReliableSloPolicy", "RouteBestPolicy", "RoutingPolicy",
+    "RoutingPolicyBase", "SafeTailRedundantPolicy", "WindowDecision",
+    "get_policy", "make_policy", "register",
 ]

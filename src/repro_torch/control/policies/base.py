@@ -5,10 +5,11 @@ The paper's central claim is that a single in-memory latency model
 drives both millisecond-scale routing and proactive capacity planning.
 This module is that model's *decision substrate*: every routing
 strategy — cross-tier argmin
-(:class:`~repro_torch.control.policies.route_best.RouteBestPolicy`) and the
+(:class:`~repro_torch.control.policies.route_best.RouteBestPolicy`), the
 paper's guarded home-tier Algorithm 1
-(:class:`~repro_torch.control.policies.guarded.GuardedAlgorithm1Policy`) —
-shares literally the same candidate table, batched scorer and
+(:class:`~repro_torch.control.policies.guarded.GuardedAlgorithm1Policy`),
+SafeTail redundant dispatch, SLO-attainment routing and the
+burst-adaptive hybrid — shares literally the same candidate table, batched scorer and
 decision-boundary contract:
 
 * :class:`CandidateTable` — the static per-deployment parameter arrays
@@ -280,6 +281,22 @@ class RoutingPolicyBase:
             lam = np.concatenate([lam, zrow], axis=0)
             slo_eff = np.concatenate([slo_eff, zrow], axis=0)
         return self._upload(lam), self._upload(slo_eff), r
+
+    def _fused_topk(self, lam: np.ndarray, slo: np.ndarray,
+                    mask: np.ndarray, k: int, margin: float = 0.0):
+        """Whole-window top-k decision in one ``routing_topk`` call:
+        route_best primary in column 0, the next k-1 feasible candidates
+        ascending by g (headroom-gated by ``margin``) after it, -1
+        padding. Returns host (idx (R, k), g (R, k), ok (R,))."""
+        from repro_torch.kernels import ops
+        cols = self._device_static()
+        lam_d, slo_d, r = self._fused_rows(lam, slo, mask)
+        idx, g, ok = ops.routing_topk(
+            lam_d, cols["alpha"], cols["beta"], cols["gamma"], cols["mu"],
+            cols["n"], cols["rtt"], slo_d, cols["cost"], self._erlang(),
+            k=k, margin=float(margin), impl=self.cfg.backend)
+        return (idx[:r].cpu().numpy(), g[:r].cpu().numpy(),
+                ok[:r].cpu().numpy())
 
     # ---------------- strategy hook ----------------------------------- #
     def decide(self, reqs: list[Request], t_now: float) -> WindowDecision:

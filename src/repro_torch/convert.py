@@ -15,6 +15,9 @@ import torch
 
 #: float32 candidate columns, each (I,)
 F32_COLUMNS = ("alpha", "beta", "gamma", "mu", "rtt", "cost", "tau", "n")
+#: optional float32 (I,) columns: the ``reliable`` policy's per-candidate
+#: log-dispersion and delivery probability (``routing_attain``)
+OPTIONAL_COLUMNS = ("sigma", "avail")
 
 
 def candidate_table_from_numpy(cols: dict, erlang_table, device="cuda"
@@ -23,14 +26,17 @@ def candidate_table_from_numpy(cols: dict, erlang_table, device="cuda"
 
     ``cols`` maps ``alpha``, ``beta``, ``gamma``, ``mu``, ``rtt``,
     ``cost``, ``tau`` and ``n`` to (I,) arrays and ``upstream`` to an
-    (I,) int array (-1 at the top tier); ``erlang_table`` is (I, T).
-    Returns float32 tensors for those columns, ``upstream`` as int32 and
-    the table under ``"erlang_table"``, all contiguous on ``device``
-    and copied, so they never alias the caller's arrays.
+    (I,) int array (-1 at the top tier), and may map ``sigma`` and
+    ``avail`` to (I,) arrays (a reference ``ReliableSloPolicy``'s
+    ``_sigma`` / ``_avail``); ``erlang_table`` is (I, T). Returns float32
+    tensors for those columns, ``upstream`` as int32 and the table under
+    ``"erlang_table"``, all contiguous on ``device`` and copied, so they
+    never alias the caller's arrays.
     """
     n_cand = len(np.asarray(cols["alpha"]))
     out: dict[str, torch.Tensor] = {}
-    for name in F32_COLUMNS:
+    for name in F32_COLUMNS + tuple(c for c in OPTIONAL_COLUMNS
+                                    if c in cols):
         arr = np.ascontiguousarray(np.asarray(cols[name]), np.float32)
         if arr.shape != (n_cand,):
             raise ValueError(f"column {name!r}: shape {arr.shape}, "

@@ -9,11 +9,13 @@ Public surface:
 * routing         — ``Router``, ``RouterParams``, ``score_instances``
 * scheduling      — ``MultiQueueScheduler``, ``QualityClass``, ``Request``
 * autoscaling     — ``PMHPA``, ``ReactiveAutoscaler``, ``desired_replicas``
+* capacity        — ``evaluate``, ``plan_exhaustive``, ``plan_greedy``
 * simulation      — ``ClusterSimulator``, ``SimConfig``
 * workload        — ``poisson_arrivals``, ``bounded_pareto_bursts``, ...
 """
 from repro_torch.core.autoscaler import (PMHPA, ReactiveAutoscaler,
                                          desired_replicas)
+from repro_torch.core.capacity import evaluate, plan_exhaustive, plan_greedy
 from repro_torch.core.catalogue import Cluster, Deployment, paper_cluster
 from repro_torch.core.latency_model import (CLOUD, EFFICIENTDET, FASTER_RCNN,
                                             PI4_EDGE, YOLOV5M,
@@ -41,7 +43,8 @@ from repro_torch.core.workload import (Arrival, bounded_pareto_bursts,
                                        robot_trace)
 
 __all__ = [
-    "PMHPA", "ReactiveAutoscaler", "desired_replicas", "Cluster",
+    "PMHPA", "ReactiveAutoscaler", "desired_replicas", "evaluate",
+    "plan_exhaustive", "plan_greedy", "Cluster",
     "Deployment", "paper_cluster", "CLOUD", "EFFICIENTDET", "FASTER_RCNN",
     "PI4_EDGE", "YOLOV5M", "CalibratedModel", "InstanceClass",
     "ModelProfile", "affine_power_law", "calibrate",

@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
+_FLOAT = ctypes.c_float
 
 
 class KernelLibrary:
@@ -51,6 +52,14 @@ class KernelLibrary:
         lib.laimr_routing_guard.argtypes = (
             [_VOIDP, _INT, _INT] + [_VOIDP] * 10 + [_INT] * 2
             + [_VOIDP] * 4)
+        lib.laimr_routing_topk.restype = _INT
+        lib.laimr_routing_topk.argtypes = (
+            [_VOIDP, _INT, _INT] + [_VOIDP] * 7 + [_INT] + [_VOIDP] * 2
+            + [_INT] * 4 + [_FLOAT] + [_VOIDP] * 4)
+        lib.laimr_routing_attain.restype = _INT
+        lib.laimr_routing_attain.argtypes = (
+            [_VOIDP, _INT, _INT] + [_VOIDP] * 7 + [_INT] + [_VOIDP] * 3
+            + [_INT] * 4 + [_FLOAT] + [_VOIDP] * 4)
         lib.laimr_cuda_error_string.restype = ctypes.c_char_p
         lib.laimr_cuda_error_string.argtypes = [_INT]
         self.lib = lib

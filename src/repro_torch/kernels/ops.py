@@ -48,3 +48,32 @@ def routing_guard(lam, alpha, beta, gamma, mu, n, rtt, tau, home, up,
     from repro_torch.kernels import routing_decide as rd
     return rd.routing_guard(lam, alpha, beta, gamma, mu, n, rtt, tau, home,
                             up, erlang_c_table)
+
+
+def routing_topk(lam, alpha, beta, gamma, mu, n, rtt, slo, cost,
+                 erlang_c_table, k: int = 2, margin: float = 0.0,
+                 impl: str = "ref"):
+    """Fused top-k feasible select. See ``ref.routing_topk_ref``."""
+    _require_cuda("routing_topk", lam, impl)
+    if impl == "ref":
+        return _ref.routing_topk_ref(lam, alpha, beta, gamma, mu, n, rtt,
+                                     slo, cost, erlang_c_table, k=k,
+                                     margin=margin)
+    from repro_torch.kernels import routing_decide as rd
+    return rd.routing_topk(lam, alpha, beta, gamma, mu, n, rtt, slo, cost,
+                           erlang_c_table, k=k, margin=margin)
+
+
+def routing_attain(lam, alpha, beta, gamma, mu, n, rtt, slo, sigma, avail,
+                   erlang_c_table, k: int = 2, margin: float = 0.0,
+                   impl: str = "ref"):
+    """Fused attainment-argmax select. See ``ref.routing_attain_ref``."""
+    _require_cuda("routing_attain", lam, impl)
+    if impl == "ref":
+        return _ref.routing_attain_ref(lam, alpha, beta, gamma, mu, n, rtt,
+                                       slo, sigma, avail, erlang_c_table,
+                                       k=k, margin=margin)
+    from repro_torch.kernels import routing_decide as rd
+    return rd.routing_attain(lam, alpha, beta, gamma, mu, n, rtt, slo,
+                             sigma, avail, erlang_c_table, k=k,
+                             margin=margin)

@@ -9,16 +9,24 @@ power law through ``torch.pow`` and the Erlang-C wait through a
 the TPU kernels' arithmetic (``exp(gamma*log(x))`` and a hat-function
 sum), so kernel and plain version agree on ``ok``/``offloaded`` exactly,
 on the chosen index wherever a row is feasible, and on g within
-``rtol=1e-4``.
+``rtol=1e-4``. ``routing_attain_ref`` takes Phi through ``torch.erf``,
+the kernel through ``erff``, a few ulp apart; with the g difference
+this moves an attainment probability by up to ~1e-6 at small sigma, so
+a primary can differ only on a row with a candidate that close to the
+band edge ``pmax - 1e-6``.
 
 They run on any device; ``AdmissionConfig(backend="ref")`` uses them,
 and the kernel wrappers use them for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.routing_decide import UNSTABLE_G, apply_guard
+
+ATTAIN_BAND = 1e-6  # absolute attainment tie band of routing_attain
+_SQRT2 = 1.4142135623730951
 
 
 def _table_scores(lam: torch.Tensor, alpha: torch.Tensor,
@@ -97,3 +105,116 @@ def routing_guard_ref(lam, alpha, beta, gamma, mu, n, rtt, tau, home, up,
                               up_, up_ >= 0, home_)
     g_sel = torch.gather(g_eff, 1, chosen[:, None])[:, 0]
     return chosen.to(torch.int32), g_sel, off
+
+
+def _slo_rows(slo: torch.Tensor) -> torch.Tensor:
+    slo_ = slo.to(torch.float32)
+    return slo_[None, :] if slo_.ndim == 1 else slo_
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to float32 as a 0-d tensor, so that ``slo - margin``
+    subtracts the float32 margin as the kernels do. A fill, not a copy
+    from the host: a copy from pageable memory would block the host
+    until the stream drains."""
+    return torch.full((), float(np.float32(x)), dtype=torch.float32,
+                      device=like.device)
+
+
+def _dup_order(g: torch.Tensor, elig: torch.Tensor, ok: torch.Tensor,
+               k: int):
+    """k - 1 duplicate columns from a stable ascending-g argsort over
+    the eligible set (ties to the lowest index) — the argsort twin of
+    the kernels' one-pass-per-column argmin."""
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=g.device)
+    zero = torch.zeros((), dtype=torch.float32, device=g.device)
+    order = torch.argsort(torch.where(elig, g, inf), dim=1, stable=True)
+    cnt = elig.sum(dim=1)
+    last = g.shape[1] - 1
+    cols, gcols = [], []
+    for j in range(1, k):
+        # k may exceed I: such columns are never valid (cnt <= I - 1)
+        cj = order[:, min(j - 1, last)]
+        valid = ok & (cnt > j - 1)
+        cols.append(torch.where(valid, cj, -1).to(torch.int32))
+        gcols.append(torch.where(
+            valid, torch.gather(g, 1, cj[:, None])[:, 0], zero))
+    return cols, gcols
+
+
+def _topk_outputs(g: torch.Tensor, rho: torch.Tensor,
+                  feasible: torch.Tensor, primary: torch.Tensor,
+                  gate: torch.Tensor, k: int):
+    """(idx (R, k) int32, g (R, k), ok (R,)) shared by the top-k and
+    attainment selects: column 0 the primary (-1 and the row minimum of
+    the sentinel-masked scores on infeasible rows), then the duplicates."""
+    ok = feasible.any(dim=1)
+    g_eff = torch.where(rho < 1.0, g, torch.full_like(g, UNSTABLE_G))
+    g_p = torch.gather(g, 1, primary[:, None])[:, 0]
+    idx0 = torch.where(ok, primary, -1).to(torch.int32)
+    g0 = torch.where(ok, g_p, g_eff.amin(dim=1))
+    cols_i = torch.arange(g.shape[1], device=g.device)[None, :]
+    elig = feasible & gate & (cols_i != primary[:, None])
+    cols, gcols = _dup_order(g, elig, ok, k)
+    return (torch.stack([idx0] + cols, dim=1),
+            torch.stack([g0] + gcols, dim=1), ok)
+
+
+def routing_topk_ref(lam, alpha, beta, gamma, mu, n, rtt, slo, cost,
+                     erlang_c_table, k: int = 2, margin: float = 0.0):
+    """Fused top-k select (plain version of
+    ``routing_decide.routing_topk``).
+
+    Column 0 is the route_best primary (SLO filter + latency argmin +
+    two-stage cost tie-break); columns 1..k-1 are the next feasible
+    candidates in ascending-g order, primary excluded and headroom-gated
+    by ``g <= slo - margin``, with -1 (and g 0) where fewer exist.
+    Infeasible rows report idx -1 and the row-min score in g column 0
+    (the predicted fallback). Returns (idx (R, k) int32, g (R, k)
+    float32, ok (R,) bool).
+    """
+    slo_ = _slo_rows(slo)
+    g, rho = _table_scores(lam, alpha, beta, gamma, mu, n, rtt,
+                           erlang_c_table)
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=g.device)
+    feasible = (rho < 1.0) & (g <= slo_)
+    g_masked = torch.where(feasible, g, inf)
+    gmin = g_masked.amin(dim=1, keepdim=True)
+    near = feasible & (g_masked <= gmin * (1.0 + 1e-5) + 1e-9)
+    primary = torch.argmin(
+        torch.where(near, cost[None, :].expand(g.shape), inf), dim=1)
+    gate = g <= slo_ - _f32(margin, g)
+    return _topk_outputs(g, rho, feasible, primary, gate, k)
+
+
+def routing_attain_ref(lam, alpha, beta, gamma, mu, n, rtt, slo, sigma,
+                       avail, erlang_c_table, k: int = 2,
+                       margin: float = 0.0):
+    """Fused attainment-argmax select (plain version of
+    ``routing_decide.routing_attain``).
+
+    The primary maximises the delivery-weighted SLO-attainment
+    probability ``avail * Phi((ln slo - ln g) / (sigma * sqrt2))`` over
+    feasible candidates, in float32 (``sigma <= 0`` is the step
+    ``g <= slo``); ties within an absolute 1e-6 band break toward lower
+    g, then lower index, so uniform distributions degrade to argmin g.
+    Duplicate columns and outputs as in :func:`routing_topk_ref`.
+    """
+    slo_ = _slo_rows(slo)
+    g, rho = _table_scores(lam, alpha, beta, gamma, mu, n, rtt,
+                           erlang_c_table)
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=g.device)
+    feasible = (rho < 1.0) & (g <= slo_)
+    sig = sigma.to(torch.float32)[None, :]
+    z = (torch.log(torch.clamp_min(slo_, 1e-20))
+         - torch.log(torch.clamp_min(g, 1e-20))) \
+        / (torch.clamp_min(sig, 1e-20) * _f32(_SQRT2, g))
+    phi = 0.5 * (1.0 + torch.erf(torch.clamp(z, -10.0, 10.0)))
+    p = avail.to(torch.float32)[None, :] * torch.where(
+        sig > 0.0, phi, (g <= slo_).to(torch.float32))
+    p_masked = torch.where(feasible, p, torch.full_like(p, -1.0))
+    pmax = p_masked.amax(dim=1, keepdim=True)
+    nearp = feasible & (p_masked >= pmax - _f32(ATTAIN_BAND, g))
+    primary = torch.argmin(torch.where(nearp, g, inf), dim=1)
+    gate = g <= slo_ - _f32(margin, g)
+    return _topk_outputs(g, rho, feasible, primary, gate, k)

@@ -1,22 +1,29 @@
-"""``routing_guard``: a window of Algorithm-1 guarded decisions in one
-launch, and :func:`apply_guard`, the guard arithmetic every path shares.
+"""Whole-policy routing decisions in one launch each, and
+:func:`apply_guard`, the guard arithmetic every path shares.
 
-``routing_guard`` is the hand-written CUDA kernel in ``csrc/routing.cu``
-(``routing_guard_kernel``); it replaces the TPU kernel
-``src/repro/kernels/routing_decide.py:routing_guard``. Each row scores
-its home column, applies the paper's guard ``(g_home - rtt_home) > tau
--> upstream``, and scores the upstream column only when the guard
-fires. CUDA tensors go to the kernel (or the wrapper raises); CPU
-tensors go to the plain version ``ref.routing_guard_ref``.
+Three hand-written CUDA kernels in ``csrc/routing.cu``, each replacing
+the TPU kernel of the same name in ``src/repro/kernels/routing_decide.py``:
 
-The other three TPU decision kernels of the reference module
-(``routing_topk``, ``routing_attain``) are not ported yet.
+* :func:`routing_guard` (``routing_guard_kernel``, ``guarded_alg1``):
+  each row scores its home column, applies the paper's guard
+  ``(g_home - rtt_home) > tau -> upstream``, and scores the upstream
+  column only when the guard fires;
+* :func:`routing_topk` (``routing_topk_kernel``, ``safetail``): the
+  route_best primary plus the next ``k - 1`` feasible candidates in
+  ascending g, headroom-gated by ``g <= slo - margin``;
+* :func:`routing_attain` (``routing_attain_kernel``, ``reliable``): the
+  primary maximises the delivery-weighted SLO-attainment probability,
+  duplicates as in ``routing_topk``.
+
+CUDA tensors go to the kernel (or the wrapper raises); CPU tensors go
+to the plain versions in ``repro_torch.kernels.ref``.
 """
 from __future__ import annotations
 
 import torch
 
 UNSTABLE_G = 1e9    # router.BIG: the unstable-pool sentinel
+K_MAX = 8           # most columns routing_topk / routing_attain emit
 
 
 def apply_guard(g_home: torch.Tensor, rtt_home: torch.Tensor,
@@ -91,3 +98,111 @@ def routing_guard(lam: torch.Tensor, alpha: torch.Tensor,
 
 
 routing_guard.launches = 0
+
+
+def _check_k(what: str, k: int) -> None:
+    """The kernels emit at most K_MAX columns (one rescoring pass each);
+    the wrapper holds CPU and CUDA callers to the same cap."""
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"{what}: k={k} outside [1, {K_MAX}]")
+
+
+def _launch_topk(what: str, fn_name: str, lam, cols, slo, extra, table,
+                 k: int, margin: float):
+    """Shared launch of the two (R, k) select kernels: checks every
+    input, allocates (idx (R, k) int32, g (R, k) f32, ok (R,)) and
+    enqueues on the current stream. ``extra`` holds the kernel's (I,)
+    columns after ``slo`` (cost, or sigma and avail)."""
+    from repro_torch.kernels._build import library
+    from repro_torch.kernels.routing_score import (check_input, row_strides,
+                                                   stream_ptr)
+    dev = lam.device
+    r = lam.shape[0]
+    i, t = table.shape
+    check_input("lam", lam, ((r,), (r, i)), dev)
+    for name, col in cols + extra:
+        check_input(name, col, ((i,),), dev)
+    check_input("slo", slo, ((i,), (r, i)), dev)
+    check_input("erlang_c_table", table, ((i, t),), dev)
+    if i < 1 or t < 2:
+        raise ValueError(f"{what}: table shape {(i, t)}")
+    idx = torch.empty((r, k), dtype=torch.int32, device=dev)
+    g = torch.empty((r, k), dtype=torch.float32, device=dev)
+    ok = torch.empty(r, dtype=torch.uint8, device=dev)
+    lib = library()
+    lam_rs, lam_cs = row_strides(lam)
+    rc = getattr(lib.lib, fn_name)(
+        lam.data_ptr(), lam_rs, lam_cs, *[c.data_ptr() for _, c in cols],
+        slo.data_ptr(), 0 if slo.ndim == 1 else i,
+        *[c.data_ptr() for _, c in extra], table.data_ptr(), r, i, t, k,
+        float(margin), idx.data_ptr(), g.data_ptr(), ok.data_ptr(),
+        stream_ptr(dev))
+    lib.check(rc, what)
+    return idx, g, ok.view(torch.bool)
+
+
+def routing_topk(lam: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                 gamma: torch.Tensor, mu: torch.Tensor, n: torch.Tensor,
+                 rtt: torch.Tensor, slo: torch.Tensor, cost: torch.Tensor,
+                 erlang_c_table: torch.Tensor, k: int = 2,
+                 margin: float = 0.0):
+    """Fused top-k select: the route_best primary in column 0 plus the
+    next ``k - 1`` feasible candidates in ascending g (primary excluded,
+    headroom-gated by ``g <= slo - margin``), -1 where fewer exist.
+
+    Inputs as :func:`~repro_torch.kernels.routing_score.routing_score`;
+    ``1 <= k <= K_MAX`` (ValueError otherwise, on any device). Returns
+    (idx (R, k) int32, g (R, k) float32, ok (R,) bool); on a row with
+    nothing feasible idx is -1 throughout and g column 0 is the row
+    minimum of the sentinel-masked scores.
+    """
+    _check_k("routing_topk", k)
+    if lam.device.type == "cpu":
+        from repro_torch.kernels import ref
+        return ref.routing_topk_ref(lam, alpha, beta, gamma, mu, n, rtt,
+                                    slo, cost, erlang_c_table, k=k,
+                                    margin=margin)
+    if lam.device.type != "cuda":
+        raise ValueError(f"routing_topk: no kernel for {lam.device}")
+    out = _launch_topk(
+        "routing_topk", "laimr_routing_topk", lam,
+        [("alpha", alpha), ("beta", beta), ("gamma", gamma), ("mu", mu),
+         ("n", n), ("rtt", rtt)], slo, [("cost", cost)], erlang_c_table,
+        k, margin)
+    routing_topk.launches += 1
+    return out
+
+
+routing_topk.launches = 0
+
+
+def routing_attain(lam: torch.Tensor, alpha: torch.Tensor,
+                   beta: torch.Tensor, gamma: torch.Tensor, mu: torch.Tensor,
+                   n: torch.Tensor, rtt: torch.Tensor, slo: torch.Tensor,
+                   sigma: torch.Tensor, avail: torch.Tensor,
+                   erlang_c_table: torch.Tensor, k: int = 2,
+                   margin: float = 0.0):
+    """Fused attainment-argmax select for the ``reliable`` strategy:
+    primary = feasible argmax of ``avail * Phi((ln slo - ln g) / (sigma
+    * sqrt2))`` (ties within 1e-6 to lower g, then lower index);
+    duplicate columns and outputs as :func:`routing_topk`. sigma, avail:
+    (I,) float32 dispersion and delivery probability.
+    """
+    _check_k("routing_attain", k)
+    if lam.device.type == "cpu":
+        from repro_torch.kernels import ref
+        return ref.routing_attain_ref(lam, alpha, beta, gamma, mu, n, rtt,
+                                      slo, sigma, avail, erlang_c_table,
+                                      k=k, margin=margin)
+    if lam.device.type != "cuda":
+        raise ValueError(f"routing_attain: no kernel for {lam.device}")
+    out = _launch_topk(
+        "routing_attain", "laimr_routing_attain", lam,
+        [("alpha", alpha), ("beta", beta), ("gamma", gamma), ("mu", mu),
+         ("n", n), ("rtt", rtt)], slo, [("sigma", sigma), ("avail", avail)],
+        erlang_c_table, k, margin)
+    routing_attain.launches += 1
+    return out
+
+
+routing_attain.launches = 0

@@ -158,12 +158,13 @@ class TestWindowDecisions:
         np.testing.assert_array_equal(tok, jok)
 
     def test_unported_policies_raise_key_error(self):
-        for name in ("safetail", "reliable", "hybrid"):
-            with pytest.raises(KeyError, match="not ported"):
-                t_pol.get_policy(name)
+        """Every policy the reference registers is ported now; a name
+        neither package registers raises KeyError naming the registry."""
+        assert sorted(t_pol.POLICIES) == sorted(j_pol.POLICIES)
+        for name in j_pol.POLICIES:
+            assert t_pol.get_policy(name).name == name
         with pytest.raises(KeyError, match="unknown"):
             t_pol.get_policy("no_such_policy")
-        assert sorted(t_pol.POLICIES) == sorted(POLICIES)
 
 
 class TestDeviceColumnCache:
@@ -225,6 +226,42 @@ class TestConvert:
         np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
         np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=2e-6)
 
+    def test_reliable_distribution_columns_decide_the_same(self):
+        """A JAX ``ReliableSloPolicy``'s ``_sigma`` / ``_avail`` carried
+        across feed ``routing_attain`` to the JAX oracle's decisions."""
+        jp, _ = policies("reliable", "vmap", "paper",
+                         link_loss={"edge": 0.02, "cloud": 0.1},
+                         link_jitter={"cloud": 0.3})
+        jt = jp.table
+        cols = {c: getattr(jt, c) for c in ("alpha", "beta", "gamma", "mu",
+                                            "rtt", "cost", "tau",
+                                            "upstream")}
+        cols.update(n=jt.n(), sigma=jp._sigma, avail=jp._avail)
+        table = np.asarray(j_table(jt.mu, jt.n().astype(np.int64)))
+        dev = candidate_table_from_numpy(cols, table, "cpu")
+        for c in ("sigma", "avail"):
+            assert dev[c].dtype == torch.float32
+            np.testing.assert_array_equal(dev[c].numpy(),
+                                          cols[c].astype(np.float32))
+        rng = np.random.default_rng(5)
+        lam = rng.uniform(0.0, 6.0, (32, len(jt))).astype(np.float32)
+        slo = np.broadcast_to(jt.tau, lam.shape).copy()
+        names = ("alpha", "beta", "gamma", "mu", "n", "rtt")
+        ti, tg, tok = t_ops.routing_attain(
+            torch.as_tensor(lam), *[dev[c] for c in names],
+            torch.as_tensor(slo), dev["sigma"], dev["avail"],
+            dev["erlang_table"], k=3, margin=0.25, impl="ref")
+        ji, jg, jok = j_ops.routing_attain(
+            jnp.asarray(lam), *[jnp.asarray(cols[c], jnp.float32)
+                                for c in names],
+            jnp.asarray(slo), jnp.asarray(jp._sigma, jnp.float32),
+            jnp.asarray(jp._avail, jnp.float32), jnp.asarray(table), k=3,
+            margin=0.25, impl="ref")
+        assert np.asarray(jok).any()
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=2e-6)
+
     def test_rejects_malformed_columns(self):
         cols = {c: np.ones(3, np.float32) for c in
                 ("alpha", "beta", "gamma", "mu", "rtt", "cost", "tau", "n")}
@@ -234,6 +271,9 @@ class TestConvert:
         cols["upstream"] = np.array([1, -1, -1])
         with pytest.raises(ValueError, match="erlang_table"):
             candidate_table_from_numpy(cols, np.ones((2, 65)), "cpu")
+        cols["sigma"] = np.ones(2, np.float32)
+        with pytest.raises(ValueError, match="sigma"):
+            candidate_table_from_numpy(cols, np.ones((3, 65)), "cpu")
 
 
 def routers(backend: str, policy: str, engines: bool, **cfg):

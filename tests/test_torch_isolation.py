@@ -1,9 +1,17 @@
 """The port stands alone: nothing under ``src/repro_torch/`` and not
 ``chip_smoke.py`` imports ``jax`` or the reference package ``repro``,
 so the port runs on a machine that has neither.
+
+Also the port's kernel-oracle rule: every ``__global__`` kernel in
+``src/repro_torch/kernels/csrc/*.cu`` has a wrapper that counts its
+launches, a plain version ``<wrapper>_ref`` in ``kernels/ref.py``, and a
+``tests/test_torch_*.py`` file that names both.
 """
 import ast
+import importlib
 import os
+import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -38,6 +46,9 @@ def test_port_has_the_slice_modules():
             "control/admission.py", "control/plane.py", "control/fleet.py",
             "control/policies/base.py", "control/policies/route_best.py",
             "control/policies/guarded.py", "control/policies/__init__.py",
+            "control/policies/safetail.py", "control/policies/reliable.py",
+            "control/policies/hybrid.py", "control/policy.py",
+            "core/capacity.py",
             "serving/batch_router.py", "kernels/ref.py", "kernels/ops.py",
             "kernels/routing_score.py", "kernels/routing_decide.py",
             "kernels/_build.py", "kernels/csrc/routing.cu", "convert.py"]
@@ -72,3 +83,50 @@ def test_importing_the_port_loads_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+# ------------------------------------------------------ kernel-oracle rule --
+GLOBAL_RE = re.compile(r"__global__\s+void\s+(\w+)\s*\(")
+
+
+def cuda_kernels() -> list[str]:
+    """Names of every ``__global__`` function in the port's CUDA
+    sources."""
+    names = []
+    for src in sorted((PORT / "kernels" / "csrc").glob("*.cu")):
+        names += GLOBAL_RE.findall(src.read_text())
+    return names
+
+
+def wrapper_of(kernel: str):
+    """The Python function that launches ``kernel`` (its name without
+    ``_kernel``) in some module of ``repro_torch.kernels``, or None."""
+    import repro_torch.kernels as pkg
+    name = kernel.removesuffix("_kernel")
+    for info in pkgutil.iter_modules(pkg.__path__):
+        mod = importlib.import_module(f"repro_torch.kernels.{info.name}")
+        fn = getattr(mod, name, None)
+        if callable(fn) and isinstance(getattr(fn, "launches", None), int):
+            return fn
+    return None
+
+
+def test_kernel_scan_sees_every_kernel():
+    assert cuda_kernels() == ["routing_score_kernel", "routing_guard_kernel",
+                              "routing_topk_kernel", "routing_attain_kernel"]
+
+
+@pytest.mark.parametrize("kernel", cuda_kernels())
+def test_kernel_has_counted_wrapper_plain_version_and_test(kernel):
+    from repro_torch.kernels import ref
+    name = kernel.removesuffix("_kernel")
+    assert wrapper_of(kernel) is not None, \
+        f"{kernel}: no wrapper {name} with a .launches counter"
+    assert callable(getattr(ref, f"{name}_ref", None)), \
+        f"{kernel}: no plain version {name}_ref in kernels/ref.py"
+    wrapper_re = re.compile(rf"\b{name}\b")
+    naming = [p.name for p in sorted((ROOT / "tests").glob("test_torch_*.py"))
+              if f"{name}_ref" in p.read_text()
+              and wrapper_re.search(p.read_text())]
+    assert naming, f"{kernel}: no tests/test_torch_*.py names both " \
+        f"{name} and {name}_ref"
