@@ -9,8 +9,10 @@ raises, and the script then exits non-zero and prints no result line.
 Each phase prints one JSON object per line:
 
 0. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
-1. the kernel build (``nvcc`` of ``kernels/csrc/routing.cu``);
-2. each CUDA kernel (``routing_score``, ``routing_guard``,
+1. the kernel build: one ``nvcc`` per source (``kernels/csrc/routing.cu``,
+   ``kernels/csrc/attention.cu``), all started together, with their
+   ptxas register and spill lines;
+2. each routing kernel (``routing_score``, ``routing_guard``,
    ``routing_topk``, ``routing_attain``) against its plain PyTorch
    version on the card: the reference package's kernel sweeps and edge
    cases, per-request SLO rows with lane exclusions, the guard's
@@ -29,14 +31,36 @@ Each phase prints one JSON object per line:
 6. the digests again through the default ``vmap`` backend, and a
    ``torch.profiler`` breakdown of one serving run per single-kernel
    policy (device time by kernel against the host's wall time);
-7. kernel and plain-version times (CUDA events) at the main path's
-   shapes and at fleet scale.
+7. both attention kernels (``flash_attention``, ``decode_attention``)
+   against their plain versions: the reference's sweeps in float32 and
+   bfloat16, head_dim 80, a 200-token sequence and an all-invalid decode
+   row within ``2e-5`` (float32) and ``5e-2`` (bfloat16), the
+   reference's own bounds; the model's shapes within ``2e-5`` in float32
+   and ``MODEL_BF16_TOL`` in bfloat16;
+8. StableLM-3B at full width in float32 (weights from generator seed
+   0): prefill of 8 x 512 prompts and 16 decode steps with
+   ``kernels="cuda"`` against ``kernels="ref"`` on the latter's tokens,
+   every step's logits within ``LOGIT_BOUND`` x max |logit|; then
+   ``ServingEngine.generate`` under both, greedy tokens equal except at
+   a near-tie of the plain run (top-2 gap within twice that bound);
+9. serving at full width in bf16: ``ServingEngine(slots=8,
+   max_len=2048)`` with ``b == slots`` (8 x 512 prompts, 64 steps) and
+   ``b < slots`` (4 prompts); exactly n_layers ``flash_attention``
+   launches per prefill and n_layers ``decode_attention`` launches per
+   decode step, prefill ms, decode ms per step, tokens/s delivered to
+   the live requests, and a ``torch.profiler`` breakdown of one decode
+   step;
+10. kernel, plain-version and library times (CUDA events, medians of
+   >= 100 launches): the attention kernels at the model's shapes against
+   ``scaled_dot_product_attention``, the routing kernels at the main
+   path's shapes and at fleet scale.
 
 Launch counters are set to 0 just before each policy's run in phases
-3-5 and read just after; a kernel that the policy decides through and
-that did not launch fails the run (``hybrid`` must launch both of its
-constituents' kernels on the flash stream). The line before the last is
-the kernel table, the last line the device.
+3-5 and each ``generate`` of phase 9, and read just after; a kernel that
+the path runs and that did not launch as often as it should fails the
+run (``hybrid`` must launch both of its constituents' kernels on the
+flash stream). The line before the last is the kernel table, the last
+line the device.
 """
 from __future__ import annotations
 
@@ -893,6 +917,423 @@ def phase_times(dev) -> dict:
     return out
 
 
+# ------------------------------------------------- model stack: phases --
+H100_BF16_FLOPS = 989e12       # dense tensor-core bf16, SXM data sheet
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 5e-2}   # the reference's bounds
+# bf16 at the model's shapes, where 5e-2 is as large as a typical output:
+# kernel and plain version accumulate in float32 and differ by ~1e-6
+# before the output's bf16 rounding, so they may land one bf16 step
+# apart (at most 2^-7 of the value), never more
+MODEL_BF16_TOL = dict(atol=1e-3, rtol=1e-2)
+# full-width float32 model parity (phase 10), stated before the first chip
+# run: each step's logits within LOGIT_BOUND x max |logit| of the plain
+# run's; a greedy token may flip only where the plain run's top-2 gap is
+# within twice that (each of the two logits may move by the bound)
+LOGIT_BOUND = 1e-4
+SERVE = dict(slots=8, max_len=2048, prompt=512, steps=64, partial=4)
+PARITY = dict(batch=8, prompt=512, steps=16)
+FLASH_MAIN = dict(b=8, s=512, h=32, d=80)      # prefill at the served shape
+DECODE_MAIN = dict(b=8, c=2048, h=32, d=80)    # decode at max_len
+# (b, sq, skv, h, hkv, d, kwargs): the reference's flash sweep and
+# extras, head_dim 80 and a 200-token sequence among them
+FLASH_CASES = [
+    (1, 128, 128, 1, 1, 64, {}), (2, 256, 256, 4, 2, 64, {}),
+    (2, 128, 128, 4, 1, 32, {}), (1, 512, 512, 2, 2, 128, {}),
+    (2, 96, 96, 4, 4, 80, {}), (1, 200, 200, 2, 1, 80, {}),
+    (2, 256, 256, 2, 2, 32, dict(window=32)),
+    (2, 256, 256, 2, 2, 32, dict(window=64)),
+    (2, 256, 256, 2, 2, 32, dict(window=100)),
+    (1, 128, 128, 2, 2, 64, dict(softcap=30.0, scale=0.1)),
+    (2, 128, 128, 2, 2, 32, dict(causal=False)),
+    (2, 40, 100, 4, 2, 16, dict(window=30)),
+    (1, 70, 70, 1, 1, 256, {}),
+]
+# (b, h, hkv, d, c, kwargs): the reference's decode sweep and extras
+DECODE_CASES = [
+    (1, 1, 1, 32, 128, {}), (3, 4, 2, 64, 256, {}), (2, 8, 1, 64, 512, {}),
+    (2, 4, 4, 80, 200, {}), (2, 4, 2, 32, 256, dict(window=128)),
+    (2, 4, 2, 32, 64, dict(softcap=30.0, scale=0.5)),
+]
+
+
+def attention_kernels():
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    return flash_attention, decode_attention
+
+
+def randn(gen, shape, dev, dtype):
+    import torch
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def flash_inputs(seed, b, sq, skv, h, hkv, d, dtype, dev, mult=1.0):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (randn(gen, (b, sq, h, d), dev, dtype) * mult,
+            randn(gen, (b, skv, hkv, d), dev, dtype) * mult,
+            randn(gen, (b, skv, hkv, d), dev, dtype))
+
+
+def decode_inputs(seed, b, h, hkv, d, c, dtype, dev, full=False):
+    """Random q and caches. ``full``: every slot holds a position before
+    the query's (a cache filled to C); else the reference sweep's draws,
+    kv_pos in [-1, 300) and q_pos in [100, 300], with row 0 all -1."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = randn(gen, (b, h, d), dev, dtype)
+    k = randn(gen, (b, c, hkv, d), dev, dtype)
+    v = randn(gen, (b, c, hkv, d), dev, dtype)
+    if full:
+        kv_pos = torch.arange(c, dtype=torch.int32, device=dev)[None] \
+            .repeat(b, 1)
+        q_pos = torch.full((b,), c, dtype=torch.int32, device=dev)
+    else:
+        kv_pos = torch.randint(-1, 300, (b, c), generator=gen, device=dev,
+                               dtype=torch.int32)
+        kv_pos[0] = -1                   # a row with no valid slot
+        q_pos = torch.randint(100, 301, (b,), generator=gen, device=dev,
+                              dtype=torch.int32)
+    return q, k, v, kv_pos, q_pos
+
+
+def compare_attention(kernel: str, label: str, got, want, dtype,
+                      tol: dict | None = None) -> float:
+    """Hold ``got`` to ``want`` within ``tol`` (atol, rtol; the
+    reference's bound for ``dtype`` when None)."""
+    import torch
+    err = (got.float() - want.float()).abs().max().item()
+    tol = tol or dict(atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+    ok = bool(torch.allclose(got.float(), want.float(), **tol))
+    emit({"phase": "attention_parity", "kernel": kernel, "case": label,
+          "dtype": dtype, "max_abs_err": err,
+          "max_abs_want": want.float().abs().max().item(), **tol, "ok": ok})
+    if not ok or not torch.isfinite(got.float()).all():
+        fail(f"{kernel} {label} {dtype}: max_abs_err {err} above {tol}")
+    return err
+
+
+def phase_attention_parity(dev) -> dict:
+    """Both attention kernels against their plain versions on the card:
+    the reference sweeps in float32 and bfloat16, head_dim 80, a
+    200-token sequence, an all-invalid decode row, and the model's own
+    shapes in both dtypes (decode with the sweep's mask draws and with a
+    full cache). Returns kernel -> max_abs_err at the model's shapes in
+    bf16, the served dtype."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import float32_gemms
+    flash, decode = attention_kernels()
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    with float32_gemms():                 # float32 plain versions exact
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            for n, (b, sq, skv, h, hkv, d, kw) in enumerate(FLASH_CASES):
+                mult = 3.0 if "softcap" in kw else 1.0
+                t = flash_inputs(700 + n, b, sq, skv, h, hkv, d, dt, dev,
+                                 mult)
+                compare_attention(
+                    "flash_attention", f"b{b}_sq{sq}_skv{skv}_h{h}_hkv{hkv}"
+                    f"_d{d}" + "".join(f"_{k}{v}" for k, v in kw.items()),
+                    flash(*t, **kw), ref.flash_attention_ref(*t, **kw),
+                    dtype)
+            for n, (b, h, hkv, d, c, kw) in enumerate(DECODE_CASES):
+                t = decode_inputs(800 + n, b, h, hkv, d, c, dt, dev)
+                compare_attention(
+                    "decode_attention", f"b{b}_h{h}_hkv{hkv}_d{d}_c{c}"
+                    + "".join(f"_{k}{v}" for k, v in kw.items()),
+                    decode(*t, **kw), ref.decode_attention_ref(*t, **kw),
+                    dtype)
+            tol = MODEL_BF16_TOL if dtype == "bfloat16" else None
+            m = FLASH_MAIN
+            t = flash_inputs(900, m["b"], m["s"], m["s"], m["h"], m["h"],
+                             m["d"], dt, dev)
+            err = compare_attention("flash_attention",
+                                    "model_b8_s512_h32_d80", flash(*t),
+                                    ref.flash_attention_ref(*t), dtype, tol)
+            if dtype == "bfloat16":
+                errs["flash_attention"] = err
+            m = DECODE_MAIN
+            for full in (False, True):
+                t = decode_inputs(901, m["b"], m["h"], m["h"], m["d"],
+                                  m["c"], dt, dev, full=full)
+                err = compare_attention(
+                    "decode_attention", "model_b8_c2048_h32_d80"
+                    + ("_full" if full else ""), decode(*t),
+                    ref.decode_attention_ref(*t), dtype, tol)
+                if dtype == "bfloat16":
+                    errs["decode_attention"] = max(
+                        errs["decode_attention"], err)
+    return errs
+
+
+def full_width(dtype: str):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("stablelm_3b"), dtype=dtype)
+
+
+def prompts(seed: int, b: int, s: int, vocab: int, dev):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, vocab, (b, s), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+def greedy_logits(params, cfg, tokens, steps: int, kernels: str,
+                  feed=None):
+    """Prefill + ``steps`` decode steps; each step feeds ``feed[i]`` (or
+    this run's own argmax). Returns (logits per step, tokens fed)."""
+    import torch
+    from repro_torch.models import model
+    logits, cache = model.prefill(params, cfg, {"tokens": tokens},
+                                  kernels=kernels)
+    out, fed = [logits], []
+    pos = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,
+                     device=tokens.device)
+    for i in range(steps):
+        tok = feed[i] if feed is not None else \
+            torch.argmax(logits, -1).to(torch.int32)
+        fed.append(tok)
+        logits, cache = model.decode_step(params, cfg, tok, cache, pos,
+                                          kernels=kernels)
+        out.append(logits)
+        pos = pos + 1
+    return out, fed
+
+
+def phase_model_parity(dev, cfg, batch: int, prompt: int, steps: int,
+                       kernels=("cuda", "ref")) -> dict:
+    """The model at ``cfg``'s widths, weights from generator seed 0:
+    prefill and ``steps`` decode steps under ``kernels[0]`` against
+    ``kernels[1]`` on the latter's tokens, every step's logits within
+    LOGIT_BOUND x max |logit|; then ``ServingEngine.generate`` under both,
+    greedy tokens equal except at a near-tie of the plain run."""
+    import torch
+    from repro_torch.models import model
+    from repro_torch.serving import ServingEngine
+    params = model.init_params(cfg, seed=0, device=dev)
+    tokens = prompts(1, batch, prompt, cfg.vocab_size, dev)
+    kern, plain = kernels
+    want, fed = greedy_logits(params, cfg, tokens, steps, plain)
+    got, _ = greedy_logits(params, cfg, tokens, steps, kern, feed=fed)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        worst = max(worst, err / scale)
+        emit({"phase": "model_parity", "dtype": cfg.dtype, "step": i,
+              "max_abs_err": err, "max_abs_logit": scale,
+              "bound": LOGIT_BOUND * scale})
+        if not err <= LOGIT_BOUND * scale:
+            fail(f"model parity step {i}: logits differ by {err}, bound "
+                 f"{LOGIT_BOUND * scale}")
+    plain_tokens = torch.stack(
+        [torch.argmax(w, -1) for w in want], 1).cpu().numpy()
+    runs = {}
+    for k in kernels:
+        eng = ServingEngine(cfg, params, slots=batch, max_len=prompt,
+                            device=dev, kernels=k)
+        runs[k] = eng.generate(tokens, steps=steps + 1).tokens
+        del eng
+    if not (runs[plain] == plain_tokens).all():
+        fail("model parity: the engine's plain run differs from prefill + "
+             "decode_step on the same tokens")
+    flips = []
+    for row in range(batch):
+        diff = np.nonzero(runs[kern][row] != runs[plain][row])[0]
+        if len(diff):
+            step = int(diff[0])
+            top2 = torch.topk(want[step][row], 2).values
+            gap = (top2[0] - top2[1]).item()
+            bound = 2 * LOGIT_BOUND * want[step].abs().max().item()
+            flips.append({"row": row, "step": step, "top2_gap": gap,
+                          "bound": bound})
+            if gap > bound:
+                fail(f"engine token flip at row {row} step {step}: top-2 "
+                     f"gap {gap} above {bound}")
+    emit({"phase": "model_parity_engine", "dtype": cfg.dtype,
+          "steps": steps + 1, "tokens_equal": not flips, "flips": flips,
+          "max_rel_logit_err": worst})
+    return {"max_rel_logit_err": worst, "flips": flips}
+
+
+def counted(fn, kernels, dev):
+    """Run ``fn`` with every launch counter of ``kernels`` set to 0
+    just before; returns (result, seconds, {name: launches})."""
+    for k in kernels:
+        k.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    return out, seconds, {k.__name__: k.launches for k in kernels}
+
+
+def profile_step(eng, label: str) -> dict:
+    """``torch.profiler`` over one decode step of ``eng``: device busy
+    and idle share against the step's wall time, top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    eng.step()
+    sync(eng.device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        sync(eng.device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and ev.self_device_time_total > 0:
+            by_name[ev.key] = (ev.count, ev.self_device_time_total / 1e3)
+    busy = sum(ms for _, ms in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    row = {"phase": "profile", "cell": label, "wall_ms": wall_ms,
+           "device_busy_ms": busy if by_name else None,
+           "idle_share": 1.0 - busy / wall_ms if by_name else None,
+           "device_ms_by_name": {k: {"count": c, "ms": ms}
+                                 for k, (c, ms) in top}}
+    emit(row)
+    return row
+
+
+def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
+                 steps: int, partial: int, kernels: str = "cuda") -> dict:
+    """``ServingEngine`` at ``cfg``'s widths, weights from generator seed
+    0: ``b == slots`` (prompts adopt an S-deep ring) and ``b = partial <
+    slots`` (merged into the max_len cache), ``steps`` greedy tokens
+    each. The attention kernels' counters, set to 0 just before each
+    ``generate`` and read just after, must show n_layers flash launches
+    (one prefill) and n_layers decode launches per decode step."""
+    import torch
+    from repro_torch.models import model
+    from repro_torch.serving import ServingEngine
+    counters = attention_kernels() if kernels == "cuda" else ()
+    params = model.init_params(cfg, seed=0, device=dev)
+    out = {"launches": {"flash_attention": 0, "decode_attention": 0}}
+    for label, b in (("b_eq_slots", slots), ("b_lt_slots", partial)):
+        eng = ServingEngine(cfg, params, slots=slots, max_len=max_len,
+                            device=dev, kernels=kernels)
+        eng.generate(prompts(2, b, 16, cfg.vocab_size, dev), steps=2)
+        eng = ServingEngine(cfg, params, slots=slots, max_len=max_len,
+                            device=dev, kernels=kernels)      # warm, fresh
+        tokens = prompts(3 + b, b, prompt, cfg.vocab_size, dev)
+        res, seconds, counts = counted(
+            lambda: eng.generate(tokens, steps=steps), counters, dev)
+        if res.tokens.shape != (b, steps) or (res.tokens < 0).any() \
+                or (res.tokens >= cfg.vocab_size).any():
+            fail(f"engine {label}: tokens {res.tokens.shape} out of range")
+        want = {"flash_attention": cfg.n_layers,
+                "decode_attention": cfg.n_layers * (steps - 1)}
+        if counters and counts != want:
+            fail(f"engine {label}: launches {counts}, expected {want} "
+                 "(one kernel launch per layer and pass)")
+        for k, c in counts.items():
+            out["launches"][k] += c
+        # the same work split: prefill alone, then decode steps
+        batch = {"tokens": tokens}
+        prefill_ms = []
+        for _ in range(3):
+            sync(dev)
+            t0 = time.perf_counter()
+            eng._prefill(params, batch)
+            sync(dev)
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms = []
+        for _ in range(16):
+            t0 = time.perf_counter()
+            eng.step()                     # ends in a device-to-host copy
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        cache_len = eng.cache["layers"][0]["k"].shape[1]
+        prof = profile_step(eng, f"decode/{label}/C{cache_len}")
+        row = {"phase": "engine", "cell": label, "dtype": cfg.dtype,
+               "batch": b, "slots": slots, "prompt": prompt,
+               "steps": steps, "cache_len": cache_len,
+               "generate_s": seconds, "launches": counts,
+               "prefill_ms": statistics.median(prefill_ms),
+               "decode_ms_per_step": statistics.median(step_ms),
+               # tokens delivered to the b live requests (an idle slot's
+               # token is computed and dropped)
+               "decode_tokens_per_s": b * 1e3 / statistics.median(step_ms),
+               "generate_tokens_per_s": b * steps / seconds,
+               "idle_share": prof["idle_share"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+               if dev.type == "cuda" else None}
+        emit(row)
+        out[label] = row
+        del eng
+    return out
+
+
+def flash_bytes_ops(b, s, h, d, elem=2) -> tuple[int, int]:
+    """q, k, v read once and out written once; causal QK^T and PV, 2
+    FLOP per multiply-add over the s(s+1)/2 visible pairs."""
+    return 4 * b * s * h * d * elem, 4 * b * h * d * (s * (s + 1) // 2)
+
+
+def decode_bytes_ops(b, c, h, d, elem=2) -> tuple[int, int]:
+    """q and out, the K and V caches, kv_pos and q_pos; every slot of
+    this run's cache is valid, so every one is needed."""
+    nbytes = 2 * b * h * d * elem + 2 * b * c * h * d * elem + b * c * 4 \
+        + b * 4
+    return nbytes, 4 * b * h * c * d
+
+
+def bf16_bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_attention_times(dev) -> dict:
+    """Kernel, plain version and the one PyTorch call computing the same
+    function (``scaled_dot_product_attention``: causal on pre-transposed
+    (B, H, S, D) tensors; for decode with a boolean mask from kv_pos made
+    outside the timed region), at the model's shapes in bf16."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    flash, decode = attention_kernels()
+    m = FLASH_MAIN
+    q, k, v = flash_inputs(910, m["b"], m["s"], m["s"], m["h"], m["h"],
+                           m["d"], torch.bfloat16, dev)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    nbytes, ops = flash_bytes_ops(m["b"], m["s"], m["h"], m["d"])
+    bms, by = bf16_bound_ms(nbytes, ops)
+    out = {"flash_attention": dict(
+        shape="b8_s512_h32_d80_bf16_causal",
+        ms=time_launches(lambda: flash(q, k, v), dev, n=100),
+        plain_ms=time_launches(lambda: ref.flash_attention_ref(q, k, v),
+                               dev, n=100),
+        library_ms=time_launches(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), dev, n=100),
+        bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)}
+    m = DECODE_MAIN
+    q, kc, vc, kv_pos, q_pos = decode_inputs(911, m["b"], m["h"], m["h"],
+                                             m["d"], m["c"], torch.bfloat16,
+                                             dev, full=True)
+    qd = q[:, :, None, :]
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+    mask = ((kv_pos >= 0) & (kv_pos <= q_pos[:, None]))[:, None, None, :]
+    nbytes, ops = decode_bytes_ops(m["b"], m["c"], m["h"], m["d"])
+    bms, by = bf16_bound_ms(nbytes, ops)
+    out["decode_attention"] = dict(
+        shape="b8_c2048_h32_d80_bf16",
+        ms=time_launches(lambda: decode(q, kc, vc, kv_pos, q_pos), dev,
+                         n=100),
+        plain_ms=time_launches(lambda: ref.decode_attention_ref(
+            q, kc, vc, kv_pos, q_pos), dev, n=100),
+        library_ms=time_launches(lambda: F.scaled_dot_product_attention(
+            qd, kt, vt, attn_mask=mask), dev, n=100),
+        bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+    for name, row in out.items():
+        emit({"phase": "times", "kernel": name, **row})
+    return out
+
+
 # ------------------------------------------------------------------ main --
 def main() -> int:
     import torch
@@ -918,12 +1359,12 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     from repro_torch.kernels import _build
-    lib = _build.library()
-    ptxas = [ln.strip() for ln in lib.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": lib.build_seconds,
-          "so": str(lib.path), "flags": " ".join(_build.NVCC_FLAGS),
-          "ptxas": ptxas})
+    for name, (path, seconds, log) in _build.build_all().items():
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "library": name, "seconds": seconds,
+              "so": str(path), "flags": " ".join(_build.NVCC_FLAGS),
+              "ptxas": ptxas})
 
     errs = phase_parity(dev)
 
@@ -968,6 +1409,15 @@ def main() -> int:
     phase_digests(dev, "vmap")
     phase_profile(dev)
 
+    # the model stack: attention kernels, full-width parity, serving
+    errs.update(phase_attention_parity(dev))
+    parity = phase_model_parity(dev, full_width("float32"), **PARITY)
+    emit({"phase": "model_parity_summary", **parity})
+    torch.cuda.empty_cache()
+    serving = phase_engine(dev, full_width("bfloat16"), **SERVE)
+    torch.cuda.empty_cache()
+    attn_times = phase_attention_times(dev)
+
     times = phase_times(dev)
     main_shape = "r256_i4"
     replaces = {
@@ -992,6 +1442,19 @@ def main() -> int:
             "fleet_plain_ms": times[k.__name__]["r4096_i1024"]["plain_ms"],
             "fleet_bound_ms": times[k.__name__]["r4096_i1024"]["bound_ms"],
         })
+    sources = {"flash_attention": "src/repro/kernels/flash_attention.py:84",
+               "decode_attention": "src/repro/kernels/decode_attention.py:72"}
+    for k in attention_kernels():
+        tm = attn_times[k.__name__]
+        rows.append({
+            "name": k.__name__, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/attention.cu",
+            "replaces": sources[k.__name__],
+            "launches": serving["launches"][k.__name__],
+            "max_abs_err": errs[k.__name__], "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
+            "shape": tm["shape"]})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

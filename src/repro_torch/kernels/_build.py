@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels at first use.
 
-``csrc/routing.cu`` is compiled by ``nvcc`` into a shared library with a
-plain C interface and loaded with ``ctypes`` (no PyTorch headers, so the
-build takes seconds). The library lands in ``build/torch_kernels/`` at
-the repository root, named by a hash of its source and flags, so an
-edited source never loads a stale build. Nothing here runs at import:
-the CPU tests import every module, and a machine without a card may
-have no ``nvcc``.
+Each source under ``csrc/`` (``routing.cu``, ``attention.cu``) is
+compiled by ``nvcc`` into a shared library of its own with a plain C
+interface and loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds). A library lands in ``build/torch_kernels/`` at the
+repository root, named by a hash of its source and flags, so an edited
+source never loads a stale build. :func:`build_all` starts one ``nvcc``
+per source, all at once. Nothing here runs at import: the CPU tests
+import every module, and a machine without a card may have no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -19,12 +20,14 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "routing.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"routing": CSRC / "routing.cu", "attention": CSRC / "attention.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
 # -fmad=false: the kernels pin the rounding of every step (no fused
-# multiply-add); -prec-div / -prec-sqrt keep IEEE division. Never
-# --use_fast_math: __expf/__logf are far less accurate than expf/logf.
+# multiply-add unless a kernel asks for one with __fmaf_rn); -prec-div /
+# -prec-sqrt keep IEEE division. Never --use_fast_math: __expf/__logf
+# are far less accurate than expf/logf.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-prec-div=true",
@@ -36,38 +39,60 @@ _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
 
 
-class KernelLibrary:
-    """The loaded routing library plus how it was built."""
+# launcher name -> argument types, per library; every launcher returns
+# the cudaError_t of its launch as an int
+SIGNATURES = {
+    "routing": {
+        "laimr_routing_score": (
+            [_VOIDP, _INT, _INT] + [_VOIDP] * 7 + [_INT] + [_VOIDP] * 2
+            + [_INT] * 3 + [_VOIDP] * 4),
+        "laimr_routing_guard": (
+            [_VOIDP, _INT, _INT] + [_VOIDP] * 10 + [_INT] * 2
+            + [_VOIDP] * 4),
+        "laimr_routing_topk": (
+            [_VOIDP, _INT, _INT] + [_VOIDP] * 7 + [_INT] + [_VOIDP] * 2
+            + [_INT] * 4 + [_FLOAT] + [_VOIDP] * 4),
+        "laimr_routing_attain": (
+            [_VOIDP, _INT, _INT] + [_VOIDP] * 7 + [_INT] + [_VOIDP] * 3
+            + [_INT] * 4 + [_FLOAT] + [_VOIDP] * 4),
+    },
+    "attention": {
+        # q, k, v, out, dtype, B, Sq, Skv, H, Hkv, D, scale, causal,
+        # window, softcap, stream
+        "laimr_flash_attention": (
+            [_VOIDP] * 4 + [_INT] * 7 + [_FLOAT, _INT, _INT, _FLOAT]
+            + [_VOIDP]),
+        # q, k_cache, v_cache, kv_pos, q_pos, out, dtype, B, C, H, Hkv, D,
+        # scale, window, softcap, stream
+        "laimr_decode_attention": (
+            [_VOIDP] * 6 + [_INT] * 6 + [_FLOAT, _INT, _FLOAT] + [_VOIDP]),
+    },
+}
+ERROR_STRING = {"routing": "laimr_cuda_error_string",
+                "attention": "laimr_attention_error_string"}
 
-    def __init__(self, path: Path, seconds: float, log: str):
+
+class KernelLibrary:
+    """One loaded kernel library plus how it was built."""
+
+    def __init__(self, name: str, path: Path, seconds: float, log: str):
+        self.name = name
         self.path = path
         self.build_seconds = seconds
         self.build_log = log
         lib = ctypes.CDLL(str(path))
-        lib.laimr_routing_score.restype = _INT
-        lib.laimr_routing_score.argtypes = (
-            [_VOIDP, _INT, _INT] + [_VOIDP] * 7 + [_INT] + [_VOIDP] * 2
-            + [_INT] * 3 + [_VOIDP] * 4)
-        lib.laimr_routing_guard.restype = _INT
-        lib.laimr_routing_guard.argtypes = (
-            [_VOIDP, _INT, _INT] + [_VOIDP] * 10 + [_INT] * 2
-            + [_VOIDP] * 4)
-        lib.laimr_routing_topk.restype = _INT
-        lib.laimr_routing_topk.argtypes = (
-            [_VOIDP, _INT, _INT] + [_VOIDP] * 7 + [_INT] + [_VOIDP] * 2
-            + [_INT] * 4 + [_FLOAT] + [_VOIDP] * 4)
-        lib.laimr_routing_attain.restype = _INT
-        lib.laimr_routing_attain.argtypes = (
-            [_VOIDP, _INT, _INT] + [_VOIDP] * 7 + [_INT] + [_VOIDP] * 3
-            + [_INT] * 4 + [_FLOAT] + [_VOIDP] * 4)
-        lib.laimr_cuda_error_string.restype = ctypes.c_char_p
-        lib.laimr_cuda_error_string.argtypes = [_INT]
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).restype = _INT
+            getattr(lib, fn).argtypes = argtypes
+        self._error_string = getattr(lib, ERROR_STRING[name])
+        self._error_string.restype = ctypes.c_char_p
+        self._error_string.argtypes = [_INT]
         self.lib = lib
 
     def check(self, rc: int, what: str) -> None:
         """Raise if a launcher reported a CUDA error."""
         if rc != 0:
-            msg = self.lib.laimr_cuda_error_string(rc).decode()
+            msg = self._error_string(rc).decode()
             raise RuntimeError(f"{what}: kernel launch failed with CUDA "
                                f"error {rc} ({msg})")
 
@@ -82,28 +107,54 @@ def _nvcc() -> str:
                        "kernels are built on the machine with the card")
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile the routing library unless this source/flag pair was
-    built already. Returns (path, seconds spent, compiler output)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def _target(name: str) -> Path:
+    src = SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"librouting_{digest[:16]}.so"
-    if out.is_file():
-        return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return out, seconds, log
+    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+def build_all(names=tuple(SOURCES)) -> dict[str, tuple[Path, float, str]]:
+    """Compile every library in ``names`` that this source/flag pair has
+    not built yet, one ``nvcc`` per source, all started together.
+    Returns name -> (path, seconds spent, compiler output); seconds is 0
+    and the output empty for a library that was built already."""
+    targets = {name: _target(name) for name in names}
+    out = {name: (t, 0.0, "") for name, t in targets.items() if t.is_file()}
+    pending = [name for name in names if name not in out]
+    if pending:
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    for name in pending:
+        target = targets[name]
+        tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, target, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, target, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc {SOURCES[name].name} failed "
+                          f"({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, target)
+        out[name] = (target, seconds, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def build(name: str = "routing") -> tuple[Path, float, str]:
+    """Compile one library unless it was built already."""
+    return build_all((name,))[name]
 
 
 @functools.cache
-def library() -> KernelLibrary:
-    """The routing kernels, built and loaded on first call."""
-    return KernelLibrary(*build())
+def library(name: str = "routing") -> KernelLibrary:
+    """The kernels of ``csrc/<name>.cu``, built and loaded on first
+    call."""
+    return KernelLibrary(name, *build(name))

@@ -1,4 +1,4 @@
-"""Dispatch facade for the port's routing kernels.
+"""Dispatch facade for the port's kernels (routing and attention).
 
 Each op has two execution paths, chosen per call with ``impl=``:
 
@@ -77,3 +77,32 @@ def routing_attain(lam, alpha, beta, gamma, mu, n, rtt, slo, sigma, avail,
     return rd.routing_attain(lam, alpha, beta, gamma, mu, n, rtt, slo,
                              sigma, avail, erlang_c_table, k=k,
                              margin=margin)
+
+
+def attention(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
+              segment_pos=None, impl: str = "ref"):
+    """Multi-head attention (GQA / window / softcap). See
+    ``ref.flash_attention_ref``."""
+    _require_cuda("attention", q, impl)
+    if impl == "ref":
+        return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window, softcap=softcap,
+                                        scale=scale, segment_pos=segment_pos)
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, scale=scale,
+                              segment_pos=segment_pos)
+
+
+def decode_attention(q, k_cache, v_cache, kv_pos, q_pos, *, window=0,
+                     softcap=0.0, scale=None, impl: str = "ref"):
+    """Single-token attention against a KV cache. See
+    ``ref.decode_attention_ref``."""
+    _require_cuda("decode_attention", q, impl)
+    if impl == "ref":
+        return _ref.decode_attention_ref(q, k_cache, v_cache, kv_pos, q_pos,
+                                         window=window, softcap=softcap,
+                                         scale=scale)
+    from repro_torch.kernels import decode_attention as da
+    return da.decode_attention(q, k_cache, v_cache, kv_pos, q_pos,
+                               window=window, softcap=softcap, scale=scale)

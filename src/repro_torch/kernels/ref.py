@@ -17,6 +17,14 @@ band edge ``pmax - 1e-6``.
 
 They run on any device; ``AdmissionConfig(backend="ref")`` uses them,
 and the kernel wrappers use them for tensors that lie on the CPU.
+
+The attention functions at the end are the plain versions of the two
+attention kernels (``flash_attention_kernel``, ``decode_attention_kernel``
+in ``csrc/attention.cu``): torch twins of ``repro.kernels.ref.attention``
+and ``decode_attention`` with the same conventions, masked logits set to
+``NEG_INF = -1e30`` (not ``-inf``, so a row with no valid key averages
+V uniformly instead of giving NaN), float32 logits, probabilities and
+P @ V, and the output cast to ``q``'s dtype.
 """
 from __future__ import annotations
 
@@ -218,3 +226,87 @@ def routing_attain_ref(lam, alpha, beta, gamma, mu, n, rtt, slo, sigma,
     primary = torch.argmin(torch.where(nearp, g, inf), dim=1)
     gate = g <= slo_ - _f32(margin, g)
     return _topk_outputs(g, rho, feasible, primary, gate, k)
+
+
+# ---------------------------------------------------------------- attention
+NEG_INF = -1e30
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, Hkv * n_rep, D): query head h reads kv
+    head h // n_rep (GQA)."""
+    return k if n_rep == 1 else k.repeat_interleave(n_rep, dim=2)
+
+
+def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return torch.tanh(x / cap) * cap if cap > 0 else x
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, scale: float | None = None,
+                        segment_pos: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """Full (quadratic) multi-head attention with GQA, sliding window
+    and logit soft-capping; the plain version of ``flash_attention``.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D). ``causal`` masks key j
+    above the query's position, ``window`` > 0 also masks j <= pos -
+    window, ``softcap`` caps the logits with tanh. ``segment_pos``: (B,
+    Sq) absolute query positions, by default suffix-aligned to the keys
+    (``arange(Sq) + Skv - Sq``). Returns (B, Sq, H, D) in q's dtype.
+    """
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if h % hkv:
+        raise ValueError(f"n_heads {h} is not a multiple of n_kv {hkv}")
+    kf = _repeat_kv(k, h // hkv).to(torch.float32).transpose(1, 2)
+    vf = _repeat_kv(v, h // hkv).to(torch.float32).transpose(1, 2)
+    qf = q.to(torch.float32).transpose(1, 2)                # (B, H, Sq, D)
+    scale = d ** -0.5 if scale is None else scale
+    logits = _softcap(torch.matmul(qf, kf.transpose(-1, -2)) * scale,
+                      softcap)                              # (B, H, Sq, Skv)
+    if segment_pos is None:
+        qpos = (torch.arange(sq, device=q.device) + (skv - sq))[None, :] \
+            .expand(b, sq)
+    else:
+        qpos = segment_pos
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((b, sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, None, :] <= qpos[:, :, None]
+    if window > 0:
+        mask &= kpos[None, None, :] > qpos[:, :, None] - window
+    logits = torch.where(mask[:, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs, vf).transpose(1, 2).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, kv_pos: torch.Tensor,
+                         q_pos: torch.Tensor, *, window: int = 0,
+                         softcap: float = 0.0, scale: float | None = None
+                         ) -> torch.Tensor:
+    """One query per sequence against a (ring-buffered) KV cache; the
+    plain version of ``decode_attention``.
+
+    q: (B, H, D); k_cache, v_cache: (B, C, Hkv, D); kv_pos: (B, C) int32
+    absolute position held in each slot, negative for a slot never
+    written; q_pos: (B,) int32. A slot is valid when kv_pos >= 0 and
+    kv_pos <= q_pos, and kv_pos > q_pos - window if ``window`` > 0. A
+    row with no valid slot averages V over all C slots. Returns (B, H,
+    D) in q's dtype.
+    """
+    b, h, d = q.shape
+    hkv = k_cache.shape[2]
+    kf = _repeat_kv(k_cache, h // hkv).to(torch.float32)    # (B, C, H, D)
+    vf = _repeat_kv(v_cache, h // hkv).to(torch.float32)
+    scale = d ** -0.5 if scale is None else scale
+    logits = _softcap(torch.einsum("bhd,bchd->bhc", q.to(torch.float32), kf)
+                      * scale, softcap)
+    valid = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+    if window > 0:
+        valid &= kv_pos > (q_pos[:, None] - window)
+    logits = torch.where(valid[:, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhc,bchd->bhd", probs, vf).to(q.dtype)

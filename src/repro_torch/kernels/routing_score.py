@@ -30,9 +30,11 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def check_input(name: str, x: torch.Tensor, shapes: tuple,
-                   device: torch.device, dtype=torch.float32) -> None:
+                   device: torch.device, dtype=torch.float32,
+                   align: int = 0) -> None:
     """Raise unless ``x`` is a contiguous ``dtype`` tensor on ``device``
-    whose shape is one of ``shapes``."""
+    whose shape is one of ``shapes`` (and, given ``align``, whose data
+    starts on an ``align``-byte boundary)."""
     if x.device != device:
         raise ValueError(f"{name}: on {x.device}, expected {device}")
     if x.dtype != dtype:
@@ -42,6 +44,8 @@ def check_input(name: str, x: torch.Tensor, shapes: tuple,
                          f"of {shapes}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+    if align and x.data_ptr() % align:
+        raise ValueError(f"{name}: data must be {align}-byte aligned")
 
 
 def row_strides(x: torch.Tensor) -> tuple[int, int]:

@@ -5,7 +5,9 @@ so the port runs on a machine that has neither.
 Also the port's kernel-oracle rule: every ``__global__`` kernel in
 ``src/repro_torch/kernels/csrc/*.cu`` has a wrapper that counts its
 launches, a plain version ``<wrapper>_ref`` in ``kernels/ref.py``, and a
-``tests/test_torch_*.py`` file that names both.
+``tests/test_torch_*.py`` file that names both; and its rng-discipline
+rule: no ``torch.manual_seed`` (the global stream) and no
+``torch.Generator`` that is not seeded where it is made.
 """
 import ast
 import importlib
@@ -51,7 +53,13 @@ def test_port_has_the_slice_modules():
             "core/capacity.py",
             "serving/batch_router.py", "kernels/ref.py", "kernels/ops.py",
             "kernels/routing_score.py", "kernels/routing_decide.py",
-            "kernels/_build.py", "kernels/csrc/routing.cu", "convert.py"]
+            "kernels/_build.py", "kernels/csrc/routing.cu", "convert.py",
+            "configs/__init__.py", "configs/base.py",
+            "configs/stablelm_3b.py", "kernels/flash_attention.py",
+            "kernels/decode_attention.py", "kernels/csrc/attention.cu",
+            "models/__init__.py", "models/layers.py",
+            "models/transformer.py", "models/model.py",
+            "serving/engine.py"]
     missing = [m for m in want if not (PORT / m).is_file()]
     assert not missing, missing
 
@@ -74,6 +82,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch.serving, repro_torch.core.simulator\n"
             "import repro_torch.kernels.ops, repro_torch.convert\n"
+            "import repro_torch.models.model, repro_torch.configs\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"
@@ -86,7 +95,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 # ------------------------------------------------------ kernel-oracle rule --
-GLOBAL_RE = re.compile(r"__global__\s+void\s+(\w+)\s*\(")
+GLOBAL_RE = re.compile(
+    r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?(\w+)\s*\(")
 
 
 def cuda_kernels() -> list[str]:
@@ -112,7 +122,9 @@ def wrapper_of(kernel: str):
 
 
 def test_kernel_scan_sees_every_kernel():
-    assert cuda_kernels() == ["routing_score_kernel", "routing_guard_kernel",
+    assert cuda_kernels() == ["flash_attention_kernel",
+                              "decode_attention_kernel",
+                              "routing_score_kernel", "routing_guard_kernel",
                               "routing_topk_kernel", "routing_attain_kernel"]
 
 
@@ -130,3 +142,51 @@ def test_kernel_has_counted_wrapper_plain_version_and_test(kernel):
               and wrapper_re.search(p.read_text())]
     assert naming, f"{kernel}: no tests/test_torch_*.py names both " \
         f"{name} and {name}_ref"
+
+
+# ------------------------------------------------------- rng-discipline --
+def rng_findings(path: Path) -> list[str]:
+    """Calls in ``path`` that draw from an unseeded torch stream:
+    ``torch.manual_seed`` / ``torch.cuda.manual_seed[_all]`` (the global
+    generator) and any ``torch.Generator(...)`` that is not seeded in
+    the same expression (``torch.Generator(device).manual_seed(seed)``)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    seeded = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(node.func,
+                                                     ast.Attribute) \
+                and node.func.attr == "manual_seed" \
+                and isinstance(node.func.value, ast.Call):
+            seeded.add(id(node.func.value))
+    found = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        name = ast.unparse(node.func)
+        if name in ("torch.manual_seed", "torch.cuda.manual_seed",
+                    "torch.cuda.manual_seed_all", "torch.seed",
+                    "torch.random.manual_seed"):
+            found.append(f"{path.name}:{node.lineno} {name}")
+        elif name in ("torch.Generator", "Generator") \
+                and id(node) not in seeded:
+            found.append(f"{path.name}:{node.lineno} unseeded {name}")
+    return found
+
+
+@pytest.mark.parametrize("path", port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_rng_discipline(path):
+    assert not rng_findings(path)
+
+
+def test_rng_scan_sees_unseeded_generators(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import torch\n"
+        "torch.manual_seed(0)\n"
+        "g = torch.Generator()\n"
+        "h = torch.Generator(device='cuda').manual_seed(3)\n"
+        "def f():\n    return torch.Generator('cpu')\n")
+    assert [f.split(" ", 1)[1] for f in rng_findings(src)] == [
+        "torch.manual_seed", "unseeded torch.Generator",
+        "unseeded torch.Generator"]

@@ -19,6 +19,14 @@ and ``TestRoutingAttain`` (``tests/test_kernels.py``), same seeds, plus
 per-request SLO rows with -1 lane exclusions. Phi is ``torch.erf``
 against XLA's ``erf``: a few ulp apart, which moves no decision here.
 
+The attention cases (at the end) hold ``flash_attention_ref`` and
+``decode_attention_ref`` to ``repro.kernels.ref.attention`` and
+``decode_attention`` on every case of the reference's
+``TestFlashAttention`` and ``TestDecodeAttention`` (numpy inputs from
+the same seeds), plus head_dim 80 (StableLM-3B), a 200-token sequence
+(not a multiple of any tile) and a row with no valid cache slot, within
+the reference's own bounds: ``2e-5`` in float32, ``5e-2`` in bfloat16.
+
 Tests marked ``cuda`` run the hand-written kernels against the plain
 versions and skip without a card (``python3 chip_smoke.py`` runs the
 same checks there at full width).
@@ -29,11 +37,18 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import \
+    decode_attention as pallas_decode_attention
+from repro.kernels.flash_attention import \
+    flash_attention as pallas_flash_attention
 from repro.kernels.routing_decide import routing_attain as pallas_attain
 from repro.kernels.routing_decide import routing_guard as pallas_guard
 from repro.kernels.routing_decide import routing_topk as pallas_topk
 from repro.kernels.routing_score import build_erlang_table as j_table
 from repro.kernels.routing_score import routing_score as pallas_score
+from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import routing_decide as trd
@@ -601,3 +616,291 @@ class TestCudaTopKKernels:
     def test_edge_case(self, cuda_device, name):
         op, args, k, margin = edge_case(name)
         self.run(op, args, k, margin, cuda_device)
+
+
+# ---------------------------------------------------------- attention --
+def attn_tol(dtype: str) -> dict:
+    """The reference's kernel bounds (``tests/test_kernels.py``)."""
+    return dict(atol=5e-2, rtol=5e-2) if dtype == "bfloat16" \
+        else dict(atol=2e-5, rtol=2e-5)
+
+
+def both(x: np.ndarray, dtype: str = "float32"):
+    """The same values as a jax array and a torch tensor of ``dtype``
+    (bfloat16 by round-to-nearest-even on both sides)."""
+    return jnp.asarray(x).astype(dtype), torch.from_numpy(x).to(
+        getattr(torch, dtype))
+
+
+def f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def qkv(seed, b, sq, skv, h, hkv, d, dtype="float32", q_mult=1.0,
+        k_mult=1.0):
+    rng = np.random.default_rng(seed)
+    q = (rng.normal(size=(b, sq, h, d)) * q_mult).astype(np.float32)
+    k = (rng.normal(size=(b, skv, hkv, d)) * k_mult).astype(np.float32)
+    v = rng.normal(size=(b, skv, hkv, d)).astype(np.float32)
+    return [both(a, dtype) for a in (q, k, v)]
+
+
+def decode_case(seed, b, h, hkv, d, c, dtype="float32", pos_hi=300,
+                q_lo=100):
+    """The reference's ``TestDecodeAttention.test_matches_ref`` draws:
+    kv_pos in [-1, pos_hi), q_pos in [q_lo, pos_hi]."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, c, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(b, c, hkv, d)).astype(np.float32)
+    kv_pos = rng.integers(-1, pos_hi, (b, c)).astype(np.int32)
+    q_pos = rng.integers(q_lo, pos_hi + 1, (b,)).astype(np.int32)
+    return [both(a, dtype) for a in (q, k, v)] + [
+        (jnp.asarray(kv_pos), torch.from_numpy(kv_pos)),
+        (jnp.asarray(q_pos), torch.from_numpy(q_pos))]
+
+
+FLASH_SHAPES = [
+    (1, 128, 1, 1, 64),      # the reference's sweep: minimal
+    (2, 256, 4, 2, 64),      # GQA
+    (2, 128, 4, 1, 32),      # MQA
+    (1, 512, 2, 2, 128),     # MXU-aligned head dim
+    (2, 96, 4, 4, 80),       # StableLM-3B's head_dim
+    (1, 200, 2, 1, 80),      # a sequence no tile divides
+]
+DECODE_SHAPES = [
+    (1, 1, 1, 32, 128),      # the reference's sweep
+    (3, 4, 2, 64, 256),
+    (2, 8, 1, 64, 512),
+    (2, 4, 4, 80, 200),      # StableLM-3B's head_dim, ragged cache
+]
+
+
+class TestAttentionPlainAgainstJax:
+    @pytest.mark.parametrize("b,s,h,hkv,d", FLASH_SHAPES)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_causal(self, b, s, h, hkv, d, dtype):
+        (jq, tq), (jk, tk), (jv, tv) = qkv(s + d, b, s, s, h, hkv, d, dtype)
+        want = jref.attention(jq, jk, jv, causal=True)
+        got = tfa.flash_attention(tq, tk, tv, causal=True)
+        assert got.dtype == tq.dtype and tuple(got.shape) == (b, s, h, d)
+        np.testing.assert_allclose(f32(got), f32(want), **attn_tol(dtype))
+
+    @pytest.mark.parametrize("window", [32, 64, 100])
+    def test_sliding_window(self, window):
+        (jq, tq), (jk, tk), (jv, tv) = qkv(1, 2, 256, 256, 2, 2, 32)
+        want = jref.attention(jq, jk, jv, causal=True, window=window)
+        got = tref.flash_attention_ref(tq, tk, tv, causal=True,
+                                       window=window)
+        np.testing.assert_allclose(f32(got), f32(want), **attn_tol("float32"))
+
+    def test_softcap_and_scale(self):
+        (jq, tq), (jk, tk), (jv, tv) = qkv(2, 1, 128, 128, 2, 2, 64,
+                                           q_mult=3, k_mult=3)
+        want = jref.attention(jq, jk, jv, causal=True, softcap=30.0,
+                              scale=0.1)
+        got = tref.flash_attention_ref(tq, tk, tv, causal=True,
+                                       softcap=30.0, scale=0.1)
+        np.testing.assert_allclose(f32(got), f32(want), **attn_tol("float32"))
+
+    def test_non_causal(self):
+        (jq, tq), (jk, tk), (jv, tv) = qkv(3, 2, 128, 128, 2, 2, 32)
+        want = jref.attention(jq, jk, jv, causal=False)
+        got = tref.flash_attention_ref(tq, tk, tv, causal=False)
+        np.testing.assert_allclose(f32(got), f32(want), **attn_tol("float32"))
+
+    def test_suffix_aligned_queries(self):
+        """Sq < Skv: query i sits at position Skv - Sq + i."""
+        (jq, tq), _, _ = qkv(4, 2, 40, 40, 4, 2, 16)
+        _, (jk, tk), (jv, tv) = qkv(5, 2, 100, 100, 4, 2, 16)
+        want = jref.attention(jq, jk, jv, causal=True, window=30)
+        got = tref.flash_attention_ref(tq, tk, tv, causal=True, window=30)
+        np.testing.assert_allclose(f32(got), f32(want), **attn_tol("float32"))
+
+    def test_constant_v_passes_through(self):
+        """Softmax rows sum to one: attention over a constant V is V."""
+        (_, tq), (_, tk), _ = qkv(6, 1, 64, 64, 2, 2, 16)
+        v = torch.full((1, 64, 2, 16), 3.0)
+        torch.testing.assert_close(tref.flash_attention_ref(tq, tk, v), v,
+                                   atol=1e-5, rtol=0)
+
+    @pytest.mark.parametrize("b,h,hkv,d,c", DECODE_SHAPES)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_decode(self, b, h, hkv, d, c, dtype):
+        args = decode_case(c + d, b, h, hkv, d, c, dtype)
+        want = jref.decode_attention(*[a[0] for a in args])
+        got = tda.decode_attention(*[a[1] for a in args])
+        assert got.dtype == args[0][1].dtype
+        np.testing.assert_allclose(f32(got), f32(want), **attn_tol(dtype))
+
+    def test_decode_window(self):
+        args = decode_case(7, 2, 4, 2, 32, 256, pos_hi=500, q_lo=400)
+        want = jref.decode_attention(*[a[0] for a in args], window=128)
+        got = tref.decode_attention_ref(*[a[1] for a in args], window=128)
+        np.testing.assert_allclose(f32(got), f32(want), **attn_tol("float32"))
+
+    def test_decode_softcap_and_scale(self):
+        args = decode_case(8, 2, 4, 2, 32, 64)
+        want = jref.decode_attention(*[a[0] for a in args], softcap=30.0,
+                                     scale=0.5)
+        got = tref.decode_attention_ref(*[a[1] for a in args], softcap=30.0,
+                                        scale=0.5)
+        np.testing.assert_allclose(f32(got), f32(want), **attn_tol("float32"))
+
+    def test_decode_ring_buffer(self):
+        """Slots holding positions 100..163 give full attention over
+        those positions with the query last."""
+        (jq, tq), (jk, tk), (jv, tv) = qkv(9, 1, 1, 64, 2, 2, 16)
+        kv_pos = np.arange(100, 164, dtype=np.int32)[None, :]
+        q_pos = np.asarray([163], np.int32)
+        want = jref.attention(jq, jk, jv, causal=True)[:, 0]
+        got = tref.decode_attention_ref(tq[:, 0], tk, tv,
+                                        torch.from_numpy(kv_pos),
+                                        torch.from_numpy(q_pos))
+        np.testing.assert_allclose(f32(got), f32(want), **attn_tol("float32"))
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_decode_all_invalid_row_is_the_mean_of_v(self, dtype):
+        """A row with no valid slot (all kv_pos -1, or every position
+        after the query) averages V uniformly, as NEG_INF = -1e30 makes
+        the reference do; row 1 stays an ordinary row."""
+        args = decode_case(10, 2, 4, 2, 80, 48, dtype)
+        kv_pos = np.array(args[3][0])
+        kv_pos[0] = -1
+        q_pos = np.array(args[4][0])
+        args[3] = (jnp.asarray(kv_pos), torch.from_numpy(kv_pos))
+        want = jref.decode_attention(*[a[0] for a in args])
+        got = tda.decode_attention(*[a[1] for a in args])
+        np.testing.assert_allclose(f32(got), f32(want), **attn_tol(dtype))
+        mean_v = f32(args[2][1])[0].mean(axis=0)            # (Hkv, D)
+        np.testing.assert_allclose(
+            f32(got)[0], np.repeat(mean_v, 2, axis=0), **attn_tol(dtype))
+        late = np.full_like(kv_pos, q_pos.max() + 1)
+        args[3] = (jnp.asarray(late), torch.from_numpy(late))
+        np.testing.assert_allclose(
+            f32(tda.decode_attention(*[a[1] for a in args])),
+            f32(jref.decode_attention(*[a[0] for a in args])),
+            **attn_tol(dtype))
+
+
+@pytest.mark.slow
+class TestAttentionPlainAgainstPallasInterpret:
+    """One small case of each kernel, as ``tests/test_kernels.py`` runs
+    the Pallas kernels (interpret mode on the CPU)."""
+
+    def test_flash_attention(self):
+        (jq, tq), (jk, tk), (jv, tv) = qkv(11, 1, 128, 128, 4, 2, 32)
+        want = pallas_flash_attention(jq, jk, jv, causal=True, window=48,
+                                      block_q=64, block_kv=64,
+                                      interpret=True)
+        got = tref.flash_attention_ref(tq, tk, tv, causal=True, window=48)
+        np.testing.assert_allclose(f32(got), f32(want), **attn_tol("float32"))
+
+    def test_decode_attention(self):
+        args = decode_case(12, 2, 4, 2, 32, 128)
+        want = pallas_decode_attention(*[a[0] for a in args], block_kv=64,
+                                       interpret=True)
+        got = tref.decode_attention_ref(*[a[1] for a in args])
+        np.testing.assert_allclose(f32(got), f32(want), **attn_tol("float32"))
+
+
+class TestAttentionDispatch:
+    def test_cpu_tensors_take_the_plain_version_without_counting(self):
+        (_, tq), (_, tk), (_, tv) = qkv(13, 1, 16, 16, 2, 1, 16)
+        before = tfa.flash_attention.launches
+        torch.testing.assert_close(tfa.flash_attention(tq, tk, tv),
+                                   tref.flash_attention_ref(tq, tk, tv),
+                                   rtol=0, atol=0)
+        assert tfa.flash_attention.launches == before
+        args = [a[1] for a in decode_case(14, 2, 2, 1, 16, 8)]
+        before = tda.decode_attention.launches
+        torch.testing.assert_close(tda.decode_attention(*args),
+                                   tref.decode_attention_ref(*args),
+                                   rtol=0, atol=0)
+        assert tda.decode_attention.launches == before
+
+    def test_facade(self):
+        (_, tq), (_, tk), (_, tv) = qkv(15, 1, 8, 8, 2, 2, 8)
+        torch.testing.assert_close(ops.attention(tq, tk, tv, window=4),
+                                   tref.flash_attention_ref(tq, tk, tv,
+                                                            window=4))
+        args = [a[1] for a in decode_case(16, 1, 2, 2, 8, 8)]
+        torch.testing.assert_close(ops.decode_attention(*args),
+                                   tref.decode_attention_ref(*args))
+        with pytest.raises(ValueError, match="cuda"):
+            ops.attention(tq, tk, tv, impl="cuda")
+        with pytest.raises(ValueError, match="cuda"):
+            ops.decode_attention(*args, impl="cuda")
+        with pytest.raises(ValueError, match="impl"):
+            ops.attention(tq, tk, tv, impl="pallas")
+
+    def test_head_checks(self):
+        q = torch.zeros(1, 4, 2, 12)
+        for h, hkv, d, match in ((3, 2, 16, "multiple of n_kv"),
+                                 (2, 1, 12, "head_dim"),
+                                 (2, 1, 264, "head_dim")):
+            with pytest.raises(ValueError, match=match):
+                tfa.check_heads(q, h, hkv, d)
+        with pytest.raises(TypeError, match="bfloat16"):
+            tfa.check_heads(q.half(), 2, 1, 16)
+
+
+@pytest.mark.cuda
+class TestCudaAttentionKernels:
+    """The CUDA attention kernels against their plain versions on the
+    card, in the working dtype, at the reference's bounds."""
+
+    @pytest.mark.parametrize("b,s,h,hkv,d", FLASH_SHAPES)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("window", [0, 100])
+    def test_flash_attention_kernel(self, cuda_device, b, s, h, hkv, d,
+                                    dtype, window):
+        t = [a[1].to(cuda_device) for a in qkv(s + d, b, s, s, h, hkv, d,
+                                                dtype)]
+        before = tfa.flash_attention.launches
+        got = tfa.flash_attention(*t, causal=True, window=window)
+        assert tfa.flash_attention.launches == before + 1
+        want = tref.flash_attention_ref(*t, causal=True, window=window)
+        np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()),
+                                   **attn_tol(dtype))
+
+    def test_flash_softcap_non_causal_and_suffix(self, cuda_device):
+        (_, tq), (_, tk), (_, tv) = qkv(17, 2, 40, 100, 4, 2, 16, q_mult=3,
+                                        k_mult=3)
+        t = [x.to(cuda_device) for x in (tq, tk, tv)]
+        for kw in (dict(causal=True, softcap=30.0, scale=0.1),
+                   dict(causal=False), dict(causal=True, window=30)):
+            np.testing.assert_allclose(
+                f32(tfa.flash_attention(*t, **kw).cpu()),
+                f32(tref.flash_attention_ref(*t, **kw).cpu()),
+                **attn_tol("float32"))
+
+    @pytest.mark.parametrize("b,h,hkv,d,c", DECODE_SHAPES)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_decode_attention_kernel(self, cuda_device, b, h, hkv, d, c,
+                                     dtype):
+        t = [a[1].to(cuda_device) for a in decode_case(c + d, b, h, hkv, d,
+                                                        c, dtype)]
+        t[3][0] = -1                      # an all-invalid row
+        before = tda.decode_attention.launches
+        got = tda.decode_attention(*t, window=0)
+        assert tda.decode_attention.launches == before + 1
+        want = tref.decode_attention_ref(*t)
+        np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()),
+                                   **attn_tol(dtype))
+        for kw in (dict(window=64), dict(softcap=30.0, scale=0.5)):
+            np.testing.assert_allclose(
+                f32(tda.decode_attention(*t, **kw).cpu()),
+                f32(tref.decode_attention_ref(*t, **kw).cpu()),
+                **attn_tol(dtype))
+
+    def test_kernels_reject_what_they_do_not_take(self, cuda_device):
+        (_, tq), (_, tk), (_, tv) = qkv(18, 1, 8, 8, 2, 2, 16)
+        t = [x.to(cuda_device) for x in (tq, tk, tv)]
+        with pytest.raises(TypeError):
+            tfa.flash_attention(t[0].double(), t[1].double(), t[2].double())
+        with pytest.raises(ValueError, match="contiguous"):
+            tfa.flash_attention(t[0].transpose(1, 2).contiguous()
+                                .transpose(1, 2), t[1], t[2])
