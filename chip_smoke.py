@@ -10,8 +10,8 @@ Each phase prints one JSON object per line:
 
 0. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
 1. the kernel build: one ``nvcc`` per source (``kernels/csrc/routing.cu``,
-   ``kernels/csrc/attention.cu``), all started together, with their
-   ptxas register and spill lines;
+   ``kernels/csrc/attention.cu``, ``kernels/csrc/ssd.cu``), all started
+   together, with their ptxas register and spill lines;
 2. each routing kernel (``routing_score``, ``routing_guard``,
    ``routing_topk``, ``routing_attain``) against its plain PyTorch
    version on the card: the reference package's kernel sweeps and edge
@@ -48,19 +48,32 @@ Each phase prints one JSON object per line:
    ``b < slots`` (4 prompts); exactly n_layers ``flash_attention``
    launches per prefill and n_layers ``decode_attention`` launches per
    decode step, prefill ms, decode ms per step, tokens/s delivered to
-   the live requests, and a ``torch.profiler`` breakdown of one decode
-   step;
-10. kernel, plain-version and library times (CUDA events, medians of
-   >= 100 launches): the attention kernels at the model's shapes against
-   ``scaled_dot_product_attention``, the routing kernels at the main
-   path's shapes and at fleet scale.
+   the live requests, and a ``torch.profiler`` breakdown of one prefill
+   and one decode step;
+10. the attention kernels' times (CUDA events, medians of 100 launches)
+   at the model's shapes, against their plain versions and
+   ``scaled_dot_product_attention``;
+11. ``ssd_scan`` against its plain version, y and the final state: the
+   CPU tests' cases (the reference's sweep, groups 2 and 4, L = 1, 100
+   and 200, initial states, a long-memory case) within ``5e-4`` in
+   float32 (the reference's own bound) and ``MODEL_BF16_TOL`` in bf16,
+   the served prefill shape (B 8, L 2048, 32 heads of 64, N 128) and one
+   long prompt (B 1, L 32768) in both;
+12. Mamba2-370m at full width in float32, as phase 8 (8 x 512 prompts,
+   16 decode steps);
+13. serving Mamba2-370m in bf16 as phase 9, with 8 x 2048 prompts:
+   exactly 48 ``ssd_scan`` launches per prefill and none per decode step;
+14. ``ssd_scan`` times at the served shape (100 launches) and the long
+   prompt (20 launches) against its plain version (the mean wall time
+   of ``PLAIN_RUNS`` runs: a Python loop over L) and its bound; then the
+   routing kernels' times at the main path's shapes and at fleet scale.
 
 Launch counters are set to 0 just before each policy's run in phases
-3-5 and each ``generate`` of phase 9, and read just after; a kernel that
-the path runs and that did not launch as often as it should fails the
-run (``hybrid`` must launch both of its constituents' kernels on the
-flash stream). The line before the last is the kernel table, the last
-line the device.
+3-5, each ``generate`` of phases 9 and 13 and one more decode step after
+it, and read just after; a kernel that the path runs and that did not
+launch exactly as often as it should fails the run (``hybrid`` must
+launch both of its constituents' kernels on the flash stream). The line
+before the last is the kernel table, the last line the device.
 """
 from __future__ import annotations
 
@@ -767,11 +780,11 @@ def time_launches(fn, dev, n: int = 200, chunk: int = 20) -> float:
     return statistics.median(times)
 
 
-def time_host(fn, dev, n: int = 200) -> float:
+def time_host(fn, dev, n: int = 200, warm: int = 5) -> float:
     """Wall time of one call of ``fn`` issued back to back, in ms: the
     host's enqueue or the device's work, whichever is slower."""
     import torch
-    for _ in range(5):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -998,14 +1011,15 @@ def decode_inputs(seed, b, h, hkv, d, c, dtype, dev, full=False):
 
 
 def compare_attention(kernel: str, label: str, got, want, dtype,
-                      tol: dict | None = None) -> float:
+                      tol: dict | None = None,
+                      phase: str = "attention_parity") -> float:
     """Hold ``got`` to ``want`` within ``tol`` (atol, rtol; the
     reference's bound for ``dtype`` when None)."""
     import torch
     err = (got.float() - want.float()).abs().max().item()
     tol = tol or dict(atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
     ok = bool(torch.allclose(got.float(), want.float(), **tol))
-    emit({"phase": "attention_parity", "kernel": kernel, "case": label,
+    emit({"phase": phase, "kernel": kernel, "case": label,
           "dtype": dtype, "max_abs_err": err,
           "max_abs_want": want.float().abs().max().item(), **tol, "ok": ok})
     if not ok or not torch.isfinite(got.float()).all():
@@ -1067,10 +1081,9 @@ def phase_attention_parity(dev) -> dict:
     return errs
 
 
-def full_width(dtype: str):
-    import dataclasses
+def full_width(arch: str, dtype: str):
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config("stablelm_3b"), dtype=dtype)
+    return dataclasses.replace(get_config(arch), dtype=dtype)
 
 
 def prompts(seed: int, b: int, s: int, vocab: int, dev):
@@ -1122,7 +1135,8 @@ def phase_model_parity(dev, cfg, batch: int, prompt: int, steps: int,
         scale = w.abs().max().item()
         err = (g - w).abs().max().item()
         worst = max(worst, err / scale)
-        emit({"phase": "model_parity", "dtype": cfg.dtype, "step": i,
+        emit({"phase": "model_parity", "arch": cfg.name,
+              "dtype": cfg.dtype, "step": i,
               "max_abs_err": err, "max_abs_logit": scale,
               "bound": LOGIT_BOUND * scale})
         if not err <= LOGIT_BOUND * scale:
@@ -1152,7 +1166,8 @@ def phase_model_parity(dev, cfg, batch: int, prompt: int, steps: int,
             if gap > bound:
                 fail(f"engine token flip at row {row} step {step}: top-2 "
                      f"gap {gap} above {bound}")
-    emit({"phase": "model_parity_engine", "dtype": cfg.dtype,
+    emit({"phase": "model_parity_engine", "arch": cfg.name,
+          "dtype": cfg.dtype,
           "steps": steps + 1, "tokens_equal": not flips, "flips": flips,
           "max_rel_logit_err": worst})
     return {"max_rel_logit_err": worst, "flips": flips}
@@ -1171,18 +1186,19 @@ def counted(fn, kernels, dev):
     return out, seconds, {k.__name__: k.launches for k in kernels}
 
 
-def profile_step(eng, label: str) -> dict:
-    """``torch.profiler`` over one decode step of ``eng``: device busy
-    and idle share against the step's wall time, top device ops."""
+def profile_call(fn, dev, label: str) -> dict:
+    """``torch.profiler`` over one call of ``fn`` (after one unprofiled
+    call): device busy and idle share against its wall time, top device
+    ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    eng.step()
-    sync(eng.device)
+    fn()
+    sync(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.step()
-        sync(eng.device)
+        fn()
+        sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for ev in prof.key_averages():
@@ -1200,21 +1216,50 @@ def profile_step(eng, label: str) -> dict:
     return row
 
 
+def path_kernels(cfg) -> tuple:
+    """The kernels ``cfg``'s layers launch: the attention pair for
+    attention layers, ``ssd_scan`` for Mamba-2 layers."""
+    from repro_torch.models.transformer import layer_kinds
+    kinds = set(layer_kinds(cfg))
+    out = attention_kernels() if kinds & {"attn", "local"} else ()
+    return out + ((ssd_kernel(),) if "mamba2" in kinds else ())
+
+
+def expected_launches(cfg, steps: int) -> tuple[dict, dict]:
+    """(launches of one ``generate`` of ``steps`` tokens, launches of one
+    decode step): one flash_attention per attention layer and prefill,
+    one decode_attention per attention layer and decode step, one
+    ssd_scan per Mamba-2 layer and prefill and none in a decode step."""
+    from repro_torch.models.transformer import layer_kinds
+    kinds = layer_kinds(cfg)
+    n_attn = sum(k in ("attn", "local") for k in kinds)
+    n_ssm = kinds.count("mamba2")
+    gen = {"flash_attention": n_attn,
+           "decode_attention": n_attn * (steps - 1), "ssd_scan": n_ssm}
+    step = {"flash_attention": 0, "decode_attention": n_attn,
+            "ssd_scan": 0}
+    names = [k.__name__ for k in path_kernels(cfg)]
+    return ({k: gen[k] for k in names}, {k: step[k] for k in names})
+
+
 def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
                  steps: int, partial: int, kernels: str = "cuda") -> dict:
     """``ServingEngine`` at ``cfg``'s widths, weights from generator seed
-    0: ``b == slots`` (prompts adopt an S-deep ring) and ``b = partial <
-    slots`` (merged into the max_len cache), ``steps`` greedy tokens
-    each. The attention kernels' counters, set to 0 just before each
-    ``generate`` and read just after, must show n_layers flash launches
-    (one prefill) and n_layers decode launches per decode step."""
+    0: ``b == slots`` (prompts adopt the prefill cache: an S-deep ring,
+    or the Mamba-2 states) and ``b = partial < slots`` (merged into the
+    engine's cache), ``steps`` greedy tokens each. The path's kernel
+    counters, set to 0 just before each ``generate`` and just before one
+    more decode step and read just after, must show exactly the launches
+    of ``expected_launches``. Prefill and one decode step are profiled."""
     import torch
     from repro_torch.models import model
     from repro_torch.serving import ServingEngine
-    counters = attention_kernels() if kernels == "cuda" else ()
+    counters = path_kernels(cfg) if kernels == "cuda" else ()
     params = model.init_params(cfg, seed=0, device=dev)
-    out = {"launches": {"flash_attention": 0, "decode_attention": 0}}
+    out = {"launches": {k.__name__: 0 for k in path_kernels(cfg)}}
     for label, b in (("b_eq_slots", slots), ("b_lt_slots", partial)):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         eng = ServingEngine(cfg, params, slots=slots, max_len=max_len,
                             device=dev, kernels=kernels)
         eng.generate(prompts(2, b, 16, cfg.vocab_size, dev), steps=2)
@@ -1226,11 +1271,14 @@ def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
         if res.tokens.shape != (b, steps) or (res.tokens < 0).any() \
                 or (res.tokens >= cfg.vocab_size).any():
             fail(f"engine {label}: tokens {res.tokens.shape} out of range")
-        want = {"flash_attention": cfg.n_layers,
-                "decode_attention": cfg.n_layers * (steps - 1)}
+        want, want_step = expected_launches(cfg, steps)
         if counters and counts != want:
             fail(f"engine {label}: launches {counts}, expected {want} "
                  "(one kernel launch per layer and pass)")
+        _, _, step_counts = counted(eng.step, counters, dev)
+        if counters and step_counts != want_step:
+            fail(f"engine {label}: one decode step launched {step_counts}, "
+                 f"expected {want_step}")
         for k, c in counts.items():
             out["launches"][k] += c
         # the same work split: prefill alone, then decode steps
@@ -1247,12 +1295,18 @@ def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
             t0 = time.perf_counter()
             eng.step()                     # ends in a device-to-host copy
             step_ms.append((time.perf_counter() - t0) * 1e3)
-        cache_len = eng.cache["layers"][0]["k"].shape[1]
-        prof = profile_step(eng, f"decode/{label}/C{cache_len}")
-        row = {"phase": "engine", "cell": label, "dtype": cfg.dtype,
+        first = eng.cache["layers"][0]
+        cache_len = first["k"].shape[1] if "k" in first else None
+        depth = f"C{cache_len}" if cache_len else "state"
+        prof_prefill = profile_call(lambda: eng._prefill(params, batch),
+                                    dev, f"prefill/{label}/S{prompt}")
+        prof = profile_call(eng.step, dev, f"decode/{label}/{depth}")
+        row = {"phase": "engine", "arch": cfg.name, "cell": label,
+               "dtype": cfg.dtype,
                "batch": b, "slots": slots, "prompt": prompt,
                "steps": steps, "cache_len": cache_len,
                "generate_s": seconds, "launches": counts,
+               "step_launches": step_counts,
                "prefill_ms": statistics.median(prefill_ms),
                "decode_ms_per_step": statistics.median(step_ms),
                # tokens delivered to the b live requests (an idle slot's
@@ -1260,6 +1314,7 @@ def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
                "decode_tokens_per_s": b * 1e3 / statistics.median(step_ms),
                "generate_tokens_per_s": b * steps / seconds,
                "idle_share": prof["idle_share"],
+               "prefill_idle_share": prof_prefill["idle_share"],
                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
                if dev.type == "cuda" else None}
         emit(row)
@@ -1331,6 +1386,143 @@ def phase_attention_times(dev) -> dict:
         bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
     for name, row in out.items():
         emit({"phase": "times", "kernel": name, **row})
+    return out
+
+
+# --------------------------------------------------- SSD scan: phases --
+SSD_TOL = dict(atol=5e-4, rtol=5e-4)   # float32: the reference's own bound
+MAMBA_PARITY = dict(batch=8, prompt=512, steps=16)
+MAMBA_SERVE = dict(slots=8, max_len=2048, prompt=2048, steps=64, partial=4)
+SSD_MAIN = dict(b=8, l=2048, h=32, p=64, g=1, n=128)   # served prefill
+SSD_LONG = dict(b=1, l=32768, h=32, p=64, g=1, n=128)  # one long prompt
+SSD_CHUNK = 64
+PLAIN_RUNS = 3      # wall-timed runs of the plain version (a Python loop)
+# (b, l, h, p, g, n, kwargs): the CPU tests' cases (the reference's
+# sweep, groups 2 and 4, L = 1, 100, 200, initial states, long memory)
+SSD_CASES = [
+    (1, 64, 1, 16, 1, 8, {}), (2, 128, 4, 32, 2, 16, {}),
+    (2, 128, 4, 32, 4, 16, {}), (1, 256, 2, 64, 1, 32, {}),
+    (2, 1, 4, 16, 2, 8, dict(h0=True)), (2, 100, 4, 16, 2, 8, dict(h0=True)),
+    (2, 200, 4, 16, 2, 8, dict(h0=True)),
+    (1, 200, 2, 64, 1, 128, dict(h0=True)),
+    (1, 640, 2, 32, 1, 16, dict(h0=True, dt_scale=0.005, bc_scale=1.0,
+                                skip=False)),
+]
+
+
+def ssd_kernel():
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return ssd_scan
+
+
+def ssd_inputs(seed, b, l, h, p, g, n, dtype, dev, h0=False, dt_scale=1.0,
+               bc_scale=0.3, skip=True, model_a=False):
+    """x ~ N(0, 1); dt = softplus(N(0, 1)) * dt_scale; a = -exp(N(0, 1)
+    / 2), or the model's -linspace(1, 16, H) with ``model_a``; b, c ~
+    N(0, 1) * bc_scale; d_skip ~ N(0, 1), or zero; h0 ~ N(0, 1) when
+    asked. x, b and c in ``dtype``. Returns ([x, dt, a, b, c, d_skip,
+    h0 or None], dt * a)."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x = normal(b, l, h, p).to(dtype)
+    dt = F.softplus(normal(b, l, h)) * dt_scale
+    a = -torch.linspace(1.0, 16.0, h, device=dev) if model_a \
+        else -torch.exp(normal(h) * 0.5)
+    bb = (normal(b, l, g, n) * bc_scale).to(dtype)
+    cc = (normal(b, l, g, n) * bc_scale).to(dtype)
+    d_skip = normal(h) if skip else torch.zeros(h, device=dev)
+    init = normal(b, h, p, n) if h0 else None
+    return [x, dt, a, bb, cc, d_skip, init], dt * a[None, None, :]
+
+
+def phase_ssd_parity(dev) -> float:
+    """``ssd_scan`` against its plain version on the card, y and the
+    final state: the CPU tests' cases in float32 within ``SSD_TOL`` and
+    in bf16 within ``MODEL_BF16_TOL``, then the served prefill shape (B 8,
+    L 2048, 32 heads of 64, N 128, the model's a) and one long prompt
+    (B 1, L 32768) in both. The long-memory case must keep at least a
+    tenth of its state through every chunk, or it tests no carry.
+    Returns the largest error at the served shape in bf16."""
+    import torch
+    from repro_torch.kernels import ref
+    kernel = ssd_kernel()
+    cases = [(f"b{b}_l{l}_h{h}_p{p}_g{g}_n{n}"
+              + "".join(f"_{k}{v}" for k, v in kw.items()),
+              dict(b=b, l=l, h=h, p=p, g=g, n=n, **kw), 1000 + i)
+             for i, (b, l, h, p, g, n, kw) in enumerate(SSD_CASES)]
+    cases += [("served_b8_l2048_h32_p64_n128", dict(**SSD_MAIN,
+                                                    model_a=True), 1100),
+              ("long_b1_l32768_h32_p64_n128", dict(**SSD_LONG,
+                                                   model_a=True), 1101)]
+    err_main = 0.0
+    for dtype in ("float32", "bfloat16"):
+        tol = SSD_TOL if dtype == "float32" else MODEL_BF16_TOL
+        for label, kw, seed in cases:
+            args, dta = ssd_inputs(seed, dtype=getattr(torch, dtype),
+                                   dev=dev, **kw)
+            if kw.get("dt_scale", 1.0) < 1.0:
+                full = kw["l"] // SSD_CHUNK * SSD_CHUNK
+                kept = torch.exp(dta[:, :full].reshape(
+                    kw["b"], -1, SSD_CHUNK, kw["h"]).sum(2)).min().item()
+                if kept < 0.1:
+                    fail(f"ssd {label}: a chunk keeps {kept} of its state")
+            got = kernel(*args[:6], initial_state=args[6],
+                         return_final_state=True)
+            want = ref.ssd_scan_ref(*args[:6], initial_state=args[6],
+                                    return_final_state=True)
+            errs = [compare_attention("ssd_scan", f"{label}_{out}", g, w,
+                                      dtype, tol, phase="ssd_parity")
+                    for out, g, w in zip(("y", "h_final"), got, want)]
+            if dtype == "bfloat16" and label.startswith("served"):
+                err_main = max(errs)
+            del args, got, want
+    return err_main
+
+
+def ssd_bytes_ops(b, l, h, p, g, n, elem=2) -> tuple[int, int]:
+    """x read and y written (``elem`` bytes each), dt (float32), b and c
+    (``elem``), a and d_skip read once, the float32 final state written;
+    the chunked algorithm's FLOPs, 2 per multiply-add: per (row, head,
+    chunk of Q = 64) C B^T (Q Q N), C H^T (Q P N), the masked product
+    with x (Q Q P) and the state update (Q P N)."""
+    q = SSD_CHUNK
+    chunks = b * h * (-(-l // q))
+    nbytes = 2 * b * l * h * p * elem + b * l * h * 4 \
+        + 2 * b * l * g * n * elem + 2 * h * 4 + b * h * p * n * 4
+    return nbytes, chunks * 2 * (q * q * n + 2 * q * p * n + q * q * p)
+
+
+def phase_ssd_times(dev) -> dict:
+    """``ssd_scan`` at the served prefill shape and at one long prompt,
+    bf16, against its plain version (a Python loop over L, so the mean
+    wall time of ``PLAIN_RUNS`` runs after one warm run: no sleep kernel
+    covers its thousands of launches) and its bound; no single PyTorch
+    call computes the scan."""
+    import torch
+    from repro_torch.kernels import ref
+    kernel = ssd_kernel()
+    out = {}
+    for key, shape, n in (("main", SSD_MAIN, 100), ("long", SSD_LONG, 20)):
+        args, _ = ssd_inputs(1200, dtype=torch.bfloat16, dev=dev,
+                             model_a=True, **shape)
+        nbytes, ops = ssd_bytes_ops(**shape)
+        bms, by = bf16_bound_ms(nbytes, ops)
+        out[key] = dict(
+            shape="b{b}_l{l}_h{h}_p{p}_g{g}_n{n}_bf16".format(**shape),
+            ms=time_launches(lambda: kernel(*args[:6],
+                                            return_final_state=True),
+                             dev, n=n),
+            plain_ms=time_host(lambda: ref.ssd_scan_ref(
+                *args[:6], return_final_state=True), dev, n=PLAIN_RUNS,
+                warm=1),
+            plain_runs=PLAIN_RUNS, library_ms=None, bound_ms=bms,
+            bound_by=by, bytes=nbytes, ops=ops)
+        emit({"phase": "times", "kernel": "ssd_scan", **out[key]})
+        del args
     return out
 
 
@@ -1411,12 +1603,28 @@ def main() -> int:
 
     # the model stack: attention kernels, full-width parity, serving
     errs.update(phase_attention_parity(dev))
-    parity = phase_model_parity(dev, full_width("float32"), **PARITY)
-    emit({"phase": "model_parity_summary", **parity})
+    parity = phase_model_parity(dev, full_width("stablelm_3b", "float32"),
+                                **PARITY)
+    emit({"phase": "model_parity_summary", "arch": "stablelm_3b",
+          **parity})
     torch.cuda.empty_cache()
-    serving = phase_engine(dev, full_width("bfloat16"), **SERVE)
+    serving = phase_engine(dev, full_width("stablelm_3b", "bfloat16"),
+                           **SERVE)
     torch.cuda.empty_cache()
     attn_times = phase_attention_times(dev)
+
+    # Mamba-2: the SSD kernel, full-width parity, serving
+    errs["ssd_scan"] = phase_ssd_parity(dev)
+    torch.cuda.empty_cache()
+    parity = phase_model_parity(dev, full_width("mamba2_370m", "float32"),
+                                **MAMBA_PARITY)
+    emit({"phase": "model_parity_summary", "arch": "mamba2_370m",
+          **parity})
+    torch.cuda.empty_cache()
+    mamba = phase_engine(dev, full_width("mamba2_370m", "bfloat16"),
+                         **MAMBA_SERVE)
+    torch.cuda.empty_cache()
+    ssd_times = phase_ssd_times(dev)
 
     times = phase_times(dev)
     main_shape = "r256_i4"
@@ -1455,6 +1663,18 @@ def main() -> int:
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
             "shape": tm["shape"]})
+    tm, long = ssd_times["main"], ssd_times["long"]
+    rows.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:85",
+        "launches": mamba["launches"]["ssd_scan"],
+        "max_abs_err": errs["ssd_scan"], "ms": tm["ms"],
+        "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+        "bound_by": tm["bound_by"], "library_ms": None,
+        "shape": tm["shape"], "plain_runs": tm["plain_runs"],
+        "long_ms": long["ms"], "long_plain_ms": long["plain_ms"],
+        "long_bound_ms": long["bound_ms"]})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -20,10 +20,9 @@ ARCH_IDS = [
     "whisper_small", "phi3_medium_14b",
 ]
 #: architectures the port runs
-PORTED = ("stablelm_3b",)
+PORTED = ("stablelm_3b", "mamba2_370m")
 #: the others -> where they wait in ROADMAP.md
 WAITING = {
-    "mamba2_370m": "queue 1 item a (Mamba-2 layers, the ssd_scan kernel)",
     "dbrx_132b": "queue 1 item b (MoE layers)",
     "arctic_480b": "queue 1 item b (MoE layers)",
     "recurrentgemma_2b": "queue 1 item c (RG-LRU layers)",

@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels at first use.
 
-Each source under ``csrc/`` (``routing.cu``, ``attention.cu``) is
-compiled by ``nvcc`` into a shared library of its own with a plain C
-interface and loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds). A library lands in ``build/torch_kernels/`` at the
+Each source under ``csrc/`` (``routing.cu``, ``attention.cu``,
+``ssd.cu``) is compiled by ``nvcc`` into a shared library of its own
+with a plain C interface and loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds). A library lands in ``build/torch_kernels/`` at the
 repository root, named by a hash of its source and flags, so an edited
 source never loads a stale build. :func:`build_all` starts one ``nvcc``
 per source, all at once. Nothing here runs at import: the CPU tests
@@ -21,7 +21,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"routing": CSRC / "routing.cu", "attention": CSRC / "attention.cu"}
+SOURCES = {"routing": CSRC / "routing.cu", "attention": CSRC / "attention.cu",
+           "ssd": CSRC / "ssd.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
 # -fmad=false: the kernels pin the rounding of every step (no fused
@@ -67,9 +68,15 @@ SIGNATURES = {
         "laimr_decode_attention": (
             [_VOIDP] * 6 + [_INT] * 6 + [_FLOAT, _INT, _FLOAT] + [_VOIDP]),
     },
+    "ssd": {
+        # x, dt, a, b, c, d_skip, h0 (or null), y, h_final, dtype, B, L,
+        # H, P, G, N, stream
+        "laimr_ssd_scan": [_VOIDP] * 9 + [_INT] * 7 + [_VOIDP],
+    },
 }
 ERROR_STRING = {"routing": "laimr_cuda_error_string",
-                "attention": "laimr_attention_error_string"}
+                "attention": "laimr_attention_error_string",
+                "ssd": "laimr_ssd_error_string"}
 
 
 class KernelLibrary:

@@ -1,4 +1,4 @@
-"""Dispatch facade for the port's kernels (routing and attention).
+"""Dispatch facade for the port's kernels (routing, attention, SSD).
 
 Each op has two execution paths, chosen per call with ``impl=``:
 
@@ -106,3 +106,16 @@ def decode_attention(q, k_cache, v_cache, kv_pos, q_pos, *, window=0,
     from repro_torch.kernels import decode_attention as da
     return da.decode_attention(q, k_cache, v_cache, kv_pos, q_pos,
                                window=window, softcap=softcap, scale=scale)
+
+
+def ssd_scan(x, dt, a, b, c, d_skip, initial_state=None,
+             return_final_state=False, impl: str = "ref"):
+    """Mamba-2 SSD scan. See ``ref.ssd_scan_ref``."""
+    _require_cuda("ssd_scan", x, impl)
+    if impl == "ref":
+        return _ref.ssd_scan_ref(x, dt, a, b, c, d_skip,
+                                 initial_state=initial_state,
+                                 return_final_state=return_final_state)
+    from repro_torch.kernels import ssd_scan as ssd
+    return ssd.ssd_scan(x, dt, a, b, c, d_skip, initial_state=initial_state,
+                        return_final_state=return_final_state)

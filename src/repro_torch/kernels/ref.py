@@ -25,6 +25,11 @@ and ``decode_attention`` with the same conventions, masked logits set to
 ``NEG_INF = -1e30`` (not ``-inf``, so a row with no valid key averages
 V uniformly instead of giving NaN), float32 logits, probabilities and
 P @ V, and the output cast to ``q``'s dtype.
+
+``ssd_scan_ref`` is the plain version of the Mamba-2 SSD kernel
+(``ssd_scan_kernel`` in ``csrc/ssd.cu``): the torch twin of the
+reference's sequential oracle ``repro.kernels.ref.ssd_scan``, a float32
+recurrence over the sequence, one step at a time.
 """
 from __future__ import annotations
 
@@ -310,3 +315,50 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     logits = torch.where(valid[:, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhc,bchd->bhd", probs, vf).to(q.dtype)
+
+
+# ------------------------------------------------------------------- SSD
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+                 initial_state: torch.Tensor | None = None,
+                 return_final_state: bool = False):
+    """Mamba-2 SSD (state-space dual) as a sequential scan; the plain
+    version of ``ssd_scan``.
+
+    x: (B, L, H, P); dt: (B, L, H) positive step sizes; a: (H,) negative
+    decay rates; b, c: (B, L, G, N), head h reading group h // (H / G);
+    d_skip: (H,); initial_state: (B, H, P, N) or None (zeros). In
+    float32, for t = 0 .. L-1::
+
+        h = exp(dt_t * a) * h + (dt_t * x_t) b_t^T ;  y_t = h c_t
+
+    then ``y += d_skip * x``. Returns y (B, L, H, P) in x's dtype, and
+    with ``return_final_state`` also the last h (B, H, P, N) in float32.
+    The state contraction is a product and a sum, not a matmul, so no
+    TF32 setting reaches it.
+    """
+    bsz, length, heads, hp = x.shape
+    groups, n = b.shape[2], b.shape[3]
+    if length < 1 or groups < 1 or heads % groups:
+        raise ValueError(f"ssd_scan: L {length}, H {heads}, G {groups}")
+    rep = heads // groups
+    b_h = b.to(torch.float32).repeat_interleave(rep, dim=2)   # (B, L, H, N)
+    c_h = c.to(torch.float32).repeat_interleave(rep, dim=2)
+    dtf = dt.to(torch.float32)
+    decay = torch.exp(dtf * a.to(torch.float32))             # (B, L, H)
+    xf = x.to(torch.float32)
+    xin = xf * dtf[..., None]                                # dt * x
+    if initial_state is None:
+        h = torch.zeros((bsz, heads, hp, n), dtype=torch.float32,
+                        device=x.device)
+    else:
+        h = initial_state.to(torch.float32)
+    ys = []
+    for t in range(length):
+        h = h * decay[:, t, :, None, None] \
+            + xin[:, t, :, :, None] * b_h[:, t, :, None, :]
+        ys.append((h * c_h[:, t, :, None, :]).sum(-1))       # (B, H, P)
+    y = torch.stack(ys, dim=1) \
+        + xf * d_skip.to(torch.float32)[None, None, :, None]
+    y = y.to(x.dtype)
+    return (y, h) if return_final_state else y

@@ -43,15 +43,19 @@ class Init:
 
     def dense(self, shape: tuple, fan_in: int, dtype) -> torch.Tensor:
         """Normal(0, 1/fan_in) in float32, cast to ``dtype``."""
+        return self.normal(shape, fan_in ** -0.5, dtype)
+
+    def normal(self, shape: tuple, std: float, dtype) -> torch.Tensor:
+        """Normal(0, std^2) in float32, cast to ``dtype``."""
         if self.gen is None:
             return torch.empty(shape, dtype=dtype, device=self.device)
         w = torch.randn(shape, generator=self.gen, dtype=torch.float32,
                         device=self.device)
-        return w.mul_(fan_in ** -0.5).to(dtype)
+        return w.mul_(std).to(dtype)
 
-    def full(self, shape: tuple, value: float) -> torch.Tensor:
-        return torch.full(shape, value, dtype=torch.float32,
-                          device=self.device)
+    def full(self, shape: tuple, value: float, dtype=torch.float32
+             ) -> torch.Tensor:
+        return torch.full(shape, value, dtype=dtype, device=self.device)
 
 
 @contextlib.contextmanager

@@ -6,8 +6,8 @@ encoder-decoder (whisper) is not ported yet and raises.
 
 Entry points that make tensors run on the card unless the caller passes
 ``device="cpu"``; those that run the model take ``kernels="cuda"`` (the
-hand-written attention kernels, default) or ``"ref"`` (their plain
-versions, on any device).
+hand-written kernels: attention, and the SSD scan of Mamba-2 layers;
+default) or ``"ref"`` (their plain versions, on any device).
 """
 from __future__ import annotations
 

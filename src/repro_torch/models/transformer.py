@@ -8,11 +8,14 @@ The reference's ``constrain_batch`` sharding hint has no single-device
 counterpart and is dropped.
 
 Three entry points: ``forward`` (full logits), ``prefill`` (last-token
-logits plus the KV cache), ``decode_step`` (one token per sequence),
-each run under ``layers.float32_gemms``.
-Layer kinds ``"attn"`` and ``"local"`` are ported; ``"mamba2"``,
-``"rglru"`` and mixture-of-experts layers raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item where they wait.
+logits plus the cache), ``decode_step`` (one token per sequence), each
+run under ``layers.float32_gemms``.
+Layer kinds ``"attn"``, ``"local"`` (attention with a KV cache) and
+``"mamba2"`` (``models/ssm.py``, with a conv buffer and an SSM state) are
+ported; ``"rglru"`` and mixture-of-experts layers raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item where they wait.
+As in the reference, a ``"mamba2"`` layer is the whole layer: it never
+carries an MLP, whatever ``d_ff`` is.
 """
 from __future__ import annotations
 
@@ -21,11 +24,10 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm
 
 ATTN_KINDS = ("attn", "local")
 NOT_PORTED = {
-    "mamba2": "ROADMAP.md queue 1 item a (Mamba-2 layers, ssd_scan)",
     "rglru": "ROADMAP.md queue 1 item c (RG-LRU layers)",
 }
 
@@ -41,7 +43,7 @@ def check_ported(cfg: ArchConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: {kind!r} layers are not ported yet: "
                 f"{NOT_PORTED[kind]}")
-        if kind not in ATTN_KINDS:
+        if kind not in ATTN_KINDS + ("mamba2",):
             raise ValueError(f"unknown layer kind {kind}")
     if cfg.n_experts > 0:
         raise NotImplementedError(
@@ -73,12 +75,20 @@ def cache_len_for(cfg: ArchConfig, kind: str, max_len: int) -> int:
     return max_len
 
 
+def _has_mlp(cfg: ArchConfig, kind: str) -> bool:
+    # Mamba-2 blocks are the whole layer; attention layers carry an MLP.
+    return cfg.d_ff > 0 and kind != "mamba2"
+
+
 # ------------------------------------------------------------------ init
 def layer_init(init: layers.Init, cfg: ArchConfig, kind: str) -> dict:
     dt = dtype_of(cfg)
-    p = {"norm1": layers.norm_init(init, cfg.norm, cfg.d_model),
-         "attn": layers.attention_init(init, attn_spec(cfg, kind), dt)}
-    if cfg.d_ff > 0:
+    p = {"norm1": layers.norm_init(init, cfg.norm, cfg.d_model)}
+    if kind in ATTN_KINDS:
+        p["attn"] = layers.attention_init(init, attn_spec(cfg, kind), dt)
+    else:
+        p["mixer"] = ssm.init(init, cfg, dt)
+    if _has_mlp(cfg, kind):
         p["norm2"] = layers.norm_init(init, cfg.norm, cfg.d_model)
         p["mlp"] = layers.mlp_init(init, cfg.d_model, cfg.d_ff,
                                    cfg.mlp_kind, dt)
@@ -105,8 +115,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
 
 
 # --------------------------------------------------------------- forward
-def _mlp_block(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    if cfg.d_ff <= 0:
+def _mlp_block(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor
+               ) -> torch.Tensor:
+    if not _has_mlp(cfg, kind):
         return x
     h = layers.apply_norm(cfg.norm, p["norm2"], x)
     return x + layers.mlp(p["mlp"], h, cfg.mlp_kind)
@@ -147,9 +158,12 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         positions = _positions(b, s, x.device)
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
         h = layers.apply_norm(cfg.norm, p["norm1"], x)
-        x = x + layers.self_attention(p["attn"], attn_spec(cfg, kind), h,
-                                      positions, kernels)
-        x = _mlp_block(p, cfg, x)
+        if kind in ATTN_KINDS:
+            x = x + layers.self_attention(p["attn"], attn_spec(cfg, kind), h,
+                                          positions, kernels)
+        else:
+            x = x + ssm.forward(p["mixer"], cfg, h, kernels=kernels)
+        x = _mlp_block(p, cfg, kind, x)
     return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32,
                                                 device=x.device)
 
@@ -157,6 +171,8 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------- caches
 def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                      device="cuda") -> dict:
+    if kind == "mamba2":
+        return ssm.init_state(cfg, batch, dtype_of(cfg), device)
     c = cache_len_for(cfg, kind, max_len)
     shape = (batch, c, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
@@ -167,9 +183,11 @@ def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"
                ) -> dict:
-    """{"layers": [{"k", "v" (batch, C, Hkv, hd), "pos" (batch, C)}]},
-    C = max_len for global layers, min(window, max_len) for local ones;
-    pos -1 marks a slot never written."""
+    """{"layers": [one dict per layer]}: {"k", "v" (batch, C, Hkv, hd),
+    "pos" (batch, C)} for attention layers, C = max_len for global
+    layers, min(window, max_len) for local ones, pos -1 marking a slot
+    never written; {"conv" (batch, W-1, conv channels), "ssm" (batch, H,
+    P, N) float32} for Mamba-2 layers, zeros."""
     check_ported(cfg)
     return {"layers": [init_layer_cache(cfg, kind, batch, max_len, device)
                        for kind in layer_kinds(cfg)]}
@@ -180,9 +198,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             max_len: Optional[int] = None, kernels: str = "cuda"
             ) -> tuple[torch.Tensor, dict]:
-    """Prefill pass: ((B, V) float32 last-token logits, cache). The
-    cache depth is ``max_len``, or the prompt length S when it is None
-    (as in the reference)."""
+    """Prefill pass: ((B, V) float32 last-token logits, cache). An
+    attention layer's cache depth is ``max_len``, or the prompt length S
+    when it is None (as in the reference); a Mamba-2 layer's state has
+    no depth."""
     x = _embed(params, cfg, tokens)
     b, s = x.shape[:2]
     max_len = max_len or s
@@ -190,10 +209,14 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     caches = []
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
         h = layers.apply_norm(cfg.norm, p["norm1"], x)
-        y, c = layers.self_attention_prefill(
-            p["attn"], attn_spec(cfg, kind), h, positions,
-            cache_len_for(cfg, kind, max_len), kernels)
-        x = _mlp_block(p, cfg, x + y)
+        if kind in ATTN_KINDS:
+            y, c = layers.self_attention_prefill(
+                p["attn"], attn_spec(cfg, kind), h, positions,
+                cache_len_for(cfg, kind, max_len), kernels)
+        else:
+            y, c = ssm.forward(p["mixer"], cfg, h, return_state=True,
+                               kernels=kernels)
+        x = _mlp_block(p, cfg, kind, x + y)
         caches.append(c)
     return _logits(params, cfg, x[:, -1:, :])[:, 0, :], {"layers": caches}
 
@@ -213,7 +236,10 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     for p, kind, c in zip(params["layers"], layer_kinds(cfg),
                           cache["layers"]):
         h = layers.apply_norm(cfg.norm, p["norm1"], x)
-        y, _ = layers.self_attention_decode(p["attn"], attn_spec(cfg, kind),
-                                            h, c, pos, kernels)
-        x = _mlp_block(p, cfg, x + y)
+        if kind in ATTN_KINDS:
+            y, _ = layers.self_attention_decode(
+                p["attn"], attn_spec(cfg, kind), h, c, pos, kernels)
+        else:
+            y, _ = ssm.decode_step(p["mixer"], cfg, h, c)
+        x = _mlp_block(p, cfg, kind, x + y)
     return _logits(params, cfg, x)[:, 0, :], cache

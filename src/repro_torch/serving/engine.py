@@ -5,8 +5,10 @@ engine, as the reference ``repro.serving.engine``: requests join and
 leave decode slots between steps, which is how the router's replica
 pools map onto the card's batch slots. The engine runs on the card
 unless the caller passes ``device="cpu"``; ``kernels`` picks the
-hand-written attention kernels (``"cuda"``, default) or their plain
-versions (``"ref"``).
+hand-written kernels (``"cuda"``, default) or their plain versions
+(``"ref"``). The cache is the model's: KV rings for attention layers,
+conv buffers and SSM states for Mamba-2 layers; both paths of
+``generate`` carry either.
 """
 from __future__ import annotations
 

@@ -59,7 +59,8 @@ def test_port_has_the_slice_modules():
             "kernels/decode_attention.py", "kernels/csrc/attention.cu",
             "models/__init__.py", "models/layers.py",
             "models/transformer.py", "models/model.py",
-            "serving/engine.py"]
+            "serving/engine.py", "models/ssm.py", "kernels/ssd_scan.py",
+            "kernels/csrc/ssd.cu", "configs/mamba2_370m.py"]
     missing = [m for m in want if not (PORT / m).is_file()]
     assert not missing, missing
 
@@ -83,6 +84,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.serving, repro_torch.core.simulator\n"
             "import repro_torch.kernels.ops, repro_torch.convert\n"
             "import repro_torch.models.model, repro_torch.configs\n"
+            "import repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"
@@ -125,7 +127,8 @@ def test_kernel_scan_sees_every_kernel():
     assert cuda_kernels() == ["flash_attention_kernel",
                               "decode_attention_kernel",
                               "routing_score_kernel", "routing_guard_kernel",
-                              "routing_topk_kernel", "routing_attain_kernel"]
+                              "routing_topk_kernel", "routing_attain_kernel",
+                              "ssd_scan_kernel"]
 
 
 @pytest.mark.parametrize("kernel", cuda_kernels())

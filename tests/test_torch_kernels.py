@@ -27,6 +27,15 @@ the same seeds), plus head_dim 80 (StableLM-3B), a 200-token sequence
 (not a multiple of any tile) and a row with no valid cache slot, within
 the reference's own bounds: ``2e-5`` in float32, ``5e-2`` in bfloat16.
 
+The SSD cases (last) hold ``ssd_scan_ref`` to the reference's
+sequential oracle ``repro.kernels.ref.ssd_scan`` on the shapes of the
+reference's ``TestSSDScan`` (numpy inputs from stated seeds), its
+half-and-half initial-state continuation, L = 1, 100 and 200 (no chunk
+divides them), a long-memory case whose state survives every chunk, and
+bfloat16 inputs, at ``2e-5`` (float32; y in bfloat16 within one bf16
+step), and one case against the Pallas kernel in interpret mode at the
+reference's own ``5e-4``.
+
 Tests marked ``cuda`` run the hand-written kernels against the plain
 versions and skip without a card (``python3 chip_smoke.py`` runs the
 same checks there at full width).
@@ -47,12 +56,14 @@ from repro.kernels.routing_decide import routing_guard as pallas_guard
 from repro.kernels.routing_decide import routing_topk as pallas_topk
 from repro.kernels.routing_score import build_erlang_table as j_table
 from repro.kernels.routing_score import routing_score as pallas_score
+from repro.kernels.ssd_scan import ssd_scan as pallas_ssd_scan
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import routing_decide as trd
 from repro_torch.kernels import routing_score as trs
+from repro_torch.kernels import ssd_scan as tss
 
 SWEEP = [(2, 64), (6, 256), (11, 128)]
 
@@ -904,3 +915,189 @@ class TestCudaAttentionKernels:
         with pytest.raises(ValueError, match="contiguous"):
             tfa.flash_attention(t[0].transpose(1, 2).contiguous()
                                 .transpose(1, 2), t[1], t[2])
+
+
+# ------------------------------------------------------------------- SSD
+SSD_TOL = dict(atol=2e-5, rtol=2e-5)
+# y in bfloat16: the two sides agree in float32 to ~1e-6 and may then
+# round to neighbouring bf16 values, at most 2^-7 of the value apart
+SSD_BF16_TOL = dict(atol=1e-2, rtol=1e-2)
+SSD_PALLAS_TOL = dict(atol=5e-4, rtol=5e-4)   # the reference's own bound
+# (b, l, h, p, g, n): the shapes of the reference's TestSSDScan sweep
+SSD_SHAPES = [(1, 64, 1, 16, 1, 8), (2, 128, 4, 32, 2, 16),
+              (2, 128, 4, 32, 4, 16), (1, 256, 2, 64, 1, 32)]
+
+
+def ssd_case(seed, b, l, h, p, g, n, dtype="float32", h0=False,
+             dt_scale=1.0, bc_scale=0.3, skip=True):
+    """The reference ``TestSSDScan`` draws, made with numpy: x ~ N(0, 1),
+    dt = softplus(N(0, 1)) * dt_scale, a = -exp(N(0, 1) / 2), b and c ~
+    N(0, 1) * bc_scale, d_skip ~ N(0, 1) (zero unless ``skip``), h0 ~
+    N(0, 1) when asked. Returns (jax args, torch args, numpy dt * a);
+    x, b and c in ``dtype``, the rest float32; the last arg is h0 or
+    None."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, l, h, p)).astype(np.float32)
+    dt = (np.logaddexp(rng.normal(size=(b, l, h)), 0.0) * dt_scale) \
+        .astype(np.float32)
+    a = -np.exp(rng.normal(size=h) * 0.5).astype(np.float32)
+    bb = (rng.normal(size=(b, l, g, n)) * bc_scale).astype(np.float32)
+    cc = (rng.normal(size=(b, l, g, n)) * bc_scale).astype(np.float32)
+    d_skip = rng.normal(size=h).astype(np.float32) if skip \
+        else np.zeros(h, np.float32)
+    init = rng.normal(size=(b, h, p, n)).astype(np.float32) if h0 else None
+    pairs = [both(x, dtype), both(dt), both(a), both(bb, dtype),
+             both(cc, dtype), both(d_skip)]
+    jargs = [j for j, _ in pairs]
+    targs = [t for _, t in pairs]
+    jargs.append(None if init is None else jnp.asarray(init))
+    targs.append(None if init is None else torch.from_numpy(init))
+    return jargs, targs, dt * a[None, None, :]
+
+
+def jax_ssd(args):
+    return jref.ssd_scan(*args[:6], initial_state=args[6],
+                         return_final_state=True)
+
+
+def torch_ssd(args, fn=None):
+    fn = fn or tref.ssd_scan_ref
+    return fn(*args[:6], initial_state=args[6], return_final_state=True)
+
+
+def check_ssd(got, want, tol=SSD_TOL, y_tol=None):
+    (gy, gh), (wy, wh) = got, want
+    assert gy.dtype == got[0].dtype and gh.dtype == torch.float32
+    np.testing.assert_allclose(f32(gy), f32(wy), **(y_tol or tol))
+    np.testing.assert_allclose(f32(gh), f32(wh), **tol)
+
+
+class TestSSDPlainAgainstJax:
+    @pytest.mark.parametrize("b,l,h,p,g,n", SSD_SHAPES)
+    def test_reference_shapes(self, b, l, h, p, g, n):
+        jargs, targs, _ = ssd_case(l + p + g, b, l, h, p, g, n)
+        got = torch_ssd(targs)
+        assert tuple(got[0].shape) == (b, l, h, p)
+        assert tuple(got[1].shape) == (b, h, p, n)
+        check_ssd(got, jax_ssd(jargs))
+
+    def test_initial_state_continuation(self):
+        """The first half, then the second half from the first's final
+        state, equals the whole sequence (the prefill -> decode
+        contract), here and in the reference."""
+        jargs, targs, _ = ssd_case(1, 1, 128, 2, 16, 1, 8, skip=False)
+        half = 64
+
+        def part(args, sl, init):
+            return [args[0][:, sl], args[1][:, sl], args[2],
+                    args[3][:, sl], args[4][:, sl], args[5], init]
+        y1, h1 = torch_ssd(part(targs, slice(0, half), None))
+        y2, h2 = torch_ssd(part(targs, slice(half, None), h1))
+        full = torch_ssd(targs)
+        check_ssd((torch.cat([y1, y2], 1), h2), full)
+        check_ssd(full, jax_ssd(jargs))
+
+    @pytest.mark.parametrize("l", [1, 100, 200])
+    def test_lengths_no_chunk_divides(self, l):
+        jargs, targs, _ = ssd_case(30 + l, 2, l, 4, 16, 2, 8, h0=True)
+        check_ssd(torch_ssd(targs), jax_ssd(jargs))
+
+    def test_long_memory(self):
+        """dt scaled down so that every chunk of 64 keeps at least a
+        tenth of the state it starts from, over 10 chunks, with no skip
+        term: a fault in the carry shows in every later chunk."""
+        jargs, targs, dta = ssd_case(40, 1, 640, 2, 32, 1, 16, h0=True,
+                                     dt_scale=0.005, bc_scale=1.0,
+                                     skip=False)
+        chunk_decay = np.exp(dta.reshape(1, 10, 64, 2).sum(axis=2))
+        assert chunk_decay.min() >= 0.1
+        check_ssd(torch_ssd(targs), jax_ssd(jargs))
+
+    def test_bf16_inputs(self):
+        jargs, targs, _ = ssd_case(50, 2, 100, 4, 32, 2, 16, "bfloat16",
+                                   h0=True)
+        got = torch_ssd(targs)
+        assert got[0].dtype == torch.bfloat16
+        check_ssd(got, jax_ssd(jargs), y_tol=SSD_BF16_TOL)
+
+
+@pytest.mark.slow
+class TestSSDPlainAgainstPallasInterpret:
+    def test_ssd_scan(self):
+        """One small case, as ``tests/test_kernels.py`` runs the Pallas
+        kernel (interpret mode on the CPU), at its bound."""
+        jargs, targs, _ = ssd_case(60, 1, 128, 2, 16, 1, 8, h0=True)
+        want = pallas_ssd_scan(*jargs[:6], initial_state=jargs[6],
+                               return_final_state=True, chunk=64,
+                               interpret=True)
+        check_ssd(torch_ssd(targs), want, tol=SSD_PALLAS_TOL)
+
+
+class TestSSDDispatch:
+    def test_cpu_tensors_take_the_plain_version_without_counting(self):
+        _, targs, _ = ssd_case(61, 1, 16, 2, 8, 1, 4, h0=True)
+        before = tss.ssd_scan.launches
+        got = torch_ssd(targs, tss.ssd_scan)
+        assert tss.ssd_scan.launches == before
+        for g, w in zip(got, torch_ssd(targs)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        y = tss.ssd_scan(*targs[:6])
+        assert isinstance(y, torch.Tensor) and y.shape == targs[0].shape
+
+    def test_facade(self):
+        _, targs, _ = ssd_case(62, 1, 8, 2, 8, 1, 4)
+        y, h = ops.ssd_scan(*targs[:6], return_final_state=True)
+        want = torch_ssd(targs)
+        torch.testing.assert_close(y, want[0], rtol=0, atol=0)
+        torch.testing.assert_close(h, want[1], rtol=0, atol=0)
+        with pytest.raises(ValueError, match="cuda"):
+            ops.ssd_scan(*targs[:6], impl="cuda")
+        with pytest.raises(ValueError, match="impl"):
+            ops.ssd_scan(*targs[:6], impl="pallas")
+
+    def test_heads_must_split_into_groups(self):
+        _, targs, _ = ssd_case(63, 1, 8, 3, 8, 2, 4)
+        with pytest.raises(ValueError, match="G 2"):
+            tref.ssd_scan_ref(*targs[:6])
+
+
+@pytest.mark.cuda
+class TestCudaSSDKernel:
+    """The CUDA SSD kernel against its plain version on the card, y and
+    the final state, at the reference's kernel bound in float32 and one
+    bf16 step in bfloat16."""
+
+    CASES = [dict(b=b, l=l, h=h, p=p, g=g, n=n)
+             for b, l, h, p, g, n in SSD_SHAPES] + [
+        dict(b=2, l=1, h=4, p=16, g=2, n=8, h0=True),
+        dict(b=2, l=100, h=4, p=16, g=2, n=8, h0=True),
+        dict(b=1, l=200, h=2, p=64, g=1, n=128, h0=True),
+        dict(b=1, l=640, h=2, p=32, g=1, n=16, h0=True, dt_scale=0.005,
+             bc_scale=1.0, skip=False),
+    ]
+
+    @pytest.mark.parametrize("case", range(len(CASES)))
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_ssd_scan_kernel(self, cuda_device, case, dtype):
+        _, targs, _ = ssd_case(70 + case, dtype=dtype, **self.CASES[case])
+        t = [None if a is None else a.to(cuda_device) for a in targs]
+        before = tss.ssd_scan.launches
+        got = torch_ssd(t, tss.ssd_scan)
+        assert tss.ssd_scan.launches == before + 1
+        want = torch_ssd(t)
+        check_ssd([v.cpu() for v in got], [v.cpu() for v in want],
+                  tol=SSD_PALLAS_TOL if dtype == "float32"
+                  else dict(atol=1e-3, rtol=1e-2))
+
+    def test_kernel_rejects_what_it_does_not_take(self, cuda_device):
+        _, targs, _ = ssd_case(80, 1, 8, 2, 8, 1, 4)
+        t = [None if a is None else a.to(cuda_device) for a in targs]
+        with pytest.raises(TypeError):
+            tss.ssd_scan(t[0].half(), *t[1:3], t[3].half(), t[4].half(),
+                         t[5])
+        with pytest.raises(ValueError, match="contiguous"):
+            tss.ssd_scan(t[0].transpose(1, 2).contiguous().transpose(1, 2),
+                         *t[1:6])
+        _, big, _ = ssd_case(81, 1, 8, 2, 72, 1, 4)
+        with pytest.raises(ValueError, match="P 72"):
+            tss.ssd_scan(*[a.to(cuda_device) for a in big[:6]])

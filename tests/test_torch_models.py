@@ -10,11 +10,19 @@ at ``reduced(...)`` widths (2 layers, d_model 256, 4 heads), the
 reference through its pure-jnp attention oracle, the port through the
 plain versions of its attention kernels (``kernels="ref"``).
 
+The Mamba-2 cases hold ``repro_torch.models.ssm`` and the reduced
+``mamba2_370m`` (2 layers, d_model 256, 16 SSM heads of 32, state 16)
+to ``repro.models.ssm`` and the reference model the same way, the SSD
+scan through its sequential oracle on both sides, at a prompt length
+that no chunk of 64 divides; and a hybrid ("mamba2", "attn") pattern with
+``d_ff > 0``, where only the attention layer carries an MLP.
+
 Tolerances: layer outputs and caches ``atol = rtol = 2e-5`` (the
 reference's own float32 kernel bound); logits ``atol = rtol = 1e-4``.
 The largest logit gap measured (prefill and four decode steps, logits
 up to 4.3 in magnitude) is 5.2e-6 on the StableLM config and 4.9e-6 on
-the local-window variant; cache positions are exact.
+the local-window variant, 4.8e-6 on the reduced Mamba-2 (logits up to
+3.6); cache positions are exact.
 """
 import dataclasses
 
@@ -28,11 +36,13 @@ from repro.configs.base import get_config as j_get_config
 from repro.configs.base import reduced as j_reduced
 from repro.models import layers as jl
 from repro.models import model as jm
+from repro.models import ssm as jssm
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ARCH_IDS, PORTED, WAITING
 from repro_torch.convert import model_params_from_numpy
 from repro_torch.models import layers as tl
 from repro_torch.models import model as tm
+from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as tt
 
 LAYER_TOL = dict(atol=2e-5, rtol=2e-5)
@@ -61,6 +71,19 @@ def cfg_pair(local: bool = False):
                                  window=8)
         tc = dataclasses.replace(tc, layer_pattern=("local", "attn"),
                                  window=8)
+    return jc, tc
+
+
+def mamba_pair(hybrid: bool = False):
+    """(reference cfg, port cfg): reduced Mamba2-370m, or a hybrid
+    ("mamba2", "attn") variant with d_ff 64, where the attention layer
+    carries an MLP and the Mamba-2 layer does not."""
+    jc = j_reduced(j_get_config("mamba2_370m"))
+    tc = reduced(get_config("mamba2_370m"))
+    if hybrid:
+        change = dict(layer_pattern=("mamba2", "attn"), d_ff=64)
+        jc = dataclasses.replace(jc, **change)
+        tc = dataclasses.replace(tc, **change)
     return jc, tc
 
 
@@ -104,8 +127,20 @@ class TestConfigs:
                           cfg_pair()[::-1]):
             assert tm.param_count(cfg) == jm.param_count(jcfg)
 
+    def test_mamba2_matches_the_reference_config(self):
+        assert dataclasses.asdict(get_config("mamba2_370m")) == \
+            dataclasses.asdict(j_get_config("mamba2_370m"))
+        assert dataclasses.asdict(reduced(get_config("mamba2-370m"))) == \
+            dataclasses.asdict(j_reduced(j_get_config("mamba2_370m")))
+
+    def test_mamba2_param_count_matches_the_reference(self):
+        for cfg, jcfg in ((get_config("mamba2_370m"),
+                           j_get_config("mamba2_370m")),
+                          mamba_pair()[::-1], mamba_pair(True)[::-1]):
+            assert tm.param_count(cfg) == jm.param_count(jcfg)
+        assert tm.param_count(get_config("mamba2_370m")) == 368_338_432
+
     @pytest.mark.parametrize("change,match", [
-        (dict(layer_pattern=("mamba2",)), "queue 1 item a"),
         (dict(n_experts=4, top_k=2), "queue 1 item b"),
         (dict(layer_pattern=("rglru", "attn")), "queue 1 item c"),
         (dict(is_encoder_decoder=True), "queue 1 item d"),
@@ -406,3 +441,193 @@ def test_entry_points_own_the_gemm_precision(entry, monkeypatch):
         cuda.allow_bf16_reduced_precision_reduction = saved[1]
     assert seen and set(seen) == {("highest", False)}
     assert after == ("high", True)
+
+
+# ------------------------------------------------------------ Mamba-2 --
+def mixer_pair(seed: int = 0):
+    """Reference Mamba-2 block weights (``ssm.init`` from PRNGKey(seed))
+    at the reduced config's widths, as jax and torch dicts."""
+    jc, tc = mamba_pair()
+    jp = jssm.init(jax.random.PRNGKey(seed), jc, jnp.float32)
+    tp = jax.tree.map(lambda a: t_of(np.asarray(a)), jp)
+    return jc, tc, jp, tp
+
+
+def ssm_state(rng, cfg, b: int) -> dict:
+    dd = tssm.dims(cfg)
+    return {"conv": rng.normal(size=(b, dd["conv_w"] - 1, dd["conv_ch"]))
+            .astype(np.float32),
+            "ssm": rng.normal(size=(b, dd["n_heads"], dd["head_dim"],
+                                    dd["state"])).astype(np.float32)}
+
+
+class TestSSMLayers:
+    def test_init_shapes_and_values_follow_the_reference(self):
+        jc, tc, jp, _ = mixer_pair()
+        got = tssm.init(tl.Init(0, "cpu"), tc, torch.float32)
+        assert jax.tree.map(lambda a: tuple(a.shape), jp) == \
+            jax.tree.map(lambda t: tuple(t.shape), got)
+        for key in ("conv_b", "dt_bias", "a_log", "d_skip"):
+            np.testing.assert_allclose(np_of(got[key]), np.asarray(jp[key]),
+                                       rtol=1e-6, atol=0)
+        assert abs(got["conv_w"].std().item() - 0.1) < 0.01
+        bf = tssm.init(tl.Init(0, "cpu"), tc, torch.bfloat16)
+        assert {k: v.dtype for k, v in bf.items() if k != "norm"} == {
+            "in_proj": torch.bfloat16, "conv_w": torch.bfloat16,
+            "conv_b": torch.bfloat16, "dt_bias": torch.float32,
+            "a_log": torch.float32, "d_skip": torch.float32,
+            "out_proj": torch.bfloat16}
+
+    @pytest.mark.parametrize("with_buf", [False, True])
+    def test_causal_conv(self, with_buf):
+        jc, tc, jp, tp = mixer_pair()
+        rng = np.random.default_rng(30)
+        dd = tssm.dims(tc)
+        u = rng.normal(size=(2, 9, dd["conv_ch"])).astype(np.float32)
+        buf = rng.normal(size=(2, dd["conv_w"] - 1, dd["conv_ch"])) \
+            .astype(np.float32) if with_buf else None
+        jy, jbuf = jssm._causal_conv(jp["conv_w"], jp["conv_b"],
+                                     jnp.asarray(u), None if buf is None
+                                     else jnp.asarray(buf))
+        ty, tbuf = tssm._causal_conv(tp["conv_w"], tp["conv_b"], t_of(u),
+                                     None if buf is None else t_of(buf))
+        np.testing.assert_allclose(np_of(ty), np.asarray(jy), **LAYER_TOL)
+        np.testing.assert_array_equal(np_of(tbuf), np.asarray(jbuf))
+        assert tbuf.is_contiguous()
+
+    @pytest.mark.parametrize("with_state", [False, True])
+    def test_forward(self, with_state):
+        """A 70-step sequence (no chunk of 64 divides it), from zeros or
+        from a given conv buffer and SSM state, with the state after."""
+        jc, tc, jp, tp = mixer_pair()
+        rng = np.random.default_rng(31)
+        x = rng.normal(size=(2, 70, tc.d_model)).astype(np.float32)
+        st = ssm_state(rng, tc, 2) if with_state else None
+        jy, jst = jssm.forward(jp, jc, jnp.asarray(x),
+                               None if st is None else
+                               jax.tree.map(jnp.asarray, st),
+                               return_state=True)
+        ty, tst = tssm.forward(tp, tc, t_of(x), None if st is None else
+                               jax.tree.map(t_of, st), return_state=True,
+                               kernels="ref")
+        np.testing.assert_allclose(np_of(ty), np.asarray(jy), **LAYER_TOL)
+        for key in ("conv", "ssm"):
+            np.testing.assert_allclose(np_of(tst[key]),
+                                       np.asarray(jst[key]), **LAYER_TOL)
+        plain = tssm.forward(tp, tc, t_of(x), None if st is None else
+                             jax.tree.map(t_of, st), kernels="ref")
+        torch.testing.assert_close(plain, ty, rtol=0, atol=0)
+
+    def test_decode_step_updates_the_state_in_place(self):
+        jc, tc, jp, tp = mixer_pair()
+        rng = np.random.default_rng(32)
+        st = ssm_state(rng, tc, 3)
+        jst = jax.tree.map(jnp.asarray, st)
+        tst = jax.tree.map(t_of, st)
+        conv, ssm_t = tst["conv"], tst["ssm"]
+        for _ in range(3):
+            x = rng.normal(size=(3, 1, tc.d_model)).astype(np.float32)
+            jy, jst = jssm.decode_step(jp, jc, jnp.asarray(x), jst)
+            ty, tst = tssm.decode_step(tp, tc, t_of(x), tst)
+            np.testing.assert_allclose(np_of(ty), np.asarray(jy),
+                                       **LAYER_TOL)
+            for key in ("conv", "ssm"):
+                np.testing.assert_allclose(np_of(tst[key]),
+                                           np.asarray(jst[key]), **LAYER_TOL)
+        assert tst["conv"] is conv and tst["ssm"] is ssm_t
+
+    def test_prefill_then_decode_continues_the_sequence(self):
+        """forward over 40 steps with the state out, then decode steps,
+        equals forward over the longer sequence at each new step."""
+        _, tc, _, tp = mixer_pair()
+        rng = np.random.default_rng(33)
+        x = t_of(rng.normal(size=(2, 43, tc.d_model)).astype(np.float32))
+        whole = tssm.forward(tp, tc, x, kernels="ref")
+        _, st = tssm.forward(tp, tc, x[:, :40], return_state=True,
+                             kernels="ref")
+        for t in range(40, 43):
+            y, st = tssm.decode_step(tp, tc, x[:, t:t + 1], st)
+            np.testing.assert_allclose(np_of(y), np_of(whole[:, t:t + 1]),
+                                       **LAYER_TOL)
+
+
+@pytest.mark.parametrize("hybrid", [False, True], ids=["mamba2", "hybrid"])
+class TestMamba2Model:
+    def test_prefill_and_decode_match_the_reference(self, hybrid):
+        jc, tc = mamba_pair(hybrid)
+        jp, tp = params_pair(jc, tc)
+        b, s = 2, 70
+        rng = np.random.default_rng(40)
+        tokens = rng.integers(0, tc.vocab_size, (b, s)).astype(np.int32)
+        jl_, jcache = jm.prefill(jp, jc, {"tokens": jnp.asarray(tokens)})
+        tl_, tcache = tm.prefill(tp, tc, {"tokens": t_of(tokens)},
+                                 kernels="ref")
+        np.testing.assert_allclose(np_of(tl_), np.asarray(jl_), **LOGIT_TOL)
+        self.check_caches(tcache, jcache, jc)
+        pos = np.full((b,), s, np.int32)
+        for _ in range(4):
+            tok = rng.integers(0, tc.vocab_size, (b,)).astype(np.int32)
+            jl_, jcache = jm.decode_step(jp, jc, jnp.asarray(tok), jcache,
+                                         jnp.asarray(pos))
+            tl_, tcache = tm.decode_step(tp, tc, t_of(tok), tcache,
+                                         t_of(pos), kernels="ref")
+            np.testing.assert_allclose(np_of(tl_), np.asarray(jl_),
+                                       **LOGIT_TOL)
+            pos = pos + 1
+        self.check_caches(tcache, jcache, jc)
+
+    @staticmethod
+    def check_caches(tcache, jcache, jc):
+        for got, want in zip(tcache["layers"], jax_layer_caches(jcache, jc)):
+            assert set(got) == set(want)
+            for key in want:
+                if key == "pos":
+                    np.testing.assert_array_equal(np_of(got[key]), want[key])
+                else:
+                    np.testing.assert_allclose(np_of(got[key]), want[key],
+                                               **LAYER_TOL)
+
+    def test_forward_matches_the_reference(self, hybrid):
+        jc, tc = mamba_pair(hybrid)
+        jp, tp = params_pair(jc, tc)
+        tokens = np.random.default_rng(41).integers(
+            0, tc.vocab_size, (2, 20)).astype(np.int32)
+        jl_, _ = jm.forward(jp, jc, {"tokens": jnp.asarray(tokens)})
+        tl_, _ = tm.forward(tp, tc, {"tokens": t_of(tokens)}, kernels="ref")
+        np.testing.assert_allclose(np_of(tl_), np.asarray(jl_), **LOGIT_TOL)
+
+    def test_init_cache_matches_the_reference(self, hybrid):
+        jc, tc = mamba_pair(hybrid)
+        want = jax_layer_caches(jm.init_cache(jc, 3, 24), jc)
+        got = tm.init_cache(tc, 3, 24, device="cpu")["layers"]
+        assert len(got) == len(want) == tc.n_layers
+        for g, w in zip(got, want):
+            assert set(g) == set(w)
+            for key in w:
+                assert tuple(g[key].shape) == w[key].shape
+                assert str(g[key].dtype).split(".")[1] == str(w[key].dtype)
+                np.testing.assert_array_equal(np_of(g[key]), w[key])
+
+    def test_only_attention_layers_carry_an_mlp(self, hybrid):
+        jc, tc = mamba_pair(hybrid)
+        p = tm.init_params(tc, device="meta")
+        for layer, kind in zip(p["layers"], tt.layer_kinds(tc)):
+            assert ("mlp" in layer) == ("norm2" in layer) == \
+                (kind == "attn")
+            assert ("mixer" in layer) == (kind == "mamba2")
+
+
+def test_mamba2_layer_ignores_d_ff():
+    """The reference's ``_has_mlp`` rule: a ("mamba2",) pattern at
+    d_ff > 0 has no MLP anywhere, in the weights and in the pass."""
+    jc, tc = mamba_pair()
+    jc, tc = (dataclasses.replace(c, d_ff=128) for c in (jc, tc))
+    assert tm.param_count(tc) == jm.param_count(jc) == \
+        tm.param_count(mamba_pair()[1])
+    jp, tp = params_pair(jc, tc)
+    assert all(set(layer) == {"norm1", "mixer"} for layer in tp["layers"])
+    tokens = np.random.default_rng(42).integers(
+        0, tc.vocab_size, (1, 12)).astype(np.int32)
+    jl_, _ = jm.forward(jp, jc, {"tokens": jnp.asarray(tokens)})
+    tl_, _ = tm.forward(tp, tc, {"tokens": t_of(tokens)}, kernels="ref")
+    np.testing.assert_allclose(np_of(tl_), np.asarray(jl_), **LOGIT_TOL)

@@ -11,6 +11,10 @@ ring, ``b < slots`` merges it into the ``max_len``-deep cache.
 The reference's own engine tests (``tests/test_serving.py``) are ported
 as well: manual decode, slot management, positions, the partial-batch
 merge and idle-slot invariance.
+
+The reduced Mamba2-370m is served the same way (``TestMamba2Engine``):
+both paths carry its conv buffers and SSM states instead of KV rings, at
+a prompt length no chunk of 64 divides.
 """
 import jax
 import jax.numpy as jnp
@@ -182,6 +186,69 @@ class TestPartialBatchMerge:
         _merge_batch(full, new)
         assert torch.equal(full[:2, :3], new)
         assert (full[2:] == -1).all() and (full[:, 3:] == -1).all()
+
+
+@pytest.fixture(scope="module")
+def mamba_setup():
+    jc = j_reduced(j_get_config("mamba2_370m"))
+    tc = reduced(get_config("mamba2_370m"))
+    jp = jm.init_params(jax.random.PRNGKey(0), jc)
+    tp = model_params_from_numpy(jax.tree.map(np.asarray, jp), tc,
+                                 device="cpu")
+    return jc, jp, tc, tp
+
+
+class TestMamba2Engine:
+    @pytest.mark.parametrize("b,s,steps,slots,max_len", [
+        (3, 70, 5, 3, 16),      # b == slots: adopts the prefill states
+        (2, 70, 5, 4, 64),      # b < slots: merged into the leading slots
+    ])
+    def test_greedy_tokens_match(self, mamba_setup, b, s, steps, slots,
+                                 max_len):
+        jc, jp, tc, tp = mamba_setup
+        p = prompts(b * 100 + s, b, s, tc.vocab_size)
+        want = JaxEngine(jc, jp, slots=slots, max_len=max_len) \
+            .generate(jnp.asarray(p), steps=steps)
+        got = ServingEngine(tc, tp, slots=slots, max_len=max_len, **CPU) \
+            .generate(p, steps=steps)
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+
+    def test_states_match_after_generate(self, mamba_setup):
+        """b < slots: the prefill's conv buffers and SSM states land in
+        the leading slots, the idle slots' stay zero until they decode,
+        and after three steps every slot holds the reference's state."""
+        jc, jp, tc, tp = mamba_setup
+        p = prompts(6, 2, 70, tc.vocab_size)
+        je = JaxEngine(jc, jp, slots=4, max_len=32)
+        te = ServingEngine(tc, tp, slots=4, max_len=32, **CPU)
+        je.generate(jnp.asarray(p), steps=3)
+        te.generate(p, steps=3)
+        np.testing.assert_array_equal(te.pos.numpy(), np.asarray(je.pos))
+        np.testing.assert_array_equal(te.current.numpy(),
+                                      np.asarray(je.current))
+        jcache = je.cache["blocks"]["layer0"]
+        for i, layer in enumerate(te.cache["layers"]):
+            assert set(layer) == {"conv", "ssm"}
+            for key in ("conv", "ssm"):
+                np.testing.assert_allclose(layer[key].numpy(),
+                                           np.asarray(jcache[key][i]),
+                                           atol=2e-5, rtol=2e-5)
+
+    def test_idle_slots_do_not_leak_into_active_decode(self, mamba_setup):
+        _, _, cfg, params = mamba_setup
+        p = prompts(7, 2, 20, cfg.vocab_size)
+        four = ServingEngine(cfg, params, slots=4, max_len=64, **CPU) \
+            .generate(p, steps=4)
+        eight = ServingEngine(cfg, params, slots=8, max_len=64, **CPU) \
+            .generate(p, steps=4)
+        np.testing.assert_array_equal(four.tokens, eight.tokens)
+
+    def test_cuda_kernels_refuse_a_cpu_engine(self, mamba_setup):
+        _, _, cfg, params = mamba_setup
+        eng = ServingEngine(cfg, params, slots=2, max_len=16,
+                            device="cpu", kernels="cuda")
+        with pytest.raises(ValueError, match="cuda"):
+            eng.generate(np.ones((2, 4), np.int32), steps=1)
 
 
 def test_param_count_of_the_served_model():
