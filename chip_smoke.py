@@ -34,9 +34,9 @@ Each phase prints one JSON object per line:
 7. both attention kernels (``flash_attention``, ``decode_attention``)
    against their plain versions: the reference's sweeps in float32 and
    bfloat16, head_dim 80, a 200-token sequence and an all-invalid decode
-   row within ``2e-5`` (float32) and ``5e-2`` (bfloat16), the
-   reference's own bounds; the model's shapes within ``2e-5`` in float32
-   and ``MODEL_BF16_TOL`` in bfloat16;
+   row, and the model's shapes, within ``2e-5`` in float32 (the
+   reference's own bound) and ``MODEL_BF16_TOL`` in bfloat16 (inside the
+   reference's ``5e-2``);
 8. StableLM-3B at full width in float32 (weights from generator seed
    0): prefill of 8 x 512 prompts and 16 decode steps with
    ``kernels="cuda"`` against ``kernels="ref"`` on the latter's tokens,
@@ -52,7 +52,8 @@ Each phase prints one JSON object per line:
    and one decode step;
 10. the attention kernels' times (CUDA events, medians of 100 launches)
    at the model's shapes, against their plain versions and
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``, and each wrapper's host time per
+   call (``time_launches(host=True)``);
 11. ``ssd_scan`` against its plain version, y and the final state: the
    CPU tests' cases (the reference's sweep, groups 2 and 4, L = 1, 100
    and 200, initial states, a long-memory case) within ``5e-4`` in
@@ -740,9 +741,12 @@ def phase_stream(dev, backend: str, policies=POLICIES) -> dict:
 
 
 # ----------------------------------------------------------- phase 6 -----
-def time_launches(fn, dev, n: int = 200, chunk: int = 20) -> float:
-    """Median device time of one call of ``fn`` over ``n`` calls, in ms.
-    A sleep kernel holds the stream while each chunk of calls is
+def time_launches(fn, dev, n: int = 200, chunk: int = 20,
+                  host: bool = False) -> float:
+    """Median device time of one call of ``fn`` over ``n`` calls, in ms;
+    with ``host``, the median host time of one call instead (the
+    wrapper's checks, allocations and enqueue, with no wait on the
+    device). A sleep kernel holds the stream while each chunk of calls is
     enqueued, so every event pair brackets the device work of one call
     and not the host's enqueue time. A chunk whose enqueue outlasted the
     sleep (the device went idle waiting for the host) is discarded and
@@ -763,14 +767,17 @@ def time_launches(fn, dev, n: int = 200, chunk: int = 20) -> float:
         slept = torch.cuda.Event()
         torch.cuda._sleep(cycles)
         slept.record()
+        walls = []
         for a, b in pairs:
             a.record()
+            t0 = time.perf_counter()
             fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
             b.record()
         covered = not slept.query()   # the sleep still ran at the end
         torch.cuda.synchronize(dev)
         if covered:
-            times += [a.elapsed_time(b) for a, b in pairs]
+            times += walls if host else [a.elapsed_time(b) for a, b in pairs]
         elif cycles >= 2_000_000_000 and chunk == 1:
             fail("time_launches: the sleep never covered one call's "
                  "enqueue")
@@ -933,10 +940,13 @@ def phase_times(dev) -> dict:
 # ------------------------------------------------- model stack: phases --
 H100_BF16_FLOPS = 989e12       # dense tensor-core bf16, SXM data sheet
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 5e-2}   # the reference's bounds
-# bf16 at the model's shapes, where 5e-2 is as large as a typical output:
-# kernel and plain version accumulate in float32 and differ by ~1e-6
-# before the output's bf16 rounding, so they may land one bf16 step
-# apart (at most 2^-7 of the value), never more
+# bf16 at every attention case (5e-2 is as large as a typical output, and
+# this bound lies inside it):
+# kernel and plain version accumulate in float32 and differ by ~1e-5
+# before the output's bf16 rounding (the flash kernel's P in two bf16
+# parts: 6.4e-6 in a plain emulation at the served shape; P in one bf16
+# part would be 4e-3 and miss), so they may land one bf16 step apart (at
+# most 2^-7 of the value), never more
 MODEL_BF16_TOL = dict(atol=1e-3, rtol=1e-2)
 # full-width float32 model parity (phase 10), stated before the first chip
 # run: each step's logits within LOGIT_BOUND x max |logit| of the plain
@@ -960,12 +970,27 @@ FLASH_CASES = [
     (2, 128, 128, 2, 2, 32, dict(causal=False)),
     (2, 40, 100, 4, 2, 16, dict(window=30)),
     (1, 70, 70, 1, 1, 256, {}),
+    # every head_dim bucket of the tensor-core body, Sq not a multiple of
+    # the 64-row q-tile; head_dims that are no multiple of 16 (zero
+    # chunks); rep 4; Sq > Skv (leading rows see no key); a window edge
+    # inside a tile
+    *[(1, 130, 130, 2, 1, d, {}) for d in (16, 32, 64, 80, 128, 256)],
+    *[(1, 97, 97, 2, 2, d, {}) for d in (8, 24, 40, 72, 200)],
+    (2, 192, 192, 8, 2, 80, {}),
+    (2, 100, 40, 4, 2, 80, {}),
+    (1, 300, 300, 2, 2, 80, dict(window=97)),
 ]
-# (b, h, hkv, d, c, kwargs): the reference's decode sweep and extras
+# (b, h, hkv, d, c, kwargs, mask): the reference's decode sweep and
+# extras; mask as in decode_inputs
 DECODE_CASES = [
-    (1, 1, 1, 32, 128, {}), (3, 4, 2, 64, 256, {}), (2, 8, 1, 64, 512, {}),
-    (2, 4, 4, 80, 200, {}), (2, 4, 2, 32, 256, dict(window=128)),
-    (2, 4, 2, 32, 64, dict(softcap=30.0, scale=0.5)),
+    (1, 1, 1, 32, 128, {}, "sweep"), (3, 4, 2, 64, 256, {}, "sweep"),
+    (2, 8, 1, 64, 512, {}, "sweep"), (2, 4, 4, 80, 200, {}, "sweep"),
+    (2, 4, 2, 32, 256, dict(window=128), "sweep"),
+    (2, 4, 2, 32, 64, dict(softcap=30.0, scale=0.5), "sweep"),
+    # one slot; a ragged last split (4 splits of 64, 64, 64, 8); a full
+    # cache of 2048; whole splits with no valid slot beside valid ones
+    (2, 4, 4, 80, 1, {}, "sweep"), (2, 32, 32, 80, 200, {}, "sweep"),
+    (2, 8, 2, 80, 2048, {}, "full"), (2, 8, 8, 80, 1024, {}, "tail"),
 ]
 
 
@@ -988,36 +1013,41 @@ def flash_inputs(seed, b, sq, skv, h, hkv, d, dtype, dev, mult=1.0):
             randn(gen, (b, skv, hkv, d), dev, dtype))
 
 
-def decode_inputs(seed, b, h, hkv, d, c, dtype, dev, full=False):
-    """Random q and caches. ``full``: every slot holds a position before
-    the query's (a cache filled to C); else the reference sweep's draws,
-    kv_pos in [-1, 300) and q_pos in [100, 300], with row 0 all -1."""
+def decode_inputs(seed, b, h, hkv, d, c, dtype, dev, mask="sweep"):
+    """Random q and caches. ``mask``: "full", every slot holds a position
+    before the query's (a cache filled to C); "sweep", the reference
+    sweep's draws, kv_pos in [-1, 300) and q_pos in [100, 300], with row
+    0 all -1; "tail", as "sweep" with every slot but the last 5 set to
+    -1 (every split before the last has no valid slot)."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = randn(gen, (b, h, d), dev, dtype)
     k = randn(gen, (b, c, hkv, d), dev, dtype)
     v = randn(gen, (b, c, hkv, d), dev, dtype)
-    if full:
+    if mask == "full":
         kv_pos = torch.arange(c, dtype=torch.int32, device=dev)[None] \
             .repeat(b, 1)
         q_pos = torch.full((b,), c, dtype=torch.int32, device=dev)
-    else:
-        kv_pos = torch.randint(-1, 300, (b, c), generator=gen, device=dev,
-                               dtype=torch.int32)
-        kv_pos[0] = -1                   # a row with no valid slot
-        q_pos = torch.randint(100, 301, (b,), generator=gen, device=dev,
-                              dtype=torch.int32)
+        return q, k, v, kv_pos, q_pos
+    kv_pos = torch.randint(-1, 300, (b, c), generator=gen, device=dev,
+                           dtype=torch.int32)
+    q_pos = torch.randint(100, 301, (b,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    if mask == "tail":
+        kv_pos[:, :-5] = -1
+    kv_pos[0] = -1                       # a row with no valid slot
     return q, k, v, kv_pos, q_pos
 
 
 def compare_attention(kernel: str, label: str, got, want, dtype,
                       tol: dict | None = None,
                       phase: str = "attention_parity") -> float:
-    """Hold ``got`` to ``want`` within ``tol`` (atol, rtol; the
-    reference's bound for ``dtype`` when None)."""
+    """Hold ``got`` to ``want`` within ``tol`` (atol, rtol; when None,
+    the reference's bound in float32 and ``MODEL_BF16_TOL`` in bf16)."""
     import torch
     err = (got.float() - want.float()).abs().max().item()
-    tol = tol or dict(atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+    tol = tol or (MODEL_BF16_TOL if dtype == "bfloat16" else
+                  dict(atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype]))
     ok = bool(torch.allclose(got.float(), want.float(), **tol))
     emit({"phase": phase, "kernel": kernel, "case": label,
           "dtype": dtype, "max_abs_err": err,
@@ -1032,8 +1062,8 @@ def phase_attention_parity(dev) -> dict:
     the reference sweeps in float32 and bfloat16, head_dim 80, a
     200-token sequence, an all-invalid decode row, and the model's own
     shapes in both dtypes (decode with the sweep's mask draws and with a
-    full cache). Returns kernel -> max_abs_err at the model's shapes in
-    bf16, the served dtype."""
+    full cache), in bf16 all within ``MODEL_BF16_TOL``. Returns kernel ->
+    max_abs_err at the model's shapes in bf16, the served dtype."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.models.layers import float32_gemms
@@ -1051,30 +1081,29 @@ def phase_attention_parity(dev) -> dict:
                     f"_d{d}" + "".join(f"_{k}{v}" for k, v in kw.items()),
                     flash(*t, **kw), ref.flash_attention_ref(*t, **kw),
                     dtype)
-            for n, (b, h, hkv, d, c, kw) in enumerate(DECODE_CASES):
-                t = decode_inputs(800 + n, b, h, hkv, d, c, dt, dev)
+            for n, (b, h, hkv, d, c, kw, mask) in enumerate(DECODE_CASES):
+                t = decode_inputs(800 + n, b, h, hkv, d, c, dt, dev, mask)
                 compare_attention(
-                    "decode_attention", f"b{b}_h{h}_hkv{hkv}_d{d}_c{c}"
+                    "decode_attention", f"b{b}_h{h}_hkv{hkv}_d{d}_c{c}_{mask}"
                     + "".join(f"_{k}{v}" for k, v in kw.items()),
                     decode(*t, **kw), ref.decode_attention_ref(*t, **kw),
                     dtype)
-            tol = MODEL_BF16_TOL if dtype == "bfloat16" else None
             m = FLASH_MAIN
             t = flash_inputs(900, m["b"], m["s"], m["s"], m["h"], m["h"],
                              m["d"], dt, dev)
             err = compare_attention("flash_attention",
                                     "model_b8_s512_h32_d80", flash(*t),
-                                    ref.flash_attention_ref(*t), dtype, tol)
+                                    ref.flash_attention_ref(*t), dtype)
             if dtype == "bfloat16":
                 errs["flash_attention"] = err
             m = DECODE_MAIN
-            for full in (False, True):
+            for mask in ("sweep", "full"):
                 t = decode_inputs(901, m["b"], m["h"], m["h"], m["d"],
-                                  m["c"], dt, dev, full=full)
+                                  m["c"], dt, dev, mask)
                 err = compare_attention(
                     "decode_attention", "model_b8_c2048_h32_d80"
-                    + ("_full" if full else ""), decode(*t),
-                    ref.decode_attention_ref(*t), dtype, tol)
+                    + ("_full" if mask == "full" else ""), decode(*t),
+                    ref.decode_attention_ref(*t), dtype)
                 if dtype == "bfloat16":
                     errs["decode_attention"] = max(
                         errs["decode_attention"], err)
@@ -1347,45 +1376,57 @@ def phase_attention_times(dev) -> dict:
     """Kernel, plain version and the one PyTorch call computing the same
     function (``scaled_dot_product_attention``: causal on pre-transposed
     (B, H, S, D) tensors; for decode with a boolean mask from kv_pos made
-    outside the timed region), at the model's shapes in bf16."""
+    outside the timed region), in bf16 at the model's shapes: flash at
+    B 8 and B 4 (S 512), decode at C 2048 (4 live requests' cache) and
+    C 512 (8 live), B 8; ``host_ms`` is the wrapper's host time per call.
+    Returns kernel -> shape label -> row; the first label of each kernel
+    is its main-path shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     flash, decode = attention_kernels()
     m = FLASH_MAIN
-    q, k, v = flash_inputs(910, m["b"], m["s"], m["s"], m["h"], m["h"],
-                           m["d"], torch.bfloat16, dev)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    nbytes, ops = flash_bytes_ops(m["b"], m["s"], m["h"], m["d"])
-    bms, by = bf16_bound_ms(nbytes, ops)
-    out = {"flash_attention": dict(
-        shape="b8_s512_h32_d80_bf16_causal",
-        ms=time_launches(lambda: flash(q, k, v), dev, n=100),
-        plain_ms=time_launches(lambda: ref.flash_attention_ref(q, k, v),
-                               dev, n=100),
-        library_ms=time_launches(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), dev, n=100),
-        bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)}
+    out = {"flash_attention": {}, "decode_attention": {}}
+    for b in (m["b"], 4):
+        q, k, v = flash_inputs(910, b, m["s"], m["s"], m["h"], m["h"],
+                               m["d"], torch.bfloat16, dev)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        nbytes, ops = flash_bytes_ops(b, m["s"], m["h"], m["d"])
+        bms, by = bf16_bound_ms(nbytes, ops)
+        out["flash_attention"][f"b{b}_s512_h32_d80_bf16_causal"] = dict(
+            ms=time_launches(lambda: flash(q, k, v), dev, n=100),
+            plain_ms=time_launches(lambda: ref.flash_attention_ref(q, k, v),
+                                   dev, n=100),
+            library_ms=time_launches(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), dev, n=100),
+            host_ms=time_launches(lambda: flash(q, k, v), dev, n=100,
+                                  host=True),
+            bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
     m = DECODE_MAIN
-    q, kc, vc, kv_pos, q_pos = decode_inputs(911, m["b"], m["h"], m["h"],
-                                             m["d"], m["c"], torch.bfloat16,
-                                             dev, full=True)
-    qd = q[:, :, None, :]
-    kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
-    mask = ((kv_pos >= 0) & (kv_pos <= q_pos[:, None]))[:, None, None, :]
-    nbytes, ops = decode_bytes_ops(m["b"], m["c"], m["h"], m["d"])
-    bms, by = bf16_bound_ms(nbytes, ops)
-    out["decode_attention"] = dict(
-        shape="b8_c2048_h32_d80_bf16",
-        ms=time_launches(lambda: decode(q, kc, vc, kv_pos, q_pos), dev,
-                         n=100),
-        plain_ms=time_launches(lambda: ref.decode_attention_ref(
-            q, kc, vc, kv_pos, q_pos), dev, n=100),
-        library_ms=time_launches(lambda: F.scaled_dot_product_attention(
-            qd, kt, vt, attn_mask=mask), dev, n=100),
-        bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
-    for name, row in out.items():
-        emit({"phase": "times", "kernel": name, **row})
+    for c in (m["c"], 512):
+        q, kc, vc, kv_pos, q_pos = decode_inputs(
+            911, m["b"], m["h"], m["h"], m["d"], c, torch.bfloat16, dev,
+            "full")
+        qd = q[:, :, None, :]
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+        mask = ((kv_pos >= 0) & (kv_pos <= q_pos[:, None]))[:, None, None, :]
+        nbytes, ops = decode_bytes_ops(m["b"], c, m["h"], m["d"])
+        bms, by = bf16_bound_ms(nbytes, ops)
+        out["decode_attention"][f"b8_c{c}_h32_d80_bf16"] = dict(
+            ms=time_launches(lambda: decode(q, kc, vc, kv_pos, q_pos), dev,
+                             n=100),
+            plain_ms=time_launches(lambda: ref.decode_attention_ref(
+                q, kc, vc, kv_pos, q_pos), dev, n=100),
+            library_ms=time_launches(lambda: F.scaled_dot_product_attention(
+                qd, kt, vt, attn_mask=mask), dev, n=100),
+            host_ms=time_launches(lambda: decode(q, kc, vc, kv_pos, q_pos),
+                                  dev, n=100, host=True),
+            bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+    for name, rows in out.items():
+        for shape, row in rows.items():
+            emit({"phase": "times", "kernel": name, "shape": shape, **row,
+                  "x_library": row["ms"] / row["library_ms"],
+                  "x_bound": row["ms"] / row["bound_ms"]})
     return out
 
 
@@ -1653,7 +1694,7 @@ def main() -> int:
     sources = {"flash_attention": "src/repro/kernels/flash_attention.py:84",
                "decode_attention": "src/repro/kernels/decode_attention.py:72"}
     for k in attention_kernels():
-        tm = attn_times[k.__name__]
+        (shape, tm), (shape2, tm2) = attn_times[k.__name__].items()
         rows.append({
             "name": k.__name__, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/attention.cu",
@@ -1662,7 +1703,9 @@ def main() -> int:
             "max_abs_err": errs[k.__name__], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
-            "shape": tm["shape"]})
+            "shape": shape,
+            "shape2": shape2, "ms2": tm2["ms"],
+            "library_ms2": tm2["library_ms"], "bound_ms2": tm2["bound_ms"]})
     tm, long = ssd_times["main"], ssd_times["long"]
     rows.append({
         "name": "ssd_scan", "route": "cuda",

@@ -63,10 +63,11 @@ SIGNATURES = {
         "laimr_flash_attention": (
             [_VOIDP] * 4 + [_INT] * 7 + [_FLOAT, _INT, _INT, _FLOAT]
             + [_VOIDP]),
-        # q, k_cache, v_cache, kv_pos, q_pos, out, dtype, B, C, H, Hkv, D,
-        # scale, window, softcap, stream
+        # q, k_cache, v_cache, kv_pos, q_pos, out, part (or null), tickets
+        # (or null), dtype, B, C, H, Hkv, D, splits, split_len, scale,
+        # window, softcap, stream
         "laimr_decode_attention": (
-            [_VOIDP] * 6 + [_INT] * 6 + [_FLOAT, _INT, _FLOAT] + [_VOIDP]),
+            [_VOIDP] * 8 + [_INT] * 8 + [_FLOAT, _INT, _FLOAT] + [_VOIDP]),
     },
     "ssd": {
         # x, dt, a, b, c, d_skip, h0 (or null), y, h_final, dtype, B, L,

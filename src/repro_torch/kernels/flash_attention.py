@@ -3,8 +3,10 @@
 Blocked online-softmax attention over a whole sequence with GQA, causal
 and sliding-window masks and tanh logit soft-capping. On the card this
 is the hand-written CUDA kernel ``flash_attention_kernel`` in
-``csrc/attention.cu`` (one block per batch row, head and 64 query rows);
-it replaces the TPU kernel
+``csrc/attention.cu``: for bfloat16 (the served dtype) a tensor-core body
+(bf16 ``wgmma`` fed by TMA, one or two warpgroups of 64 query rows per
+block), for float32 (the parity dtype) a CUDA-core body; the dtype alone
+picks the body. It replaces the TPU kernel
 ``src/repro/kernels/flash_attention.py:flash_attention``.
 
 The wrapper launches the kernel for CUDA tensors and raises on anything

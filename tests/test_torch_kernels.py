@@ -858,6 +858,259 @@ class TestAttentionDispatch:
             tfa.check_heads(q.half(), 2, 1, 16)
 
 
+# ----------------------------------------- attention kernels' algorithms --
+# The CUDA kernels cannot run here; these hold the arithmetic their designs
+# chose to the plain version and the JAX oracle.
+MODEL_BF16_TOL = dict(atol=1e-3, rtol=1e-2)   # chip_smoke's bf16 model bound
+
+
+def split_partials(q, k, v, kv_pos, q_pos, splits, per, window=0,
+                   softcap=0.0, scale=None):
+    """Each split's float32 softmax state over its slots [s * per,
+    min(C, (s + 1) * per)), as one block of the split-KV decode kernel
+    leaves it: m (B, H, S) the largest logit (NEG_INF where masked), l the
+    sum of exp(logit - m), acc (B, H, S, D) the exp-weighted sum of V."""
+    b, h, d = q.shape
+    hkv = k.shape[2]
+    kf = tref._repeat_kv(k, h // hkv).float()
+    vf = tref._repeat_kv(v, h // hkv).float()
+    scale = d ** -0.5 if scale is None else scale
+    logits = tref._softcap(torch.einsum("bhd,bchd->bhc", q.float(), kf)
+                           * scale, softcap)
+    valid = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+    if window > 0:
+        valid &= kv_pos > (q_pos[:, None] - window)
+    logits = torch.where(valid[:, None, :], logits, tref.NEG_INF)
+    ms, ls, accs = [], [], []
+    for sp in range(splits):
+        sl = slice(sp * per, min(k.shape[1], (sp + 1) * per))
+        m = logits[:, :, sl].amax(-1)
+        p = torch.exp(logits[:, :, sl] - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhc,bchd->bhd", p, vf[:, sl]))
+    return torch.stack(ms, 2), torch.stack(ls, 2), torch.stack(accs, 2)
+
+
+def merge_splits(m, l, acc):
+    """The kernel's merge, in split order: weights exp(m_s - max m)."""
+    mx = torch.full(m.shape[:2], tref.NEG_INF)
+    for sp in range(m.shape[2]):
+        mx = torch.maximum(mx, m[:, :, sp])
+    tot = torch.zeros(m.shape[:2])
+    out = torch.zeros(acc.shape[:2] + acc.shape[3:])
+    for sp in range(m.shape[2]):
+        w = torch.exp(m[:, :, sp] - mx)
+        tot = tot + l[:, :, sp] * w
+        out = out + acc[:, :, sp] * w[..., None]
+    return out / torch.clamp(tot, min=1e-30)[..., None]
+
+
+# (b, h, hkv, d, c, sms): the reference's decode sweep, then C = 1, a C no
+# split divides, and a cache many splits share
+SPLIT_CASES = [(b, h, hkv, d, c, 132) for b, h, hkv, d, c in DECODE_SHAPES] \
+    + [(2, 4, 4, 80, 1, 132), (2, 4, 2, 32, 200, 132),
+       (3, 4, 2, 16, 1000, 8), (8, 32, 32, 16, 2048, 132)]
+
+
+class TestSplitKVDecode:
+    """The split-KV design's arithmetic, not the kernel: partials over the
+    port's ``split_plan`` and their merge are written here in plain torch,
+    so of the port these reach only ``split_plan``. The kernel's own merge
+    is held on the card by ``TestCudaAttentionKernels`` and chip_smoke.py's
+    full-cache and invalid-split cases."""
+
+    @pytest.mark.parametrize("b,h,hkv,d,c,sms", SPLIT_CASES)
+    def test_merged_splits_equal_plain_and_jax(self, b, h, hkv, d, c, sms):
+        args = decode_case(c + d + sms, b, h, hkv, d, c)
+        targs = [a[1] for a in args]
+        splits, per = tda.split_plan(b, hkv, c, sms)
+        got = merge_splits(*split_partials(*targs, splits, per))
+        torch.testing.assert_close(got, tref.decode_attention_ref(*targs),
+                                   atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(
+            f32(got), f32(jref.decode_attention(*[a[0] for a in args])),
+            **attn_tol("float32"))
+
+    @pytest.mark.parametrize("kw", [dict(window=128),
+                                    dict(softcap=30.0, scale=0.5)],
+                             ids=["window", "softcap"])
+    def test_window_and_softcap(self, kw):
+        args = decode_case(21, 2, 4, 2, 32, 256, pos_hi=500, q_lo=400)
+        targs = [a[1] for a in args]
+        splits, per = tda.split_plan(2, 2, 256, 132)
+        assert splits == 4
+        got = merge_splits(*split_partials(*targs, splits, per, **kw))
+        torch.testing.assert_close(
+            got, tref.decode_attention_ref(*targs, **kw), atol=1e-6,
+            rtol=1e-6)
+        np.testing.assert_allclose(
+            f32(got), f32(jref.decode_attention(*[a[0] for a in args],
+                                                **kw)),
+            **attn_tol("float32"))
+
+    def test_all_invalid_row_and_invalid_splits(self):
+        """Row 0 has no valid slot: every split has m = NEG_INF and the
+        merge weighs them by l, so the row stays uniform over all C slots.
+        Row 1 is valid only in its last split: the splits before it weigh
+        exactly 0."""
+        args = decode_case(22, 2, 4, 2, 80, 600)
+        kv_pos = np.array(args[3][0])
+        kv_pos[0] = -1
+        kv_pos[1, :-5] = -1
+        kv_pos[1, -5:] = 7
+        q_pos = np.array([300, 10], np.int32)
+        args[3] = (jnp.asarray(kv_pos), torch.from_numpy(kv_pos))
+        args[4] = (jnp.asarray(q_pos), torch.from_numpy(q_pos))
+        targs = [a[1] for a in args]
+        splits, per = tda.split_plan(2, 2, 600, 132)
+        m, l, acc = split_partials(*targs, splits, per)
+        assert splits == 10 and bool((m[0] == tref.NEG_INF).all())
+        assert bool((m[1, :, :-1] == tref.NEG_INF).all())
+        got = merge_splits(m, l, acc)
+        torch.testing.assert_close(got, tref.decode_attention_ref(*targs),
+                                   atol=1e-6, rtol=1e-6)
+        mean_v = targs[2][0].float().mean(0).repeat_interleave(2, 0)
+        torch.testing.assert_close(got[0], mean_v, atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(
+            f32(got), f32(jref.decode_attention(*[a[0] for a in args])),
+            **attn_tol("float32"))
+
+    def test_ring_buffer(self):
+        """Slots holding positions 100..355 out of order (a wrapped ring)
+        split four ways give full attention over those positions."""
+        (jq, tq), (jk, tk), (jv, tv) = qkv(23, 1, 1, 256, 2, 2, 16)
+        order = np.roll(np.arange(256), 70)
+        kv_pos = (100 + order).astype(np.int32)[None, :]
+        q_pos = np.asarray([355], np.int32)
+        splits, per = tda.split_plan(1, 2, 256, 132)
+        assert splits == 4
+        got = merge_splits(*split_partials(
+            tq[:, 0], tk[:, order], tv[:, order], torch.from_numpy(kv_pos),
+            torch.from_numpy(q_pos), splits, per))
+        want = jref.attention(jq, jk, jv, causal=True)[:, 0]
+        np.testing.assert_allclose(f32(got), f32(want), **attn_tol("float32"))
+
+
+class TestSplitPlan:
+    @pytest.mark.parametrize("b,hkv,c,sms", [
+        (8, 32, 2048, 132), (8, 32, 512, 132), (4, 32, 2048, 132),
+        (1, 1, 1, 132), (2, 4, 200, 132), (1, 8, 100000, 132),
+        (64, 32, 2048, 132), (3, 5, 777, 16), (1, 1, 64, 132)])
+    def test_every_slot_in_exactly_one_split(self, b, hkv, c, sms):
+        splits, per = tda.split_plan(b, hkv, c, sms)
+        bounds = [(s * per, min(c, (s + 1) * per)) for s in range(splits)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == c
+        assert all(lo < hi for lo, hi in bounds)                 # none empty
+        assert all(a[1] == b_[0] for a, b_ in zip(bounds, bounds[1:]))
+        assert per % tda.SPLIT_TILE == 0                   # whole tiles ...
+        if b * hkv >= tda.WAVES * sms:
+            assert splits == 1                   # ... and no split needed
+        else:        # two waves of blocks, or splits of a single tile each
+            assert b * hkv * splits >= tda.WAVES * sms \
+                or per == tda.SPLIT_TILE
+
+    def test_served_shape_fills_two_waves(self):
+        splits, per = tda.split_plan(8, 32, 2048, 132)
+        assert 8 * 32 * splits >= 264
+        assert (splits, per) == (2, 1024)
+
+    def test_workspace_is_kept_per_stream_and_grown_by_size(self,
+                                                            monkeypatch):
+        monkeypatch.setattr(tda, "_WORK", {})
+        dev = torch.device("cpu")
+        part, tickets = tda._workspace(dev, 1, 500, 16)
+        assert part.numel() == 500 and part.dtype == torch.float32
+        assert tickets.numel() == 1024 and not bool(tickets.any())
+        again = tda._workspace(dev, 1, 300, 16)
+        assert again[0] is part and again[1] is tickets
+        grown = tda._workspace(dev, 1, 900, 2000)
+        assert grown[0].numel() == 900 and grown[1].numel() == 2000
+        assert not bool(grown[1].any())
+        other = tda._workspace(dev, 2, 300, 16)
+        assert other[0] is not grown[0] and other[1] is not grown[1]
+
+
+def flash_bf16_p_split(q, k, v, tile=64, parts=2):
+    """The bf16 flash kernel's arithmetic, causal and square: float32
+    logits in log2 units, an online softmax over tiles of 64 keys, and P
+    split into bf16 hi (p truncated) + lo (p - hi, rounded) for P V; the
+    row sums add the float32 weights. ``parts=1`` is the design it
+    replaced: P rounded once to bf16, the row sums adding the rounded
+    weights. Returns float32, before the output's rounding."""
+    b, s, h, d = q.shape
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+    sl2 = d ** -0.5 * 1.4426950408889634
+    m = torch.full((b, h, s, 1), tref.NEG_INF)
+    l = torch.zeros(b, h, s, 1)
+    o = torch.zeros(b, h, s, d)
+    pos = torch.arange(s)[:, None]
+    for j0 in range(0, s, tile):
+        key = torch.arange(j0, min(j0 + tile, s))[None, :]
+        x = (qf @ kf[:, :, j0:j0 + tile].transpose(-1, -2)) * sl2
+        x = torch.where(key <= pos, x, torch.tensor(tref.NEG_INF))
+        mx = torch.maximum(m, x.amax(-1, keepdim=True))
+        p = torch.exp2(x - mx)
+        corr = torch.exp2(m - mx)
+        if parts == 1:
+            pb = p.to(torch.bfloat16).float()
+            l = l * corr + pb.sum(-1, keepdim=True)
+            o = o * corr + pb @ vf[:, :, j0:j0 + tile]
+        else:
+            hi = (p.view(torch.int32) & -65536).view(torch.float32)
+            lo = (p - hi).to(torch.bfloat16).float()
+            l = l * corr + p.sum(-1, keepdim=True)
+            o = o * corr + (hi @ vf[:, :, j0:j0 + tile]
+                            + lo @ vf[:, :, j0:j0 + tile])
+        m = mx
+    return (o / l).transpose(1, 2)
+
+
+class TestFlashBf16Precision:
+    """P is the wgmma A operand in bf16. One bf16 part (2^-9 per weight)
+    would put the kernel 4e-3 from the float32 plain version at the served
+    shape and outside MODEL_BF16_TOL; hi + lo parts (2^-17) stay inside.
+    These check the design's arithmetic in a plain emulation written here,
+    not the kernel: its P split is held on the card by
+    ``TestCudaAttentionKernels`` and chip_smoke.py, every bf16 case at
+    MODEL_BF16_TOL."""
+
+    def test_p_in_two_bf16_parts_stays_inside_the_model_bound(self):
+        (_, tq), (_, tk), (_, tv) = qkv(24, 2, 512, 512, 4, 4, 80,
+                                        "bfloat16")
+        got = flash_bf16_p_split(tq, tk, tv)
+        exact = tref.flash_attention_ref(tq.float(), tk.float(), tv.float())
+        assert (got - exact).abs().max().item() < 1e-4
+        torch.testing.assert_close(
+            got.to(torch.bfloat16).float(),
+            tref.flash_attention_ref(tq, tk, tv).float(), **MODEL_BF16_TOL)
+
+    def test_one_bf16_part_misses_the_model_bound_at_the_served_shape(self):
+        """B 8, S 512, 32 heads of 80: one part is ~4e-3 from the float32
+        plain version before the output's rounding and lands outside
+        MODEL_BF16_TOL; two parts are ~6e-6 away and inside."""
+        (_, tq), (_, tk), (_, tv) = qkv(27, 8, 512, 512, 32, 32, 80,
+                                        "bfloat16")
+        exact = tref.flash_attention_ref(tq.float(), tk.float(), tv.float())
+        want = tref.flash_attention_ref(tq, tk, tv).float()
+        one = flash_bf16_p_split(tq, tk, tv, parts=1)
+        two = flash_bf16_p_split(tq, tk, tv)
+        assert (one - exact).abs().max().item() > 1e-3
+        assert not torch.allclose(one.to(torch.bfloat16).float(), want,
+                                  **MODEL_BF16_TOL)
+        assert (two - exact).abs().max().item() < 2e-5
+        torch.testing.assert_close(two.to(torch.bfloat16).float(), want,
+                                   **MODEL_BF16_TOL)
+
+    def test_hi_is_p_truncated_and_lo_carries_the_rest(self):
+        p = torch.rand(4096) * 1.5
+        hi = (p.view(torch.int32) & -65536).view(torch.float32)
+        assert torch.equal(hi, hi.to(torch.bfloat16).float())
+        assert bool(((p - hi) >= 0).all())
+        err = (hi + (p - hi).to(torch.bfloat16).float() - p).abs() / p
+        assert err.max().item() <= 2.0 ** -16
+
+
 @pytest.mark.cuda
 class TestCudaAttentionKernels:
     """The CUDA attention kernels against their plain versions on the
@@ -906,6 +1159,34 @@ class TestCudaAttentionKernels:
                 f32(tda.decode_attention(*t, **kw).cpu()),
                 f32(tref.decode_attention_ref(*t, **kw).cpu()),
                 **attn_tol(dtype))
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_split_kv_decode_kernel(self, cuda_device, dtype):
+        """Many splits of one cache, whole splits with no valid slot and
+        an all-invalid row, merged inside the one launch."""
+        t = [a[1].to(cuda_device) for a in decode_case(25, 2, 8, 2, 80,
+                                                        1000, dtype)]
+        t[3][1, :-5] = -1
+        t[3][0] = -1
+        sms = torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count
+        assert tda.split_plan(2, 2, 1000, sms)[0] > 1
+        np.testing.assert_allclose(
+            f32(tda.decode_attention(*t).cpu()),
+            f32(tref.decode_attention_ref(*t).cpu()), **attn_tol(dtype))
+
+    @pytest.mark.parametrize("d", [8, 24, 80, 128, 256])
+    def test_flash_bf16_head_dims_and_short_keys(self, cuda_device, d):
+        t = [a[1].to(cuda_device) for a in qkv(26 + d, 2, 100, 100, 8, 2,
+                                                d, "bfloat16")]
+        np.testing.assert_allclose(
+            f32(tfa.flash_attention(*t).cpu()),
+            f32(tref.flash_attention_ref(*t).cpu()), **attn_tol("bfloat16"))
+        short = [t[0], t[1][:, :40], t[2][:, :40]]          # Sq > Skv
+        np.testing.assert_allclose(
+            f32(tfa.flash_attention(*short).cpu()),
+            f32(tref.flash_attention_ref(*short).cpu()),
+            **attn_tol("bfloat16"))
 
     def test_kernels_reject_what_they_do_not_take(self, cuda_device):
         (_, tq), (_, tk), (_, tv) = qkv(18, 1, 8, 8, 2, 2, 16)
