@@ -73,6 +73,8 @@ SIGNATURES = {
         # x, dt, a, b, c, d_skip, h0 (or null), y, h_final, dtype, B, L,
         # H, P, G, N, stream
         "laimr_ssd_scan": [_VOIDP] * 9 + [_INT] * 7 + [_VOIDP],
+        # dtype -> dynamic shared memory bytes of that body
+        "laimr_ssd_smem_bytes": [_INT],
     },
 }
 ERROR_STRING = {"routing": "laimr_cuda_error_string",

@@ -1,7 +1,7 @@
 // Hand-written Hopper (sm_90a) Mamba-2 SSD scan for the port's model stack.
 //
 // ssd_scan_kernel replaces the TPU kernel
-//   src/repro/kernels/ssd_scan.py : ssd_scan (_kernel)
+//   src/repro/kernels/ssd_scan.py:85 ssd_scan (pallas_call at :101)
 //
 // It computes what the TPU kernel and the plain version
 // (kernels/ref.py: ssd_scan_ref, a sequential float32 recurrence) compute,
@@ -14,58 +14,86 @@
 //   H        = exp(seg_last) H_prev + sum_j exp(seg_last - seg_j) dt_j x_j b_j^T
 //   y        = y_diag + y_off + d_skip * x
 //
-// with H, the (P x N) state, carried from chunk to chunk. Everything is
-// float32 whatever the input type (x, b, c float32 or bfloat16); y is cast
-// to x's type, the final state stays float32. Head h reads group
-// h / (H / G) of b and c.
+// with H, the (P x N) state, carried from chunk to chunk in float32. y is
+// cast to x's type, the final state stays float32. Head h reads group
+// h / (H / G) of b and c. The input dtype picks the body.
 //
 // What bounds it on an H100: at the served prefill shape (B 8, L 2048,
 // H 32, P 64, G 1, N 128, bf16) the function moves ~153 MB (x and y 67 MB
-// each, dt, b, c, the final state) and the chunked algorithm does ~30
-// GFLOP: bytes bound it (~0.046 ms at 3.35 TB/s; the operations take
-// ~0.030 ms at the bf16 tensor-core rate). This first kernel runs its
-// products on the CUDA cores in float32 (67 TFLOP/s, no tensor cores), so
-// operations bound it instead, at ~0.45 ms at best; wgmma tiles, TMA and a
-// split of the grid for small batches are work for a later change.
+// each, dt, b, c, the final state): bytes bound it at ~0.046 ms (3.35
+// TB/s). Its four chunk products are ~30 GFLOP, ~52 with the hi/lo splits
+// below: ~0.05 ms at the bf16 tensor-core rate, but ~0.45 ms at best on
+// the CUDA cores in float32. Each block walks its chunks in order, so the
+// chunk's chain of products, loads and barriers is what a block waits on;
+// at one long prompt (B 1, L 32768) 32 (head) blocks would hold 32 of 132
+// SMs for 512 chunks each.
 //
-// What the design does about it:
-//  * One block of 256 threads per (head, batch row) walks the chunks in
-//    order. The P x N float32 state (32 KB at P 64, N 128) stays in shared
-//    memory from the first chunk to the last; it is read from h0 (or zero)
-//    once and written to h_final once.
-//  * Each chunk stages x, b and c as float32 tiles in shared memory (row
-//    strides padded so that the 16-byte reads of neighbouring rows fall on
-//    distinct banks), and warp 0 turns dt into seg by a shuffle scan.
-//    Three register-tiled passes follow, separated by two barriers:
-//      1. C B^T and C H_prev^T together (both read the C rows), a 4 x 4
-//         tile of each per thread; out of them the masked, decayed,
-//         dt-weighted Q x Q matrix M and exp(seg) . C H_prev^T go to
-//         shared memory;
-//      2. y = M x + that + d_skip x, a 4 x 4 tile per thread, written out;
-//      3. the state update, an 8 x 4 tile of H per thread (run in the
-//         same interval as 2: neither writes what the other reads).
-//  * The decay mask: exp(seg_i - seg_j) is formed only where i >= j. Above
-//    the diagonal seg_i - seg_j > 0 can be hundreds and exp would be inf
-//    (and inf * 0 is NaN). exp(seg) and exp(seg_last - seg_j) never exceed
-//    1 and may underflow to 0, which is their value; nothing forms
-//    exp(-seg) or divides by a decay.
-//  * Any L: rows of the last chunk at and past L are zero, with dt = 0, so
-//    they add nothing to the state; seg_last is read at the last valid row;
-//    nothing is written past L.
-//  * Any P <= 64 and N <= 128 (the tiles are sized for those and
-//    zero-padded).
+// The bf16 body (the served dtype), and what it does about that:
+//  * Tensor cores for all four products, float32 accumulators, bf16
+//    operands. C, B and x are exact in bf16. M = (C B^T) exp(seg_i -
+//    seg_j) dt_j, H_prev and x w dt are float32, and each is split into
+//    bf16 hi (the value truncated) + lo (the rest, rounded), two products
+//    each: every weight then errs by ~2^-17, not the 2^-9 of one part. A
+//    plain emulation of this arithmetic (tests/test_torch_kernels.py,
+//    TestSSDBf16Precision) misses MODEL_BF16_TOL with any of the three
+//    left as one bf16 part and stays inside it with all three split.
+//  * Two warpgroups. The y warpgroup (warps 0-3, 16 chunk rows each)
+//    computes S = C B^T, forms M on S's accumulator fragments (the mask
+//    and exp(seg_i - seg_j) only where i >= j, so no inf or NaN arises;
+//    dt_j there too), and M x with M's hi and lo parts as A fragments
+//    straight from registers. The state warpgroup (warps 4-7) holds H in
+//    its accumulators from h0 (or zero) to h_final, read once and written
+//    once; per chunk it first computes y_off^T = H_prev C^T with H_prev's
+//    hi/lo parts as A fragments from those accumulators (no copy of H in
+//    shared memory), scales it by exp(seg_i) and hands it over through
+//    shared memory (named barrier 1), then updates H += (x w dt)^T B. The
+//    y warpgroup adds y_off and d_skip x, stages y in shared memory and
+//    writes it in 16-byte pieces.
+//  * Instructions: every product is wgmma m64n64k16, since every operand
+//    tile has 64 rows (P below 64 is zero-padded to the tile): S from
+//    shared memory (C and B K-major), M x and y_off^T with A from
+//    registers (x MN-major, C K-major), the state update with A = (x w
+//    dt)^T from registers (ldmatrix.trans of x, weighted and split) and B
+//    MN-major (two n64 halves of N).
+//  * Memory and overlap: x, b and c stay bf16 in shared memory, two
+//    stages, and chunk k + 1 is requested before chunk k computes. They
+//    arrive as TMA boxes of 64 rows x 64 columns with the 128-byte
+//    swizzle (rows past L and columns past N or P read as zero), one
+//    thread issuing, completing on the stage's mbarrier, so no warp
+//    stalls on the copy (a thread-issued cp.async version spent more time
+//    issuing than computing); dt goes by cp.async. Shapes TMA cannot take
+//    (N or P not a multiple of 8, a misaligned base) stage the same
+//    layout by threads. Shared memory: 113.5 KB; the registers (ptxas
+//    lines in chip_smoke.py's build phase) hold one block of 256 threads
+//    per SM.
+//  * grid (H, B). State rows are independent in p, so slicing P across
+//    blocks would be exact, but a block's time is its chain of chunks,
+//    not the number of busy SMs: 16-row slices at B 1 (4 x 32 blocks)
+//    measured no faster than one slice, so the body keeps whole heads.
+//  * Any L (a ragged last chunk, L = 1: its rows past L are zero with
+//    dt = 0, and seg_last is read at the last valid row), P <= 64 and
+//    N <= 128 (zero-padded to the tile and to the mma depth), G dividing
+//    H; nothing is written past L or past P.
 //
-// Arithmetic: products accumulate with explicit __fmaf_rn (the library is
-// built with -fmad=false, which only stops the compiler from fusing on its
-// own); expf is the accurate version (never --use_fast_math).
+// The float32 body (the parity dtype) runs on the CUDA cores: one block of
+// 256 threads per (head, batch row) with the P x N state in shared memory
+// and three register-tiled passes per chunk (C B^T with C H_prev^T, then
+// y, with the state update beside it), products with explicit __fmaf_rn
+// (the library is built with -fmad=false) and the accurate expf. The bf16
+// body takes its decays as ex2.approx (2^-22 relative) of log2-scaled
+// seg, far inside the bf16 bound. Hand PTX (wgmma, ldmatrix, TMA,
+// mbarrier, cp.async); no CUTLASS headers, no library call.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kQ = 64;          // chunk length
-constexpr int kThreads = 256;   // a 16 x 16 grid, or 8 warps
+constexpr int kThreads = 256;   // a 16 x 16 grid, or 2 warpgroups
 constexpr int kPMax = 64;       // head dim the tiles hold
 constexpr int kNMax = 128;      // state dim the tiles hold
 constexpr int kLdX = kPMax + 4;  // row strides (floats) of the tiles
@@ -74,6 +102,7 @@ constexpr int kLdH = kNMax + 4;
 constexpr int kLdM = kQ + 16;    // 16 mod 32: the two rows a warp stores
 constexpr int kLdY = kPMax + 16; // in one pass land on distinct banks
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // shared-memory carve-up, in floats
 constexpr int kOffX = 0;
@@ -89,14 +118,8 @@ constexpr int kSmemFloats = kOffW + kQ;
 constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 __device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = __fmaf_rn(a.x, b.x, acc);
@@ -129,17 +152,17 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* base,
   }
 }
 
-// grid (H, B), block 256. x (B, L, H, P); dt (B, L, H); a, d_skip (H,);
-// b, c (B, L, G, N); h0 (B, H, P, N) or null; y (B, L, H, P);
-// h_final (B, H, P, N).
+// The float32 body, on the CUDA cores. grid (H, B), block 256. x (B, L,
+// H, P); dt (B, L, H); a, d_skip (H,); b, c (B, L, G, N); h0 (B, H, P, N)
+// or null; y (B, L, H, P); h_final (B, H, P, N).
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ a, const T* __restrict__ b,
-                const T* __restrict__ c, const float* __restrict__ d_skip,
-                const float* __restrict__ h0, T* __restrict__ y,
-                float* __restrict__ h_final, int L, int H, int P, int G,
-                int N) {
+__device__ __forceinline__ void
+ssd_cuda_core(const T* __restrict__ x, const float* __restrict__ dt,
+              const float* __restrict__ a, const T* __restrict__ b,
+              const T* __restrict__ c, const float* __restrict__ d_skip,
+              const float* __restrict__ h0, T* __restrict__ y,
+              float* __restrict__ h_final, int L, int H, int P, int G,
+              int N) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* x_s = smem + kOffX;
@@ -344,25 +367,767 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+
+// ---- PTX: ldmatrix, wgmma, TMA, cp.async, named barriers -------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices, transposed; lanes 8 m .. 8 m + 7 give the row
+// addresses of matrix m, register m receives its transpose (row lane / 4,
+// columns 2 (lane % 4) and + 1).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// 4 bytes, or (src_bytes 0) a zero, into shared memory.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Arrive once and expect `bytes` more from TMA before the phase completes.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A phase that
+// never completes (a lost copy) traps after ~2^26 polls, seconds, so the
+// launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// A wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets (16-byte units), layout 1 (128-byte swizzle).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+#define LAIMR_D32                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),    \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),    \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
+      "+f"(d[31])
+#define LAIMR_D32_REGS                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+  "%28, %29, %30, %31}, "
+
+// D (64 x 64, float32) {+}= A (64 x 16, bf16, shared memory) B (16 x 64,
+// bf16, shared memory); both operands K-major.
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " LAIMR_D32_REGS
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : LAIMR_D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, float32) += A (64 x 16, bf16, registers) B (16 x 64, bf16,
+// shared memory), B K-major (kTrans 0) or MN-major (kTrans 1).
+template <int kTrans>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " LAIMR_D32_REGS
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : LAIMR_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(kTrans));
+}
+
+// 2^x by the SFU (ex2.approx.ftz: 2^-22 relative; 2^0 = 1 exactly).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Barrier 1 between the two warpgroups: the state warpgroup arrives when
+// y_off is in shared memory, the y warpgroup waits there before reading
+// it.
+__device__ __forceinline__ void bar_arrive_h() {
+  asm volatile("bar.arrive 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync_h() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+// Barrier 2: the y warpgroup alone (its y tile is complete).
+__device__ __forceinline__ void bar_sync_y() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(kThreads / 2) : "memory");
+}
+// ------------------------------------------------------------------------
+
+// hi: v truncated to bf16; lo: v - hi (exact in float32) rounded to bf16.
+// Two values a register, the first in the low half, as an mma fragment.
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t* hi,
+                                       uint32_t* lo) {
+  const uint32_t b0 = __float_as_uint(v0);
+  const uint32_t b1 = __float_as_uint(v1);
+  *hi = __byte_perm(b0, b1, 0x7632);
+  const __nv_bfloat162 l2 =
+      __floats2bfloat162_rn(v0 - __uint_as_float(b0 & 0xffff0000u),
+                            v1 - __uint_as_float(b1 & 0xffff0000u));
+  *lo = *reinterpret_cast<const uint32_t*>(&l2);
+}
+
+// The two bf16 values of a fragment register, as float32.
+__device__ __forceinline__ float low_bf16(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float high_bf16(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+struct SsdArgs {
+  const void* x;
+  const float* dt;
+  const float* a;
+  const void* b;
+  const void* c;
+  const float* d_skip;
+  const float* h0;
+  void* y;
+  float* h_final;
+  int L, H, P, G, N;
+  int tma;    // 1: b and c tiles arrive as TMA boxes (maps below)
+  int tma_x;  // 1: so does x
+};
+
+// The bf16 body's TMA maps over b, c and x: boxes of 64 rows x 64 columns.
+struct BCMaps {
+  CUtensorMap b, c, x;
+};
+
+constexpr int kBox = kQ * 128;  // a 64-row x 64-column bf16 box: 8 KB
+
+// Byte offset of (row r, column col, a multiple of 8) in a b, c or x tile:
+// boxes of 64 columns, rows of 128 bytes, the 16-byte pieces of row r
+// permuted by r % 8 (TMA's 128-byte swizzle, so the eight rows an
+// ldmatrix reads fall on distinct banks).
+__device__ __forceinline__ int bc_off(int r, int col) {
+  return (col >> 6) * kBox + r * 128 + ((((col >> 3) & 7) ^ (r & 7)) << 4);
+}
+
+// wgmma descriptors of tiles laid out by bc_off (rows 128 bytes apart,
+// 8-row groups 1024, 128-byte swizzle): K-major, the 16-column k-step kk
+// starts 32 bytes further along the row of box kk / 4; MN-major, the
+// 16-row k-step kk of the columns of box `box`.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  return smem_desc(tile + (kk >> 2) * kBox + (kk & 3) * 32, 16, 1024);
+}
+
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int box,
+                                                 int kk) {
+  return smem_desc(tile + box * kBox + kk * 16 * 128, kBox, 1024);
+}
+
+// Byte offsets of the bf16 body's shared memory from a 1024-aligned base.
+struct MmaSmem {
+  static constexpr int ld_y = kPMax + 8;  // bf16 stride of y rows
+  static constexpr int ld_o = kPMax + 4;  // float stride of y_off rows
+  // two stages of: b and c (two boxes each), x (one box), all bf16 and
+  // laid out by bc_off
+  static constexpr int b = 0;
+  static constexpr int c = 2 * kBox;
+  static constexpr int x = 4 * kBox;
+  static constexpr int stage = 5 * kBox;
+  // y_off = exp(seg_i) C H_prev^T, float32
+  static constexpr int yoff = 2 * stage;
+  static constexpr int y = yoff + kQ * ld_o * 4;  // y, rows of ld_y
+  static constexpr int dt = y + kQ * ld_y * 2;  // two stages
+  static constexpr int scan = dt + 2 * kQ * 4;  // per warp: seg, dt, w
+  static constexpr int bars = scan + (kThreads / 32) * 3 * kQ * 4;
+  static constexpr int bytes = bars + 2 * 8;  // an mbarrier per stage
+  static_assert(stage % 1024 == 0, "boxes stay 1024-aligned");
+};
+
+// Stage rows [c0, c0 + valid) x columns [0, cols) of a bf16 slice into a
+// kQ-row tile of `width` columns (a multiple of 8) laid out by bc_off,
+// zero elsewhere; global row r at src + r * row_stride. Aligned 16-byte
+// pieces go by cp.async, the rest (a ragged edge, a misaligned row) by
+// plain loads and stores.
+__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           int64_t row_stride, int c0,
+                                           int valid, int cols, int width) {
+  const int pieces = width / 8;
+  for (int idx = threadIdx.x; idx < kQ * pieces; idx += kThreads) {
+    const int r = idx / pieces;
+    const int col = (idx - r * pieces) * 8;
+    __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(
+        reinterpret_cast<unsigned char*>(dst) + bc_off(r, col));
+    const __nv_bfloat16* s =
+        src + static_cast<int64_t>(c0 + r) * row_stride + col;
+    if (r < valid && col + 8 <= cols &&
+        (reinterpret_cast<uintptr_t>(s) & 15) == 0) {
+      cp_async16(d, s);
+    } else {
+      uint32_t v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      if (r < valid)
+        for (int e = 0; e < 8 && col + e < cols; ++e)
+          v[e] = reinterpret_cast<const uint16_t*>(s)[e];
+      *reinterpret_cast<uint4*>(d) =
+          make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16,
+                     v[4] | v[5] << 16, v[6] | v[7] << 16);
+    }
+  }
+}
+
+// The bf16 body, on the tensor cores. grid (H, B), block 256. Warps 0-3
+// (the y warpgroup) own chunk rows 16 w .. 16 w + 15: C B^T, M and M x,
+// then y. Warps 4-7 (the state warpgroup) own H, float32 in their
+// accumulators: state rows 16 sp + {gq, gq + 8} and all 16 of N's 8-wide
+// column tiles; per chunk they first hand y_off = exp(seg_i) C H_prev^T
+// to the y warpgroup through shared memory (H_prev as A fragments
+// straight from the accumulators), then update H.
+__device__ __forceinline__ void ssd_mma(const SsdArgs& a, const BCMaps& maps) {
+  using S = MmaSmem;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char mma_raw[];
+  const uint32_t raw = smem_addr(mma_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the boxes' alignment
+  unsigned char* mma_smem = mma_raw + (base - raw);
+  const int h = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int g = h / (a.H / a.G);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gq = lane / 4;  // fragment row
+  const int tq = lane % 4;  // fragment column pair
+  const int np = (a.N + 15) / 16 * 16;  // N padded to the mma depth
+  const float a_h = a.a[h];
+  const float d_h = a.d_skip[h];
+  const int64_t x_row = static_cast<int64_t>(a.H) * a.P;
+  const int64_t bc_row = static_cast<int64_t>(a.G) * a.N;
+  const int64_t xy_off = (static_cast<int64_t>(bi) * a.L * a.H + h) * a.P;
+  const bf16* x_b = static_cast<const bf16*>(a.x) + xy_off;
+  bf16* y_b = static_cast<bf16*>(a.y) + xy_off;
+  const float* dt_b = a.dt + static_cast<int64_t>(bi) * a.L * a.H + h;
+  const int64_t bc_start = (static_cast<int64_t>(bi) * a.L * a.G + g) * a.N;
+  const bf16* b_b = static_cast<const bf16*>(a.b) + bc_start;
+  const bf16* c_b = static_cast<const bf16*>(a.c) + bc_start;
+  const int64_t state = (static_cast<int64_t>(bi) * a.H + h) * a.P * a.N;
+  const int n_chunks = (a.L + kQ - 1) / kQ;
+  const uint32_t bar0 = base + S::bars;  // stage s completes on bar0 + 8 s
+  float* yoff = reinterpret_cast<float*>(mma_smem + S::yoff);
+  float* scan = reinterpret_cast<float*>(mma_smem + S::scan) + warp * 3 * kQ;
+
+  // Chunk k into stage k % 2: with a.tma one thread asks TMA for the boxes
+  // of b and c, and of x with a.tma_x (rows past L and columns past N or P
+  // arrive as zeros), completing on the stage's mbarrier, so no warp waits
+  // on the copy; else every thread stages 16-byte pieces. dt, and x
+  // without a.tma_x, go by cp.async, one group.
+  auto stage_chunk = [&](int k) {
+    unsigned char* st = mma_smem + (k % 2) * S::stage;
+    const int c0 = k * kQ;
+    const int valid = min(kQ, a.L - c0);
+    if (a.tma) {
+      if (tid == 0) {
+        const uint32_t bar = bar0 + 8 * (k % 2);
+        const int boxes = np > 64 ? 2 : 1;
+        const uint32_t dst = base + (k % 2) * S::stage;
+        mbar_expect_tx(bar, (2 * boxes + a.tma_x) * kBox);
+        if (a.tma_x) tma_load_4d(dst + S::x, &maps.x, bar, 0, h, c0, bi);
+        for (int bx = 0; bx < boxes; ++bx) {
+          tma_load_4d(dst + S::b + bx * kBox, &maps.b, bar, 64 * bx, g, c0,
+                      bi);
+          tma_load_4d(dst + S::c + bx * kBox, &maps.c, bar, 64 * bx, g, c0,
+                      bi);
+        }
+      }
+    } else {
+      stage_bf16(reinterpret_cast<bf16*>(st + S::b), b_b, bc_row, c0, valid,
+                 a.N, np);
+      stage_bf16(reinterpret_cast<bf16*>(st + S::c), c_b, bc_row, c0, valid,
+                 a.N, np);
+    }
+    if (!a.tma_x)
+      stage_bf16(reinterpret_cast<bf16*>(st + S::x), x_b, x_row, c0, valid,
+                 a.P, kPMax);
+    if (tid < kQ) {
+      float* dts = reinterpret_cast<float*>(mma_smem + S::dt) + (k % 2) * kQ;
+      const bool in = tid < valid;
+      cp_async4(dts + tid, in ? dt_b + static_cast<int64_t>(c0 + tid) * a.H
+                              : dt_b,
+                in ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  if (a.tma && tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();  // the mbarriers are initialised before anyone waits
+  stage_chunk(0);
+
+  const bool y_warp = warp < 4;
+  const int sp = warp & 3;  // a state warp's 16-row tile of H
+  float hacc[16][4];        // the state warps' share of H, float32
+  if (!y_warp) {
+    // the state: h0, or zeros; rows >= P and columns >= N stay zero
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = 16 * sp + gq + 8 * (e / 2);
+        const int n = 8 * t + 2 * tq + (e & 1);
+        hacc[t][e] = a.h0 != nullptr && p < a.P && n < a.N
+                         ? a.h0[state + static_cast<int64_t>(p) * a.N + n]
+                         : 0.f;
+      }
+  }
+
+  for (int k = 0; k < n_chunks; ++k) {
+    const int c0 = k * kQ;
+    const int valid = min(kQ, a.L - c0);
+    cp_async_wait_all();
+    if (a.tma) mbar_wait(bar0 + 8 * (k % 2), (k / 2) & 1);
+    // what threads staged is visible to wgmma's proxy too
+    if (!(a.tma && a.tma_x)) fence_proxy_async();
+    // chunk k has landed, nobody reads the other stage or y_off any more
+    __syncthreads();
+    if (k + 1 < n_chunks) stage_chunk(k + 1);
+    const uint32_t st = base + (k % 2) * S::stage;
+    const unsigned char* x_t = mma_smem + (k % 2) * S::stage + S::x;
+
+    // every warp scans dt * a into its own seg, kept in log2 units (no
+    // block barrier for it)
+    {
+      const float* dts =
+          reinterpret_cast<const float*>(mma_smem + S::dt) + (k % 2) * kQ;
+      const int r0 = 2 * lane, r1 = 2 * lane + 1;
+      const float dt0 = dts[r0], dt1 = dts[r1];
+      const float v0 = dt0 * a_h, v1 = dt1 * a_h;
+      float s = v0 + v1;  // inclusive scan of the pair sums
+#pragma unroll
+      for (int off = 1; off < 32; off *= 2) {
+        const float t = __shfl_up_sync(kFull, s, off);
+        if (lane >= off) s += t;
+      }
+      float excl = __shfl_up_sync(kFull, s, 1);
+      if (lane == 0) excl = 0.f;
+      const float s0 = excl + v0;
+      const float s1 = s0 + v1;
+      const float l0 = s0 * kLog2e, l1 = s1 * kLog2e;
+      const float last =
+          __shfl_sync(kFull, (valid - 1) & 1 ? l1 : l0, (valid - 1) / 2);
+      scan[r0] = l0;
+      scan[r1] = l1;
+      scan[kQ + r0] = dt0;
+      scan[kQ + r1] = dt1;
+      // the state weights exp(seg_last - seg_j) dt_j
+      scan[2 * kQ + r0] = exp2_ftz(last - l0) * dt0;
+      scan[2 * kQ + r1] = exp2_ftz(last - l1) * dt1;
+      __syncwarp();
+    }
+
+    if (y_warp) {
+      // ---- S = C B^T over N: one wgmma m64n64k16 per 16 columns of N, C
+      //      and B K-major ---------------------------------------------
+      const int i0 = 16 * warp;
+      float sacc[8][4], o[8][4];
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[t][e] = o[t][e] = 0.f;
+      fence_regs<32>(&sacc[0][0]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kNMax / 16; ++kk) {
+        if (16 * kk >= np) break;
+        wgmma_ss(&sacc[0][0], kmajor_desc(st + S::c, kk),
+                 kmajor_desc(st + S::b, kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<32>(&sacc[0][0]);
+
+      // ---- M = S[i][j] exp(seg_i - seg_j) dt_j for i >= j, on the
+      //      accumulators, then split into hi + lo A fragments -----------
+      const float seg_r[2] = {scan[i0 + gq], scan[i0 + gq + 8]};
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int j0 = 8 * t + 2 * tq;
+        const float2 seg_j = *reinterpret_cast<const float2*>(scan + j0);
+        const float2 dt_j = *reinterpret_cast<const float2*>(scan + kQ + j0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + gq + 8 * (e / 2);
+          const int j = j0 + (e & 1);
+          sacc[t][e] =
+              j <= i ? sacc[t][e] *
+                           exp2_ftz(seg_r[e / 2] - (e & 1 ? seg_j.y : seg_j.x)) *
+                           (e & 1 ? dt_j.y : dt_j.x)
+                     : 0.f;
+        }
+      }
+      uint32_t mhi[4][4], mlo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        split2(sacc[2 * kk][0], sacc[2 * kk][1], &mhi[kk][0], &mlo[kk][0]);
+        split2(sacc[2 * kk][2], sacc[2 * kk][3], &mhi[kk][1], &mlo[kk][1]);
+        split2(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1], &mhi[kk][2],
+               &mlo[kk][2]);
+        split2(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3], &mhi[kk][3],
+               &mlo[kk][3]);
+      }
+
+      // ---- M x: M from registers, x MN-major in its box ---------------
+      fence_regs<32>(&o[0][0]);
+      fence_regs<16>(&mhi[0][0]);
+      fence_regs<16>(&mlo[0][0]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<1>(&o[0][0], mhi[kk], mnmajor_desc(st + S::x, 0, kk));
+        wgmma_rs<1>(&o[0][0], mlo[kk], mnmajor_desc(st + S::x, 0, kk));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<32>(&o[0][0]);
+
+      // ---- y = M x + y_off + d_skip x into shared memory, then rows <
+      //      valid, columns < P out in 16-byte pieces --------------------
+      bar_sync_h();  // the state warpgroup has written y_off
+      bf16* y_s = reinterpret_cast<bf16*>(mma_smem + S::y);
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = i0 + gq + 8 * r;
+          const int p = 8 * t + 2 * tq;
+          const float2 yo =
+              *reinterpret_cast<const float2*>(yoff + i * S::ld_o + p);
+          const float2 xv =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                  x_t + bc_off(i, p & ~7) + 2 * (p & 7)));
+          *reinterpret_cast<__nv_bfloat162*>(y_s + i * S::ld_y + p) =
+              __floats2bfloat162_rn(o[t][2 * r] + yo.x + xv.x * d_h,
+                                    o[t][2 * r + 1] + yo.y + xv.y * d_h);
+        }
+      bar_sync_y();
+      for (int idx = tid; idx < kQ * kPMax / 8; idx += kThreads / 2) {
+        const int i = idx / (kPMax / 8);
+        const int p = (idx - i * (kPMax / 8)) * 8;
+        if (i >= valid || p >= a.P) continue;
+        const bf16* src = y_s + i * S::ld_y + p;
+        bf16* out = y_b + static_cast<int64_t>(c0 + i) * x_row + p;
+        if (p + 8 <= a.P && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+          *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int e = 0; e < 8 && p + e < a.P; ++e) out[e] = src[e];
+        }
+      }
+    } else {
+      // ---- y_off^T = H_prev C^T, scaled by exp(seg_i): H_prev (this
+      //      warpgroup's 64 rows) as A from registers, C K-major in its
+      //      boxes -------------------------------------------------------
+      {
+        float yo[8][4];
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) yo[t][e] = 0.f;
+        // the accumulator layout of two column tiles is the A fragment of
+        // one 16-deep step
+        uint32_t ahi[8][4], alo[8][4];
+#pragma unroll
+        for (int s2 = 0; s2 < 8; ++s2) {
+          split2(hacc[2 * s2][0], hacc[2 * s2][1], &ahi[s2][0], &alo[s2][0]);
+          split2(hacc[2 * s2][2], hacc[2 * s2][3], &ahi[s2][1], &alo[s2][1]);
+          split2(hacc[2 * s2 + 1][0], hacc[2 * s2 + 1][1], &ahi[s2][2],
+                 &alo[s2][2]);
+          split2(hacc[2 * s2 + 1][2], hacc[2 * s2 + 1][3], &ahi[s2][3],
+                 &alo[s2][3]);
+        }
+        fence_regs<32>(&yo[0][0]);
+        fence_regs<32>(&ahi[0][0]);
+        fence_regs<32>(&alo[0][0]);
+        wgmma_fence();
+#pragma unroll
+        for (int s2 = 0; s2 < 8; ++s2) {
+          if (16 * s2 >= np) break;
+          wgmma_rs<0>(&yo[0][0], ahi[s2], kmajor_desc(st + S::c, s2));
+          wgmma_rs<0>(&yo[0][0], alo[s2], kmajor_desc(st + S::c, s2));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<32>(&yo[0][0]);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int i = 8 * t + 2 * tq;
+          const float2 seg_i = *reinterpret_cast<const float2*>(scan + i);
+          const float e0 = exp2_ftz(seg_i.x), e1 = exp2_ftz(seg_i.y);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int p = 16 * sp + gq + 8 * r;
+            yoff[i * S::ld_o + p] = yo[t][2 * r] * e0;
+            yoff[(i + 1) * S::ld_o + p] = yo[t][2 * r + 1] * e1;
+          }
+        }
+      }
+      bar_arrive_h();  // y_off is written
+
+      // ---- H = exp(seg_last) H + sum_j (x_j w_j) b_j^T ------------------
+      const float decay = exp2_ftz(scan[valid - 1]);
+#pragma unroll
+      for (int t = 0; t < 16; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hacc[t][e] *= decay;
+      // x^T as A fragments (state rows x chunk rows), weighted, split
+      uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (16 * kk >= valid) break;  // rows past L are zero
+        uint32_t af[4];
+        ldsm_x4_trans(af, st + S::x + bc_off(16 * kk + lane % 8 +
+                                                 8 * (lane / 16),
+                                             16 * sp + 8 * ((lane / 8) % 2)));
+        const float* w = scan + 2 * kQ + 16 * kk + 2 * tq;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split2(low_bf16(af[q]) * w[8 * (q / 2)],
+                 high_bf16(af[q]) * w[8 * (q / 2) + 1], &ahi[kk][q],
+                 &alo[kk][q]);
+      }
+      // B MN-major in its boxes, H in the accumulators
+      fence_regs<64>(&hacc[0][0]);
+      fence_regs<16>(&ahi[0][0]);
+      fence_regs<16>(&alo[0][0]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (16 * kk >= valid) break;
+#pragma unroll
+        for (int box = 0; box < 2; ++box) {
+          if (64 * box >= np) break;
+          wgmma_rs<1>(&hacc[8 * box][0], ahi[kk],
+                      mnmajor_desc(st + S::b, box, kk));
+          wgmma_rs<1>(&hacc[8 * box][0], alo[kk],
+                      mnmajor_desc(st + S::b, box, kk));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<64>(&hacc[0][0]);
+    }
+  }
+
+  if (!y_warp) {
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = 16 * sp + gq + 8 * (e / 2);
+        const int n = 8 * t + 2 * tq + (e & 1);
+        if (p < a.P && n < a.N)
+          a.h_final[state + static_cast<int64_t>(p) * a.N + n] = hacc[t][e];
+      }
+  }
+}
+
+// One __global__: the input dtype picks the body.
 template <typename T>
-int launch_ssd(const void* x, const float* dt, const float* a, const void* b,
-               const void* c, const float* d_skip, const float* h0, void* y,
-               float* h_final, int B, int L, int H, int P, int G, int N,
-               cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_scan_kernel(const SsdArgs a, const __grid_constant__ BCMaps maps) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    ssd_mma(a, maps);
+  } else {
+    ssd_cuda_core<T>(static_cast<const T*>(a.x), a.dt, a.a,
+                     static_cast<const T*>(a.b), static_cast<const T*>(a.c),
+                     a.d_skip, a.h0, static_cast<T*>(a.y), a.h_final, a.L,
+                     a.H, a.P, a.G, a.N);
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time (the library
+// links the runtime only).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over a contiguous bf16 (B, L, heads, cols) tensor (b and c:
+// heads G, cols N; x: H, P), dims innermost first, with boxes of 64
+// columns (128-byte swizzle) x 64 rows of one head. Columns past `cols`
+// and rows past L read as 0.
+cudaError_t box_map(CUtensorMap* map, const void* ptr, int B, int L,
+                    int heads, int cols) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(cols) * 2;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * L};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(kQ), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_ssd(SsdArgs a, int B, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  // + 1024: the bf16 body aligns its base for the swizzled boxes
+  const size_t smem =
+      kBf16 ? static_cast<size_t>(MmaSmem::bytes) + 1024 : kSmemBytes;
+  BCMaps maps{};
+  if (kBf16) {
+    // TMA needs 16-byte aligned rows; other shapes stage by threads
+    const auto aligned = [](const void* p) {
+      return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+    };
+    a.tma = a.N % 8 == 0 && aligned(a.b) && aligned(a.c);
+    a.tma_x = a.tma && a.P % 8 == 0 && aligned(a.x);
+    cudaError_t e = cudaSuccess;
+    if (a.tma) e = box_map(&maps.b, a.b, B, a.L, a.G, a.N);
+    if (a.tma && e == cudaSuccess) e = box_map(&maps.c, a.c, B, a.L, a.G, a.N);
+    if (a.tma_x && e == cudaSuccess)
+      e = box_map(&maps.x, a.x, B, a.L, a.H, a.P);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   // more than 48 KB of dynamic shared memory needs an opt-in, once
   static bool reserved = false;
   if (!reserved) {
     const cudaError_t e = cudaFuncSetAttribute(
         ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemBytes));
+        static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     reserved = true;
   }
-  const dim3 grid(H, B);
-  ssd_scan_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(x), dt, a, static_cast<const T*>(b),
-      static_cast<const T*>(c), d_skip, h0, static_cast<T*>(y), h_final, L,
-      H, P, G, N);
+  const dim3 grid(a.H, B);
+  ssd_scan_kernel<T><<<grid, kThreads, smem, stream>>>(a, maps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -383,13 +1148,16 @@ int laimr_ssd_scan(const void* x, const float* dt, const float* a,
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_ssd<float>(x, dt, a, b, c, d_skip, h0, y, h_final, B, L, H,
-                             P, G, N, st);
-  if (dtype == 1)
-    return launch_ssd<__nv_bfloat16>(x, dt, a, b, c, d_skip, h0, y, h_final,
-                                     B, L, H, P, G, N, st);
+  const SsdArgs args{x, dt, a, b, c, d_skip, h0, y, h_final, L, H, P, G, N,
+                     0, 0};
+  if (dtype == 0) return launch_ssd<float>(args, B, st);
+  if (dtype == 1) return launch_ssd<__nv_bfloat16>(args, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dynamic shared memory of dtype's body, in bytes.
+int laimr_ssd_smem_bytes(int dtype) {
+  return dtype == 0 ? static_cast<int>(kSmemBytes) : 1024 + MmaSmem::bytes;
 }
 
 const char* laimr_ssd_error_string(int code) {

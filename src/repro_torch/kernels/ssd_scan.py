@@ -4,10 +4,10 @@ The state-space-dual scan of a Mamba-2 layer's prefill
 (arXiv:2405.21060): per head, ``h = exp(dt a) h + (dt x) b^T`` and
 ``y = h c + d_skip x`` over the sequence, with the (P, N) state carried
 from an optional initial state to a final one. On the card this is the
-hand-written CUDA kernel ``ssd_scan_kernel`` in ``csrc/ssd.cu`` (one
-block per head and batch row, walking chunks of 64 steps with the state
-in shared memory); it replaces the TPU kernel
-``src/repro/kernels/ssd_scan.py:ssd_scan``.
+hand-written CUDA kernel ``ssd_scan_kernel`` in ``csrc/ssd.cu``: one
+block per head and batch row, walking chunks of 64 steps; bfloat16
+inputs take its tensor-core body, float32 its CUDA-core body. It
+replaces the TPU kernel ``src/repro/kernels/ssd_scan.py:ssd_scan``.
 
 The wrapper launches the kernel for CUDA tensors and raises on anything
 the kernel does not take; for tensors on the CPU it runs the plain

@@ -34,7 +34,9 @@ half-and-half initial-state continuation, L = 1, 100 and 200 (no chunk
 divides them), a long-memory case whose state survives every chunk, and
 bfloat16 inputs, at ``2e-5`` (float32; y in bfloat16 within one bf16
 step), and one case against the Pallas kernel in interpret mode at the
-reference's own ``5e-4``.
+reference's own ``5e-4``. A plain emulation of the bf16 kernel body's
+arithmetic (hi/lo bf16 parts of its float32 operands) is held to the
+plain version at ``MODEL_BF16_TOL``.
 
 Tests marked ``cuda`` run the hand-written kernels against the plain
 versions and skip without a card (``python3 chip_smoke.py`` runs the
@@ -1342,6 +1344,107 @@ class TestSSDDispatch:
             tref.ssd_scan_ref(*targs[:6])
 
 
+def split_bf16(v: torch.Tensor, parts: int = 2) -> torch.Tensor:
+    """v as the bf16 kernel feeds a float32 operand to the tensor cores:
+    hi (v truncated to bf16) + lo (v - hi rounded to bf16), or with
+    ``parts=1`` v rounded once to bf16; returned as float32."""
+    if parts == 1:
+        return v.to(torch.bfloat16).float()
+    hi = (v.view(torch.int32) & -65536).view(torch.float32)
+    return hi + (v - hi).to(torch.bfloat16).float()
+
+
+def ssd_bf16_chunked(x, dt, a, b, c, d_skip, h0=None, one_part=(),
+                     chunk=64):
+    """The bf16 SSD kernel's arithmetic, written plainly: per chunk of 64
+    steps seg = cumsum(dt a), S = C B^T of the bf16 inputs summed in
+    float32, M = S exp(seg_i - seg_j) dt_j for i >= j, y = exp(seg_i)
+    C H_prev^T + M x + d_skip x, then H = exp(seg_last) H + (x w)^T B with
+    w = exp(seg_last - seg) dt. M, H_prev and x w enter their products as
+    hi + lo bf16 parts, or as one bf16 part for each of them named in
+    ``one_part`` ("m", "h", "xw"). Returns y in float32, before the
+    output's rounding, and the final state."""
+    bsz, length, heads, hp = x.shape
+    groups, n = b.shape[2], b.shape[3]
+    rep = heads // groups
+    xf = x.float().transpose(1, 2)                         # (B, H, L, P)
+    bf = b.float().repeat_interleave(rep, 2).transpose(1, 2)
+    cf = c.float().repeat_interleave(rep, 2).transpose(1, 2)
+    dtt = dt.transpose(1, 2)                               # (B, H, L)
+    h = torch.zeros(bsz, heads, hp, n) if h0 is None else h0.clone()
+
+    def part(v, name):
+        return split_bf16(v, 1 if name in one_part else 2)
+    ys = []
+    for c0 in range(0, length, chunk):
+        xs, bs, cs, dts = (t[:, :, c0:c0 + chunk] for t in (xf, bf, cf, dtt))
+        low = torch.ones(xs.shape[2], xs.shape[2], dtype=torch.bool).tril()
+        seg = torch.cumsum(dts * a[None, :, None], -1)
+        diff = torch.where(low, seg[..., :, None] - seg[..., None, :], 0.0)
+        m = torch.where(low, (cs @ bs.transpose(-1, -2)) * torch.exp(diff)
+                        * dts[..., None, :], 0.0)
+        y = (cs @ part(h, "h").transpose(-1, -2)) * torch.exp(seg)[..., None]
+        ys.append(y + part(m, "m") @ xs
+                  + xs * d_skip[None, :, None, None])
+        w = torch.exp(seg[..., -1:] - seg) * dts
+        h = torch.exp(seg[..., -1])[..., None, None] * h \
+            + part(xs * w[..., None], "xw").transpose(-1, -2) @ bs
+    return torch.cat(ys, 2).transpose(1, 2), h
+
+
+_PRECISION_CASES: dict = {}
+
+
+def ssd_precision_case(kind: str):
+    """(bf16 args, plain y and final state, float32 plain y) for the
+    model's a (-linspace(1, 16, H): B 1, L 512, 8 heads of 64, N 128) or
+    the long-memory case (dt x 0.005, b and c x 1.0, an initial state, no
+    skip: B 1, L 640, 4 heads of 64, N 128)."""
+    if kind not in _PRECISION_CASES:
+        if kind == "model":
+            _, t, _ = ssd_case(0, 1, 512, 8, 64, 1, 128, "bfloat16")
+            t[2] = -torch.linspace(1.0, 16.0, 8)
+        else:
+            _, t, dta = ssd_case(0, 1, 640, 4, 64, 1, 128, "bfloat16",
+                                 h0=True, dt_scale=0.005, bc_scale=1.0,
+                                 skip=False)
+            assert np.exp(dta.reshape(1, 10, 64, 4).sum(2)).min() >= 0.1
+        want = torch_ssd(t)
+        exact = tref.ssd_scan_ref(t[0].float(), t[1], t[2], t[3].float(),
+                                  t[4].float(), t[5], initial_state=t[6])
+        _PRECISION_CASES[kind] = (t, want, exact)
+    return _PRECISION_CASES[kind]
+
+
+class TestSSDBf16Precision:
+    """The bf16 SSD body feeds three float32 operands to bf16 tensor-core
+    products: M, H_prev and x w dt. Each goes as hi + lo bf16 parts (each
+    weight errs by ~2^-17); one part (2^-9) misses MODEL_BF16_TOL on these
+    draws, whichever of the three is left whole. These check the design's
+    arithmetic in a plain emulation written here, not the kernel: the
+    kernel is held on the card by ``TestCudaSSDKernel`` and chip_smoke.py,
+    every bf16 case at MODEL_BF16_TOL."""
+
+    @pytest.mark.parametrize("kind", ["model", "long_memory"])
+    def test_hi_lo_parts_stay_inside_the_model_bound(self, kind):
+        t, (want_y, want_h), exact = ssd_precision_case(kind)
+        y, h = ssd_bf16_chunked(*t[:6], h0=t[6])
+        # the float32 sums alone: ~2e-4 where max |y| is ~20
+        assert (y - exact).abs().max().item() < 5e-4
+        torch.testing.assert_close(y.to(torch.bfloat16).float(),
+                                   want_y.float(), **MODEL_BF16_TOL)
+        torch.testing.assert_close(h, want_h, **MODEL_BF16_TOL)
+
+    @pytest.mark.parametrize("one_part", [("m", "h", "xw"), ("m",), ("h",),
+                                          ("xw",)])
+    @pytest.mark.parametrize("kind", ["model", "long_memory"])
+    def test_one_bf16_part_misses_the_model_bound(self, kind, one_part):
+        t, (want_y, _), _ = ssd_precision_case(kind)
+        y, _ = ssd_bf16_chunked(*t[:6], h0=t[6], one_part=one_part)
+        assert not torch.allclose(y.to(torch.bfloat16).float(),
+                                  want_y.float(), **MODEL_BF16_TOL)
+
+
 @pytest.mark.cuda
 class TestCudaSSDKernel:
     """The CUDA SSD kernel against its plain version on the card, y and
@@ -1355,6 +1458,24 @@ class TestCudaSSDKernel:
         dict(b=1, l=200, h=2, p=64, g=1, n=128, h0=True),
         dict(b=1, l=640, h=2, p=32, g=1, n=16, h0=True, dt_scale=0.005,
              bc_scale=1.0, skip=False),
+        # the bf16 body's edges (chip_smoke.SSD_CASES): P 64 and below
+        # with initial states; N no multiple of 16 (12 and P 20 stage by
+        # threads); L 1, 65, 127; B 5 x 32 heads
+        dict(b=1, l=130, h=4, p=64, g=2, n=128, h0=True),
+        dict(b=1, l=130, h=3, p=40, g=1, n=64, h0=True),
+        dict(b=1, l=130, h=2, p=24, g=1, n=32, h0=True),
+        dict(b=2, l=100, h=4, p=32, g=2, n=8),
+        dict(b=1, l=100, h=2, p=64, g=1, n=24, h0=True),
+        dict(b=2, l=100, h=4, p=64, g=1, n=72, h0=True),
+        dict(b=1, l=100, h=2, p=20, g=1, n=12, h0=True),
+        dict(b=2, l=1, h=4, p=64, g=2, n=128, h0=True),
+        dict(b=2, l=65, h=4, p=64, g=4, n=64, h0=True),
+        dict(b=1, l=127, h=4, p=40, g=2, n=24, h0=True),
+        dict(b=5, l=130, h=32, p=64, g=2, n=72, h0=True),
+        dict(b=5, l=65, h=32, p=40, g=4, n=24),
+        dict(b=5, l=1, h=32, p=64, g=1, n=8, h0=True),
+        dict(b=5, l=70, h=32, p=50, g=1, n=12, h0=True),
+        dict(b=5, l=70, h=32, p=20, g=2, n=16),
     ]
 
     @pytest.mark.parametrize("case", range(len(CASES)))
