@@ -12,17 +12,21 @@ Each phase prints one JSON object per line:
 1. the kernel build: one ``nvcc`` per source (``kernels/csrc/routing.cu``,
    ``kernels/csrc/attention.cu``, ``kernels/csrc/ssd.cu``), all started
    together, with their ptxas register and spill lines, and per body of
-   ``ssd_scan`` (float32, bf16) its registers, spills and dynamic shared
-   memory;
+   ``ssd_scan`` (float32, bf16) and of the routing kernels (a narrow and
+   a wide body each of ``routing_score`` / ``routing_topk``) its
+   registers, spills and dynamic shared memory;
 2. each routing kernel (``routing_score``, ``routing_guard``,
    ``routing_topk``, ``routing_attain``) against its plain PyTorch
    version on the card: the reference package's kernel sweeps and edge
    cases, per-request SLO rows with lane exclusions, the guard's
    boundary cases, full windows at the main path's shapes, and one
    fleet-scale shape whose Erlang table exceeds a block's shared
-   memory. ``ok`` and ``offloaded`` must match exactly, ``idx`` exactly
-   on feasible rows, g within ``rtol=1e-4`` (the reference's own
-   kernel-vs-oracle bound);
+   memory; then ``routing_score`` and ``routing_topk`` at the edges of
+   their layout (``layout_cases``: I of 1 to 2945 around every lanes,
+   groups and scratch step, R = 300, (R,) shared rates, a misaligned rate
+   row, k from 1 to 8 with a margin). ``ok`` and ``offloaded`` must
+   match exactly, ``idx`` exactly on feasible rows, g within
+   ``rtol=1e-4`` (the reference's own kernel-vs-oracle bound);
 3. serving: ``BatchRouter`` answering 2048 requests in windows of 256
    on two clusters, all five policies, ``backend="cuda"``, with
    conservation;
@@ -75,7 +79,8 @@ Each phase prints one JSON object per line:
    prompt (20 launches) against its plain version (the mean wall time
    of ``PLAIN_RUNS`` runs: a Python loop over L), its bound and the
    earlier CUDA-core design's times (``SSD_EARLIER_MS``); then the
-   routing kernels' times at the main path's shapes and at fleet scale.
+   routing kernels' times at the main path's shapes and at fleet scale
+   (``routing_topk`` also at k = 8, its most duplicate passes).
 
 Launch counters are set to 0 just before each policy's run in phases
 3-5, each ``generate`` of phases 9 and 13 and one more decode step after
@@ -88,6 +93,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -108,6 +114,7 @@ FLOPS_PER_PAIR = 30            # f32 ops to score one (request, candidate)
 TOPK_FLOPS_PER_PAIR = FLOPS_PER_PAIR + 2
 ATTAIN_FLOPS_PER_PAIR = FLOPS_PER_PAIR + 40
 TOPK_K = 2                     # AdmissionConfig.redundancy default
+TOPK_K_MAX = 8                 # routing_decide.K_MAX
 ATTAIN_MARGIN = 0.25           # AdmissionConfig.headroom_margin default
 
 # GOLDEN_WINDOWED of the reference package's tests/test_control_plane.py:
@@ -351,40 +358,110 @@ def fragile_rows(op: str, case: dict, dev, k: int,
     return bad.cpu().numpy()
 
 
-def fleet_topk_case(op: str, dev, r: int = 4096, i: int = 1024):
-    """The fleet-scale case of ``routing_topk`` / ``routing_attain`` at
-    the defaults k = 2 (margin 0 for topk, 0.25 for attain), with
-    fragile rows redrawn. Returns (case, k, margin, rows redrawn)."""
-    k, margin = TOPK_K, (0.0 if op == "topk" else ATTAIN_MARGIN)
-    case = topk_case(op, i, r, seed=4096 + (op == "attain"), slo_rows=True,
-                     lam_rows=True)
-    rng = np.random.default_rng(4098)
+def redraw_fragile(op: str, case: dict, dev, k: int, margin: float,
+                   rng) -> int:
+    """Redraw the rates of ``case``'s fragile rows (:func:`fragile_rows`)
+    until none is left; returns the rows redrawn."""
+    i = case["table"].shape[0]
     redrawn = 0
     for _ in range(50):
         bad = fragile_rows(op, case, dev, k, margin)
         if not bad.any():
-            return case, k, margin, redrawn
+            return redrawn
         redrawn += int(bad.sum())
-        case["lam"][bad] = rng.uniform(0.0, 10.0, (int(bad.sum()), i))
-    fail(f"could not draw a fleet {op} case free of near-ties")
+        shape = (int(bad.sum()),) + ((i,) if case["lam"].ndim == 2 else ())
+        case["lam"][bad] = rng.uniform(0.0, 10.0, shape)
+    fail(f"could not draw a {op} case free of near-ties")
+
+
+def fleet_topk_case(op: str, dev, r: int = 4096, i: int = 1024,
+                    k: int = TOPK_K):
+    """The fleet-scale case of ``routing_topk`` / ``routing_attain`` at
+    k (default 2; margin 0 for topk, 0.25 for attain), with fragile rows
+    redrawn. Returns (case, k, margin, rows redrawn)."""
+    margin = 0.0 if op == "topk" else ATTAIN_MARGIN
+    case = topk_case(op, i, r, seed=4096 + (op == "attain"), slo_rows=True,
+                     lam_rows=True)
+    redrawn = redraw_fragile(op, case, dev, k, margin,
+                             np.random.default_rng(4098))
+    return case, k, margin, redrawn
 
 
 def fleet_score_case(dev, r: int = 4096, i: int = 1024) -> dict:
     case = score_case(i, r, seed=4096, slo_rows=True, lam_rows=True)
-    rng = np.random.default_rng(4097)
-    for _ in range(50):
-        bad = fragile_rows("topk", case, dev, 1, 0.0)
-        if not bad.any():
-            return case
-        case["lam"][bad] = rng.uniform(0.0, 10.0, (int(bad.sum()), i))
-    fail("could not draw a fleet case free of near-ties")
+    redraw_fragile("topk", case, dev, 1, 0.0, np.random.default_rng(4097))
+    return case
+
+
+# the row kernels' layout edges (routing_score.row_plan): I around every
+# lanes-per-row, body, staged-tile and scratch step
+LAYOUT_I = (1, 2, 3, 4, 5, 16, 31, 32, 33, 1023, 1024, 1025, 2945)
+LAYOUT_R = 300          # a multiple of no plan's rows per block
+LAYOUT_MARGIN = 0.25
+
+
+def layout_cases(dev) -> list:
+    """(label, op, case, k, margin, misalign, redrawn) for
+    ``routing_score`` ("score") and ``routing_topk`` ("topk"): every
+    ``LAYOUT_I`` with (R, I) rates and SLO rows, R = ``LAYOUT_R``; (R,)
+    shared rates and (I,) SLOs at I 4, 33 and 1024; a lam whose rows
+    start one float past a 16-byte boundary at I 4 and 1024; and k from
+    1 to 8 with a margin at I 5, 1024 and 1025. Fragile rows redrawn."""
+    out = []
+    rows = dict(slo_rows=True, lam_rows=True)
+
+    def add(label, op, case, k, margin, misalign=False):
+        rng = np.random.default_rng(len(out) + 900)
+        redrawn = redraw_fragile("topk", case, dev, k, margin, rng)
+        out.append((label, op, case, k, margin, misalign, redrawn))
+
+    for i in LAYOUT_I:
+        add(f"layout_i{i}_r{LAYOUT_R}", "score",
+            score_case(i, LAYOUT_R, seed=700 + i, **rows), 1, 0.0)
+        add(f"layout_i{i}_r{LAYOUT_R}", "topk",
+            topk_case("topk", i, LAYOUT_R, seed=800 + i, **rows), TOPK_K,
+            LAYOUT_MARGIN)
+    for i in (4, 33, 1024):
+        add(f"shared_rates_i{i}", "score", score_case(i, LAYOUT_R,
+                                                      seed=1700 + i), 1, 0.0)
+        add(f"shared_rates_i{i}", "topk", topk_case("topk", i, LAYOUT_R,
+                                                    seed=1800 + i),
+            TOPK_K, LAYOUT_MARGIN)
+    for i in (4, 1024):
+        add(f"misaligned_lam_i{i}", "score",
+            score_case(i, LAYOUT_R, seed=2700 + i, **rows), 1, 0.0,
+            misalign=True)
+        add(f"misaligned_lam_i{i}", "topk",
+            topk_case("topk", i, LAYOUT_R, seed=2800 + i, **rows), TOPK_K,
+            LAYOUT_MARGIN, misalign=True)
+    for i in (5, 1024, 1025):
+        for k in range(1, TOPK_K_MAX + 1):
+            add(f"k_sweep_i{i}", "topk",
+                topk_case("topk", i, LAYOUT_R, seed=3800 + 10 * i + k,
+                          **rows), k, LAYOUT_MARGIN)
+    return out
+
+
+def misaligned(x):
+    """A copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary, so the row kernels take their scalar loads."""
+    import torch
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    if out.data_ptr() % 16 != 4:
+        fail(f"misaligned: data at {out.data_ptr()} mod 16 is not 4")
+    return out
 
 
 # ----------------------------------------------------------- phase 2 -----
-def compare_score(name: str, case: dict, dev) -> float:
+def compare_score(name: str, case: dict, dev, misalign: bool = False,
+                  redrawn: int = 0) -> float:
     from repro_torch.kernels import ref
     from repro_torch.kernels.routing_score import routing_score
     t = to_dev({k: case[k] for k in SCORE_ARGS}, dev)
+    if misalign:
+        t["lam"] = misaligned(t["lam"])
     args = [t[k] for k in SCORE_ARGS]
     ki, kg, kok = (x.cpu().numpy() for x in routing_score(*args))
     ri, rg, rok = (x.cpu().numpy() for x in ref.routing_score_ref(*args))
@@ -402,7 +479,7 @@ def compare_score(name: str, case: dict, dev) -> float:
     max_abs = float(err.max()) if err.size else 0.0
     emit({"phase": "parity", "kernel": "routing_score", "case": name,
           "rows": int(len(ki)), "feasible_rows": int(feas.sum()),
-          "max_abs_err": max_abs})
+          "fragile_rows_redrawn": redrawn, "max_abs_err": max_abs})
     return max_abs
 
 
@@ -431,7 +508,8 @@ def compare_guard(name: str, case: dict, dev, want_off=None) -> float:
 
 
 def compare_topk(op: str, name: str, case: dict, dev, k: int,
-                 margin: float, redrawn: int = 0) -> float:
+                 margin: float, redrawn: int = 0,
+                 misalign: bool = False) -> float:
     """``routing_topk`` / ``routing_attain`` against the plain version:
     ``ok`` exact, every idx column exact on feasible rows and -1 on
     infeasible ones, g within ``G_RTOL``."""
@@ -441,6 +519,8 @@ def compare_topk(op: str, name: str, case: dict, dev, k: int,
     kern, plain = ((routing_topk, ref.routing_topk_ref) if op == "topk"
                    else (routing_attain, ref.routing_attain_ref))
     t = to_dev({k_: case[k_] for k_ in TOPK_ARGS[op]}, dev)
+    if misalign:
+        t["lam"] = misaligned(t["lam"])
     args = [t[k_] for k_ in TOPK_ARGS[op]]
     ki, kg, kok = (x.cpu().numpy() for x in kern(*args, k=k, margin=margin))
     ri, rg, rok = (x.cpu().numpy() for x in plain(*args, k=k, margin=margin))
@@ -499,13 +579,44 @@ def guard_boundary_cases() -> list:
     return out
 
 
+def routing_bodies(log: str) -> list:
+    """Registers, spills and dynamic shared memory of each body of
+    ``routing.cu`` from ptxas's lines in the build log: the narrow (a
+    candidate a lane, group 1) and wide (group 4) body of each row kernel,
+    with ``row_plan``'s shared bytes at I 32 and at the fleet's I 1024,
+    and the guard and attain kernels (none)."""
+    import re
+
+    from repro_torch.kernels.routing_score import row_plan
+    out, row = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(routing_[a-z]+_kernel)"
+                      r"(?:ILi(\d+)E)?", ln)
+        if m:
+            group = int(m.group(2)) if m.group(2) else None
+            row = {"kernel": m.group(1), "group": group,
+                   "dynamic_smem_bytes": row_plan(32 if group == 1 else 1024)
+                   .smem_bytes if group else 0}
+            continue
+        if row is None:
+            continue
+        if "spill stores" in ln:
+            row["spills"] = ln.strip()
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(dict(row, registers=int(m.group(1))))
+            row = None
+    return out
+
+
 def phase_parity(dev) -> dict:
     errs = {"routing_score": 0.0, "routing_guard": 0.0, "routing_topk": 0.0,
             "routing_attain": 0.0}
 
-    def score(name, case):
+    def score(name, case, misalign=False, redrawn=0):
         errs["routing_score"] = max(errs["routing_score"],
-                                    compare_score(name, case, dev))
+                                    compare_score(name, case, dev, misalign,
+                                                  redrawn))
 
     def guard(name, case, want=None):
         errs["routing_guard"] = max(errs["routing_guard"],
@@ -526,10 +637,10 @@ def phase_parity(dev) -> dict:
     guard("fleet_r4096_i1024", guard_case(1024, 4096, seed=4096,
                                           lam_rows=True))
 
-    def topk(op, name, case, k, margin, redrawn=0):
+    def topk(op, name, case, k, margin, redrawn=0, misalign=False):
         key = f"routing_{op}"
         errs[key] = max(errs[key], compare_topk(op, name, case, dev, k,
-                                                margin, redrawn))
+                                                margin, redrawn, misalign))
 
     for i, r in ((2, 64), (6, 256), (11, 128)):
         for k in (1, 2, 4):
@@ -554,6 +665,11 @@ def phase_parity(dev) -> dict:
                  TOPK_K, margin)
         case, k, margin, redrawn = fleet_topk_case(op, dev)
         topk(op, "fleet_r4096_i1024", case, k, margin, redrawn)
+    for label, op, case, k, margin, misalign, redrawn in layout_cases(dev):
+        if op == "score":
+            score(label, case, misalign, redrawn)
+        else:
+            topk("topk", f"{label}_k{k}", case, k, margin, redrawn, misalign)
     return errs
 
 
@@ -902,6 +1018,8 @@ def phase_times(dev) -> dict:
             ms=time_launches(lambda: routing_score(*a), dev),
             plain_ms=time_launches(lambda: ref.routing_score_ref(*a), dev),
             host_ms=time_host(lambda: routing_score(*a), dev),
+            call_host_ms=time_launches(lambda: routing_score(*a), dev,
+                                       n=1000, host=True),
             plain_host_ms=time_host(lambda: ref.routing_score_ref(*a), dev),
             bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
         emit({"phase": "times", "kernel": "routing_score", "shape": label,
@@ -915,6 +1033,8 @@ def phase_times(dev) -> dict:
             ms=time_launches(lambda: routing_guard(*a2), dev),
             plain_ms=time_launches(lambda: ref.routing_guard_ref(*a2), dev),
             host_ms=time_host(lambda: routing_guard(*a2), dev),
+            call_host_ms=time_launches(lambda: routing_guard(*a2), dev,
+                                       n=1000, host=True),
             plain_host_ms=time_host(lambda: ref.routing_guard_ref(*a2),
                                     dev),
             bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
@@ -926,21 +1046,27 @@ def phase_times(dev) -> dict:
              attain_bytes_ops)):
         name = f"routing_{op}"
         margin = 0.0 if op == "topk" else ATTAIN_MARGIN
-        for label, case in (("r256_i2", main_path_topk_case(op, 2)),
-                            ("r256_i4", main_path_topk_case(op, 4)),
-                            ("r4096_i1024", fleet_topk_case(op, dev)[0])):
+        shapes = [("r256_i2", main_path_topk_case(op, 2), TOPK_K),
+                  ("r256_i4", main_path_topk_case(op, 4), TOPK_K),
+                  ("r4096_i1024", fleet_topk_case(op, dev)[0], TOPK_K)]
+        if op == "topk":   # the most duplicate passes
+            shapes.append(("r4096_i1024_k8", fleet_topk_case(
+                op, dev, k=TOPK_K_MAX)[0], TOPK_K_MAX))
+        for label, case, k in shapes:
             t = to_dev({k_: case[k_] for k_ in TOPK_ARGS[op]}, dev)
             a = [t[k_] for k_ in TOPK_ARGS[op]]
-            kw = dict(k=TOPK_K, margin=margin)
-            nbytes, ops = bytes_ops(case, TOPK_K)
+            kw = dict(k=k, margin=margin)
+            nbytes, ops = bytes_ops(case, k)
             bms, by = bound_ms(nbytes, ops)
             out[name][label] = row = dict(
                 ms=time_launches(lambda: kern(*a, **kw), dev),
                 plain_ms=time_launches(lambda: plain(*a, **kw), dev),
                 host_ms=time_host(lambda: kern(*a, **kw), dev),
+            call_host_ms=time_launches(lambda: kern(*a, **kw), dev, n=400,
+                                       host=True),
                 plain_host_ms=time_host(lambda: plain(*a, **kw), dev),
                 bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops,
-                k=TOPK_K, margin=margin)
+                k=k, margin=margin)
             emit({"phase": "times", "kernel": name, "shape": label, **row})
     return out
 
@@ -1679,6 +1805,50 @@ def phase_ssd_times(dev) -> dict:
     return out
 
 
+# ------------------------------------------------ checkouts in turns --
+def phase_tree(dev) -> None:
+    """The routing path of the checkout whose ``src`` is first on the
+    path, measured by this file's phases: each routing kernel's device
+    time, host time (``host_ms``: back to back; ``call_host_ms``: the
+    wrapper's own per call, the device kept busy) at every shape of
+    :func:`phase_times`, and ``BatchRouter``'s decisions/s under every
+    policy on both clusters (:func:`phase_serving`)."""
+    phase_times(dev)
+    phase_serving(dev, "cuda")
+
+
+def main_turns(argv: list) -> int:
+    """``--tree DIR``: :func:`phase_tree` on the checkout at DIR.
+    ``--turns DIR [DIR ...] [--rounds N]``: that for each DIR in turn, a
+    process each, the order reversed every other round (A B, B A, ...),
+    so that checkouts are compared within one call by the same code.
+    Each process is pinned to the same CPU core."""
+    if argv[0] == "--tree":
+        sys.path.insert(0, str(Path(argv[1]).resolve() / "src"))
+        # one core, the same for every checkout: host times then spread
+        # less between processes
+        os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
+        import torch
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        phase_tree(dev)
+        return 0
+    if argv[0] != "--turns":
+        fail(f"unknown arguments {argv}")
+    rounds = 1
+    if "--rounds" in argv:
+        k = argv.index("--rounds")
+        rounds = int(argv[k + 1])
+        argv = argv[:k] + argv[k + 2:]
+    trees = argv[1:]
+    for n in range(rounds):
+        for tree in trees if n % 2 == 0 else trees[::-1]:
+            emit({"phase": "turn", "round": n, "tree": tree})
+            subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--tree", tree], check=True)
+    return 0
+
+
 # ------------------------------------------------------------------ main --
 def main() -> int:
     import torch
@@ -1686,6 +1856,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script drives the port on a CUDA device", file=sys.stderr)
         return 2
+    if len(sys.argv) > 1:
+        return main_turns(sys.argv[1:])
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no port package at {SRC / 'repro_torch'}",
               file=sys.stderr)
@@ -1713,6 +1885,9 @@ def main() -> int:
         if name == "ssd":
             emit({"phase": "build", "library": name,
                   "bodies": ssd_bodies(log, _build.library("ssd"))})
+        if name == "routing":
+            emit({"phase": "build", "library": name,
+                  "bodies": routing_bodies(log)})
 
     errs = phase_parity(dev)
 

@@ -44,15 +44,18 @@ _FLOAT = ctypes.c_float
 # the cudaError_t of its launch as an int
 SIGNATURES = {
     "routing": {
+        # ... table, R, I, T, then the plan: lanes, rows_per_block,
+        # smem_bytes, scratch (or null); idx, g, ok, stream
         "laimr_routing_score": (
             [_VOIDP, _INT, _INT] + [_VOIDP] * 7 + [_INT] + [_VOIDP] * 2
-            + [_INT] * 3 + [_VOIDP] * 4),
+            + [_INT] * 3 + [_INT] * 3 + [_VOIDP] + [_VOIDP] * 4),
         "laimr_routing_guard": (
             [_VOIDP, _INT, _INT] + [_VOIDP] * 10 + [_INT] * 2
             + [_VOIDP] * 4),
         "laimr_routing_topk": (
             [_VOIDP, _INT, _INT] + [_VOIDP] * 7 + [_INT] + [_VOIDP] * 2
-            + [_INT] * 4 + [_FLOAT] + [_VOIDP] * 4),
+            + [_INT] * 4 + [_FLOAT] + [_INT] * 3 + [_VOIDP]
+            + [_VOIDP] * 4),
         "laimr_routing_attain": (
             [_VOIDP, _INT, _INT] + [_VOIDP] * 7 + [_INT] + [_VOIDP] * 3
             + [_INT] * 4 + [_FLOAT] + [_VOIDP] * 4),

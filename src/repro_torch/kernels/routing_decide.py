@@ -10,7 +10,9 @@ the TPU kernel of the same name in ``src/repro/kernels/routing_decide.py``:
   column only when the guard fires;
 * :func:`routing_topk` (``routing_topk_kernel``, ``safetail``): the
   route_best primary plus the next ``k - 1`` feasible candidates in
-  ascending g, headroom-gated by ``g <= slo - margin``;
+  ascending g, headroom-gated by ``g <= slo - margin``; it shares
+  ``routing_score_kernel``'s body and launch plan
+  (``routing_score.row_plan``): each pair scored once;
 * :func:`routing_attain` (``routing_attain_kernel``, ``reliable``): the
   primary maximises the delivery-weighted SLO-attainment probability,
   duplicates as in ``routing_topk``.
@@ -108,11 +110,13 @@ def _check_k(what: str, k: int) -> None:
 
 
 def _launch_topk(what: str, fn_name: str, lam, cols, slo, extra, table,
-                 k: int, margin: float):
+                 k: int, margin: float, plan: tuple = ()):
     """Shared launch of the two (R, k) select kernels: checks every
     input, allocates (idx (R, k) int32, g (R, k) f32, ok (R,)) and
     enqueues on the current stream. ``extra`` holds the kernel's (I,)
-    columns after ``slo`` (cost, or sigma and avail)."""
+    columns after ``slo`` (cost, or sigma and avail); ``plan``, the
+    launch plan's arguments where the kernel takes one, after
+    ``margin``."""
     from repro_torch.kernels._build import library
     from repro_torch.kernels.routing_score import (check_input, row_strides,
                                                    stream_ptr)
@@ -135,7 +139,7 @@ def _launch_topk(what: str, fn_name: str, lam, cols, slo, extra, table,
         lam.data_ptr(), lam_rs, lam_cs, *[c.data_ptr() for _, c in cols],
         slo.data_ptr(), 0 if slo.ndim == 1 else i,
         *[c.data_ptr() for _, c in extra], table.data_ptr(), r, i, t, k,
-        float(margin), idx.data_ptr(), g.data_ptr(), ok.data_ptr(),
+        float(margin), *plan, idx.data_ptr(), g.data_ptr(), ok.data_ptr(),
         stream_ptr(dev))
     lib.check(rc, what)
     return idx, g, ok.view(torch.bool)
@@ -164,11 +168,13 @@ def routing_topk(lam: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
                                     margin=margin)
     if lam.device.type != "cuda":
         raise ValueError(f"routing_topk: no kernel for {lam.device}")
+    from repro_torch.kernels.routing_score import plan_args
     out = _launch_topk(
         "routing_topk", "laimr_routing_topk", lam,
         [("alpha", alpha), ("beta", beta), ("gamma", gamma), ("mu", mu),
          ("n", n), ("rtt", rtt)], slo, [("cost", cost)], erlang_c_table,
-        k, margin)
+        k, margin, plan_args(lam.shape[0], erlang_c_table.shape[0],
+                             lam.device))
     routing_topk.launches += 1
     return out
 

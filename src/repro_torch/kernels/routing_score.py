@@ -4,8 +4,10 @@ The paper's §IV-B hot path: for each request, evaluate the closed-form
 latency law g_mi(lambda) over every candidate deployment, filter by SLO
 and stability, and take the latency argmin with a cost tie-break. On the
 card this is the hand-written CUDA kernel in ``csrc/routing.cu``
-(``routing_score_kernel``, one warp per request row); it replaces the
-TPU kernel ``src/repro/kernels/routing_score.py:routing_score``.
+(``routing_score_kernel``: lanes per row fitted to I, each pair scored
+once into a g cache); it replaces the TPU kernel
+``src/repro/kernels/routing_score.py:routing_score``. :func:`row_plan`
+lays out its launches and those of ``routing_topk_kernel``.
 
 The wrapper launches the kernel for CUDA tensors and raises on anything
 the kernel does not take; for tensors on the CPU it runs the plain
@@ -18,11 +20,100 @@ reference package's.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from repro_torch.core import queueing
 from repro_torch.kernels import ref
+
+#: threads per block of routing_score_kernel and routing_topk_kernel: rows
+#: of at most 32 candidates get lanes fitted to I in blocks of
+#: NARROW_THREADS; wider rows a warp each, 16 to a block of WIDE_THREADS
+NARROW_THREADS = 256
+WIDE_THREADS = 512
+#: candidates whose columns a block stages in shared memory at a time
+TILE = 1024
+#: column planes staged in shared memory: alpha, beta, gamma, max(n, 1),
+#: max(n mu, 1e-12), rtt and a shared (I,) SLO row
+COLUMN_PLANES = 7
+#: dynamic shared memory a block of the card may opt in to
+SMEM_MAX = 227 * 1024
+
+
+class RowPlan(NamedTuple):
+    """The layout of one routing_score / routing_topk launch."""
+    lanes: int            # lanes deciding one request row
+    group: int            # adjacent candidates a lane holds a group
+    groups: int           # groups a lane scores and caches
+    rows_per_block: int
+    smem_bytes: int       # the staged columns, and the cache unless scratch
+    scratch: bool         # the g cache and flags are in device memory
+
+    @property
+    def row_bytes(self) -> int:
+        """A row's g cache (a float a column) and flags (a byte a group
+        and lane)."""
+        return self.groups * self.lanes * (self.group * 4 + 1)
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << (x - 1).bit_length()
+
+
+@functools.cache
+def row_plan(i: int) -> RowPlan:
+    """The layout of a launch over I candidates. A row of I <= 32 gets
+    the power of two >= I lanes, a candidate each, in blocks of
+    NARROW_THREADS; a wider row a warp whose lanes hold ceil(I / 128)
+    groups of four adjacent candidates, 16 rows a block. Shared bytes:
+    the column planes of a tile of up to TILE candidates, then the rows'
+    g cache and flags, which go to a device scratch instead where they do
+    not fit in SMEM_MAX (I > 2944)."""
+    if i < 1:
+        raise ValueError(f"row_plan: I={i}")
+    lanes = min(32, _pow2_at_least(i))
+    group = 1 if i <= 32 else 4
+    groups = -(-i // (lanes * group))
+    threads = NARROW_THREADS if group == 1 else WIDE_THREADS
+    rows = threads // lanes
+    planes = COLUMN_PLANES * min(groups * lanes * group, TILE) * 4
+    plan = RowPlan(lanes, group, groups, rows, planes, False)
+    cache = rows * plan.row_bytes
+    if planes + cache <= SMEM_MAX:
+        return plan._replace(smem_bytes=planes + cache)
+    return plan._replace(scratch=True)
+
+
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _scratch(dev: torch.device, stream: int, nbytes: int) -> torch.Tensor:
+    """Device bytes for the g cache of rows too long for shared memory,
+    kept per device and stream and grown by size. A launch writes every
+    entry it reads, so nothing is zeroed; launches on one stream run in
+    order."""
+    key = (dev.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = _SCRATCH[key] = torch.empty(nbytes, dtype=torch.uint8,
+                                          device=dev)
+    return buf
+
+
+def plan_args(r: int, i: int, dev: torch.device) -> tuple:
+    """The plan arguments of ``laimr_routing_score`` /
+    ``laimr_routing_topk``: lanes, rows per block, shared bytes, and the
+    scratch (None unless the plan puts the cache there)."""
+    p = row_plan(i)
+    if not p.scratch:
+        return p.lanes, p.rows_per_block, p.smem_bytes, None
+    # a slot per resident row: at most one per row of every row group
+    rows = -(-r // p.rows_per_block) * p.rows_per_block
+    buf = _scratch(dev, stream_ptr(dev), rows * p.row_bytes)
+    return p.lanes, p.rows_per_block, p.smem_bytes, buf.data_ptr()
 
 
 def stream_ptr(device: torch.device) -> int:
@@ -91,8 +182,8 @@ def routing_score(lam: torch.Tensor, alpha: torch.Tensor,
         lam.data_ptr(), lam_rs, lam_cs, alpha.data_ptr(), beta.data_ptr(),
         gamma.data_ptr(), mu.data_ptr(), n.data_ptr(), rtt.data_ptr(),
         slo.data_ptr(), 0 if slo.ndim == 1 else i, cost.data_ptr(),
-        erlang_c_table.data_ptr(), r, i, t, idx.data_ptr(), g.data_ptr(),
-        ok.data_ptr(), stream_ptr(dev))
+        erlang_c_table.data_ptr(), r, i, t, *plan_args(r, i, dev),
+        idx.data_ptr(), g.data_ptr(), ok.data_ptr(), stream_ptr(dev))
     lib.check(rc, "routing_score")
     routing_score.launches += 1
     return idx, g, ok.view(torch.bool)

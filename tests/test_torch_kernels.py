@@ -631,6 +631,345 @@ class TestCudaTopKKernels:
         self.run(op, args, k, margin, cuda_device)
 
 
+# ------------------------------------- routing row kernels' design --
+# routing_score_kernel and routing_topk_kernel cannot run here; these hold
+# the arithmetic of their design (routing_score.row_plan's lanes and slots,
+# per-lane partials in slot order, width-L butterflies, the cached g and
+# the duplicate passes) to the plain versions.
+BIG = np.float32(1e30)       # the kernels' argmin key mask
+NONE = 0x7FFFFFFF            # "no column"
+NEAR = np.float32(1.00001)
+EPS = np.float32(1e-9)
+
+
+def slot_columns(plan, i):
+    """(slots, lanes) -> the column a lane's slot holds, -1 past I: the
+    kernel's ``slot_col``, slot q * group + e being candidate e of the
+    lane's group q (groups of four adjacent columns in rows of more than
+    32 candidates, else one column a lane)."""
+    out = np.full((plan.groups * plan.group, plan.lanes), -1, np.int64)
+    for q in range(plan.groups):
+        for e in range(plan.group):
+            for s_ in range(plan.lanes):
+                x = (q * plan.lanes + s_) * plan.group + e
+                if x < i:
+                    out[q * plan.group + e, s_] = x
+    return out
+
+
+def lane_better(key, col, k, c):
+    """The kernels' comparator: lower key, then the lower column."""
+    return (k < key) | ((k == key) & (c < col))
+
+
+def butterfly(lanes, *vals, argmin=True):
+    """Width-``lanes`` xor shuffles over the lane axis (last), offsets
+    lanes/2 .. 1, as ``seg_argmin`` (key, col, g) or ``seg_min`` (one
+    value) leaves them on every lane; returns lane 0's result."""
+    vals = [v.copy() for v in vals]
+    off = lanes >> 1
+    while off:
+        partner = np.arange(lanes) ^ off
+        other = [v[:, partner] for v in vals]
+        if argmin:
+            take = lane_better(vals[0], vals[1], other[0], other[1])
+            vals = [np.where(take, o, v) for v, o in zip(vals, other)]
+        else:
+            vals = [np.minimum(vals[0], other[0])]
+        off >>= 1
+    return [v[:, 0] for v in vals]
+
+
+def row_design(args, k, margin, topk=True):
+    """routing_topk (or, with ``topk`` False, routing_score) as the row
+    kernels take it, with the plain version's g: pass 1 scores every
+    (row, column) once into the cache and folds per-lane partials; pass
+    2 takes the primary from the cache; each duplicate pass the argmin
+    above the previous pick. Returns the plain versions' outputs."""
+    lam, alpha, beta, gamma, mu, n, rtt, slo, cost, table = as_torch(args)
+    g, rho = (x.numpy() for x in tref._table_scores(
+        lam, alpha, beta, gamma, mu, n, rtt, table))
+    r, i = g.shape
+    slo_ = np.broadcast_to(slo.numpy(), (r, i))
+    cost_ = cost.numpy()
+    plan = trs.row_plan(i)
+    cols = slot_columns(plan, i)
+    lanes = plan.lanes
+    feas = (rho < 1.0) & (g <= slo_)
+    elig = feas & (g <= slo_ - np.float32(margin))
+    big = np.full((r, lanes), BIG, np.float32)
+    # pass 1: per-lane feasible minimum, any, g_eff minimum (the cache is
+    # g itself: each column scored once)
+    gmin, geff = big.copy(), big.copy()
+    anyf = np.zeros((r, lanes), bool)
+    for col in cols:
+        v = col >= 0
+        gc = g[:, np.where(v, col, 0)]
+        f = feas[:, np.where(v, col, 0)] & v
+        gmin = np.where(f, np.minimum(gmin, gc), gmin)
+        anyf |= f
+        ge = np.where(rho[:, np.where(v, col, 0)] < 1.0, gc,
+                      np.float32(1e9))
+        geff = np.where(v, np.minimum(geff, ge), geff)
+    gmin, = butterfly(lanes, gmin, argmin=False)
+    geff, = butterfly(lanes, geff, argmin=False)
+    anyr = anyf.any(axis=1)
+    edge = (gmin * NEAR + EPS).astype(np.float32)[:, None]
+    # pass 2: the primary from the cache
+    key, best, bg = big.copy(), np.full((r, lanes), NONE), \
+        np.zeros((r, lanes), np.float32)
+    for col in cols:
+        v = col >= 0
+        cc = np.where(v, col, 0)
+        near = feas[:, cc] & (g[:, cc] <= edge)
+        kk = np.where(near, cost_[cc], BIG)
+        take = v & lane_better(key, best, kk, col)
+        key, best, bg = (np.where(take, kk, key), np.where(take, col, best),
+                         np.where(take, g[:, cc], bg))
+    _, primary, g0 = butterfly(lanes, key, best, bg)
+    if not topk:
+        return primary.astype(np.int32), g0, anyr
+    idx = [np.where(anyr, primary, -1)]
+    gout = [np.where(anyr, g0, geff)]
+    last_g = np.full(r, -BIG, np.float32)
+    last_i = np.full(r, -1)
+    left = anyr.copy()
+    for _ in range(1, k):
+        key, best = big.copy(), np.full((r, lanes), NONE)
+        for col in cols:
+            v = col >= 0
+            cc = np.where(v, col, 0)
+            gc = g[:, cc]
+            ok = (v & elig[:, cc] & left[:, None] & (col != primary[:, None])
+                  & ((gc > last_g[:, None]) | ((gc == last_g[:, None])
+                                                & (col > last_i[:, None]))))
+            take = ok & lane_better(key, best, gc, col)
+            key, best = np.where(take, gc, key), np.where(take, col, best)
+        dk, di, _ = butterfly(lanes, key, best, key)
+        has = di != NONE
+        idx.append(np.where(has, di, -1))
+        gout.append(np.where(has, dk, np.float32(0)))
+        left, last_g, last_i = has, dk, di
+    return (np.stack(idx, 1).astype(np.int32),
+            np.stack(gout, 1).astype(np.float32), anyr)
+
+
+def design_case(name):
+    """Inputs (routing_topk's order) for the design tests: the
+    reference's sweeps and edges, and the layout's I edges."""
+    if name.startswith("sweep"):
+        i, r = map(int, name.split("_")[1:])
+        return topk_inputs(i, r, seed=40 + i)
+    if name.startswith("rows"):      # (R, I) rates, SLO rows, exclusions
+        i, r = map(int, name.split("_")[1:])
+        return topk_inputs(i, r, seed=200 + i, slo_rows=True, lam_rows=True)
+    if name.startswith("shared"):    # (R,) rates, (I,) SLOs
+        i, r = map(int, name.split("_")[1:])
+        return topk_inputs(i, r, seed=300 + i)
+    return edge_case(name)[1]
+
+
+DESIGN_CASES = (["sweep_2_64", "sweep_6_256", "sweep_11_128",
+                 "topk_all_infeasible", "topk_k_exceeds_feasible",
+                 "topk_clones"]
+                + [f"rows_{i}_{r}" for i, r in ((1, 40), (31, 37),
+                                                 (33, 37), (50, 37),
+                                                 (130, 20), (1030, 6))]
+                + [f"shared_{i}_{r}" for i, r in ((1, 40), (33, 37),
+                                                  (50, 37))])
+
+
+class TestRowDesign:
+    """The row kernels' design, not the kernels: :func:`row_design`
+    re-takes routing_topk's and routing_score's decisions in the order
+    the kernels take them (lanes and slots from ``row_plan``, per-lane
+    partials, width-L butterflies, the cached g, duplicate passes above
+    the previous pick) on the plain version's g, and must give the plain
+    versions' outputs field for field. The kernels themselves are held
+    on the card by ``TestCudaRowLayout`` and chip_smoke.py."""
+
+    @pytest.mark.parametrize("name", DESIGN_CASES)
+    @pytest.mark.parametrize("k,margin", [(1, 0.0), (2, 0.0), (3, 0.25),
+                                          (8, 0.5)])
+    def test_topk_field_for_field(self, name, k, margin):
+        args = design_case(name)
+        got = row_design(args, k, margin)
+        want = np_out(tref.routing_topk_ref(*as_torch(args), k=k,
+                                            margin=margin))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+    @pytest.mark.parametrize("name", DESIGN_CASES)
+    def test_score_field_for_field(self, name):
+        args = design_case(name)
+        got = row_design(args, 1, 0.0, topk=False)
+        want = np_out(tref.routing_score_ref(*as_torch(args)))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+    def test_every_column_in_exactly_one_slot(self):
+        for i in (1, 2, 3, 5, 31, 33, 50, 130, 1023, 1024, 1025, 3000):
+            cols = slot_columns(trs.row_plan(i), i)
+            taken = np.sort(cols[cols >= 0])
+            np.testing.assert_array_equal(taken, np.arange(i))
+
+
+class TestRowPlan:
+    """``routing_score.row_plan``: the layout the wrapper hands the two
+    row kernels, and the scratch it keeps for rows too long for shared
+    memory. The kernels check the plan against I before launch."""
+
+    @pytest.mark.parametrize("i", [1, 2, 3, 4, 5, 16, 31, 32, 33, 64, 65,
+                                   100, 129, 256, 257, 513, 1023, 1024,
+                                   1025, 2944, 2945, 4096, 100_000])
+    def test_lanes_slots_rows_and_shared_bytes(self, i):
+        p = trs.row_plan(i)
+        assert p.lanes == min(32, 1 << (i - 1).bit_length())   # pow2 >= I
+        assert p.lanes >= min(i, 32)
+        assert p.group == (1 if i <= 32 else 4)
+        assert p.group == 1 or p.lanes == 32
+        length = p.groups * p.lanes * p.group      # the row cache's floats
+        assert length >= i > length - p.lanes * p.group   # no idle group
+        threads = p.rows_per_block * p.lanes
+        assert threads == (trs.NARROW_THREADS if p.group == 1
+                           else trs.WIDE_THREADS)
+        planes = trs.COLUMN_PLANES * min(length, trs.TILE) * 4
+        cache = p.rows_per_block * (length * 4 + p.groups * p.lanes)
+        assert p.scratch == (planes + cache > 227 * 1024)
+        assert p.scratch == (i > 2944)
+        assert p.smem_bytes == planes + (0 if p.scratch else cache)
+        assert p.smem_bytes <= 227 * 1024
+
+    def test_main_path_fills_the_warps(self):
+        """At I = 2..4 a warp decides 8 to 16 rows, not one."""
+        for i, rows_per_warp in ((2, 16), (3, 8), (4, 8)):
+            p = trs.row_plan(i)
+            assert 32 // p.lanes == rows_per_warp
+            assert p.rows_per_block == 256 // p.lanes
+
+    def test_fleet_shape(self):
+        p = trs.row_plan(1024)
+        assert (p.lanes, p.group, p.groups, p.rows_per_block, p.scratch) \
+            == (32, 4, 8, 16, False)
+        # two blocks an SM: planes, g cache and flags of 16 rows
+        assert p.smem_bytes == (7 * 1024 + 16 * 1024) * 4 + 16 * 8 * 32
+        assert 2 * (p.smem_bytes + 1024) <= 228 * 1024
+
+    def test_i_outside_the_range_raises(self):
+        for i in (0, -3):
+            with pytest.raises(ValueError):
+                trs.row_plan(i)
+
+    def test_scratch_is_kept_per_stream_and_grown_by_size(
+            self, monkeypatch):
+        monkeypatch.setattr(trs, "_SCRATCH", {})
+        dev = torch.device("cpu")
+        assert trs.plan_args(300, 1024, dev)[3] is None
+        assert trs.plan_args(300, 2944, dev)[3] is None
+        assert trs._SCRATCH == {}
+        buf = trs._scratch(dev, 1, 500)
+        assert buf.dtype == torch.uint8 and buf.numel() == 500
+        assert trs._scratch(dev, 1, 300) is buf
+        grown = trs._scratch(dev, 1, 900)
+        assert grown.numel() == 900 and trs._SCRATCH[(None, 1)] is grown
+        assert trs._scratch(dev, 2, 300) is not grown
+        monkeypatch.setattr(trs, "stream_ptr", lambda d: 3)
+        args = trs.plan_args(300, 2945, dev)
+        p = trs.row_plan(2945)
+        rows = -(-300 // p.rows_per_block) * p.rows_per_block
+        assert args == (p.lanes, p.rows_per_block, p.smem_bytes,
+                        trs._SCRATCH[(None, 3)].data_ptr())
+        assert trs._SCRATCH[(None, 3)].numel() == rows * p.row_bytes
+        assert p.row_bytes == p.groups * 32 * (4 * 4 + 1)
+
+
+def calm(args, k, margin, seed):
+    """Redraw (in place) the rates of rows whose decision two float32
+    evaluations of g ~1e-6 apart could flip (a g within 1e-5 of the SLO
+    cut or the headroom gate, two of the k + 1 lowest feasible g within
+    1e-5, or a feasible g at the near-band edge): the kernel's exp/log
+    and the plain version's pow/lerp differ in the last bits, and with a
+    thousand candidates a row such near-ties occur by chance."""
+    rng = np.random.default_rng(seed)
+    for _ in range(50):
+        lam, alpha, beta, gamma, mu, n, rtt, slo, cost, table = \
+            as_torch(args)
+        g, rho = (x.numpy().astype(np.float64) for x in tref._table_scores(
+            lam, alpha, beta, gamma, mu, n, rtt, table))
+        s_ = np.broadcast_to(slo.numpy(), g.shape)
+        feas = (rho < 1) & (g <= s_)
+        gate = s_ - margin
+        bad = ((np.abs(g - s_) <= 1e-5 * np.abs(s_))
+               | (np.abs(g - gate) <= 1e-5 * np.abs(gate))).any(1)
+        low = np.sort(np.where(feas, g, 1e30), 1)[:, :k + 1]
+        bad |= ((np.diff(low, axis=1) <= 1e-5 * np.abs(low[:, 1:]))
+                & (low[:, 1:] < 1e29)).any(1)
+        gf = np.where(feas, g, 1e30)
+        edge = gf.min(1, keepdims=True) * (1 + 1e-5) + 1e-9
+        others = np.arange(g.shape[1])[None, :] != gf.argmin(1)[:, None]
+        bad |= (feas & others & (np.abs(g - edge) <= 1e-5 * edge)).any(1)
+        if not bad.any():
+            return args
+        shape = (int(bad.sum()),) + args[0].shape[1:]
+        args[0][bad] = rng.uniform(0.0, 10.0, shape).astype(np.float32)
+    raise AssertionError("no case free of near-ties")
+
+
+@pytest.mark.cuda
+class TestCudaRowLayout:
+    """routing_score and routing_topk kernels at their layout's edges
+    against the plain versions on the card: every I around a lanes or
+    groups step and the scratch threshold, R = 300 (a multiple of no plan's
+    rows per block), (R,) shared rates, a lam row start off a 16-byte
+    boundary, and k from 1 to 8 with a margin; ``idx`` and ``ok`` exact,
+    g within ``rtol=1e-4``."""
+
+    @staticmethod
+    def run(args, k, margin, dev, misalign=False):
+        t = as_torch(args, dev)
+        if misalign:
+            buf = torch.empty(t[0].numel() + 1, device=dev)
+            buf[1:].copy_(t[0].flatten())
+            t[0] = buf[1:].view(t[0].shape)
+            assert t[0].data_ptr() % 16 == 4
+        before = trs.routing_score.launches, trd.routing_topk.launches
+        got = np_out(trs.routing_score(*t))
+        want = np_out(tref.routing_score_ref(*t))
+        np.testing.assert_array_equal(got[2], want[2])
+        np.testing.assert_array_equal(got[0][want[2]], want[0][want[2]])
+        np.testing.assert_allclose(got[1][want[2]], want[1][want[2]],
+                                   rtol=1e-4)
+        got = np_out(trd.routing_topk(*t, k=k, margin=margin))
+        want = np_out(tref.routing_topk_ref(*t, k=k, margin=margin))
+        check_topk(got, want, 1e-4, exact=True)
+        assert (trs.routing_score.launches, trd.routing_topk.launches) == \
+            (before[0] + 1, before[1] + 1)
+
+    @pytest.mark.parametrize("i", [1, 2, 3, 4, 5, 16, 31, 32, 33, 1023,
+                                   1024, 1025, 2945])
+    def test_lanes_groups_and_scratch(self, cuda_device, i):
+        args = topk_inputs(i, 300, 900 + i, slo_rows=True, lam_rows=True)
+        self.run(calm(args, 2, 0.25, i), 2, 0.25, cuda_device)
+
+    @pytest.mark.parametrize("i", [4, 33, 1024])
+    def test_shared_rates(self, cuda_device, i):
+        args = calm(topk_inputs(i, 300, 950 + i), 2, 0.25, i)
+        self.run(args, 2, 0.25, cuda_device)
+
+    @pytest.mark.parametrize("i", [4, 1024])
+    def test_misaligned_rates(self, cuda_device, i):
+        args = topk_inputs(i, 300, 970 + i, slo_rows=True, lam_rows=True)
+        self.run(calm(args, 2, 0.25, i), 2, 0.25, cuda_device,
+                 misalign=True)
+
+    @pytest.mark.parametrize("k", range(1, trd.K_MAX + 1))
+    @pytest.mark.parametrize("i", [5, 1024, 1025])
+    def test_k_with_margin(self, cuda_device, i, k):
+        args = topk_inputs(i, 300, 990 + i + k, slo_rows=True,
+                           lam_rows=True)
+        self.run(calm(args, k, 0.25, k), k, 0.25, cuda_device)
+
+
 # ---------------------------------------------------------- attention --
 def attn_tol(dtype: str) -> dict:
     """The reference's kernel bounds (``tests/test_kernels.py``)."""
