@@ -13,18 +13,21 @@ Each phase prints one JSON object per line:
    ``kernels/csrc/attention.cu``, ``kernels/csrc/ssd.cu``), all started
    together, with their ptxas register and spill lines, and per body of
    ``ssd_scan`` (float32, bf16) and of the routing kernels (a narrow and
-   a wide body each of ``routing_score`` / ``routing_topk``) its
-   registers, spills and dynamic shared memory;
+   a wide body each of ``routing_score`` / ``routing_topk`` /
+   ``routing_attain``, the staged and unstaged body of ``routing_guard``)
+   its registers, spills and dynamic shared memory;
 2. each routing kernel (``routing_score``, ``routing_guard``,
    ``routing_topk``, ``routing_attain``) against its plain PyTorch
    version on the card: the reference package's kernel sweeps and edge
    cases, per-request SLO rows with lane exclusions, the guard's
    boundary cases, full windows at the main path's shapes, and one
    fleet-scale shape whose Erlang table exceeds a block's shared
-   memory; then ``routing_score`` and ``routing_topk`` at the edges of
-   their layout (``layout_cases``: I of 1 to 2945 around every lanes,
-   groups and scratch step, R = 300, (R,) shared rates, a misaligned rate
-   row, k from 1 to 8 with a margin). ``ok`` and ``offloaded`` must
+   memory; then ``routing_score``, ``routing_topk`` and
+   ``routing_attain`` at the edges of their layout (``layout_cases``: I
+   of 1 to 2945 around every lanes, groups and scratch step, R = 300, (R,)
+   shared rates, a misaligned rate row, k from 1 to 8 with a margin), and
+   ``routing_guard`` at its staging cap and past it. ``ok`` and
+   ``offloaded`` must
    match exactly, ``idx`` exactly on feasible rows, g within
    ``rtol=1e-4`` (the reference's own kernel-vs-oracle bound);
 3. serving: ``BatchRouter`` answering 2048 requests in windows of 256
@@ -80,7 +83,10 @@ Each phase prints one JSON object per line:
    of ``PLAIN_RUNS`` runs: a Python loop over L), its bound and the
    earlier CUDA-core design's times (``SSD_EARLIER_MS``); then the
    routing kernels' times at the main path's shapes and at fleet scale
-   (``routing_topk`` also at k = 8, its most duplicate passes).
+   (``routing_topk`` and ``routing_attain`` also at k = 8, their most
+   duplicate passes; ``routing_guard`` also at its staging cap, I = 32,
+   and past it), beside the launch floor: a one-element ``fill_`` timed
+   the same way.
 
 Launch counters are set to 0 just before each policy's run in phases
 3-5, each ``generate`` of phases 9 and 13 and one more decode step after
@@ -396,49 +402,65 @@ def fleet_score_case(dev, r: int = 4096, i: int = 1024) -> dict:
 # the row kernels' layout edges (routing_score.row_plan): I around every
 # lanes-per-row, body, staged-tile and scratch step
 LAYOUT_I = (1, 2, 3, 4, 5, 16, 31, 32, 33, 1023, 1024, 1025, 2945)
+ATTAIN_SCRATCH_I = 1409   # the first I whose attain cache is in the scratch
+# routing_guard's staging cap (routing_decide.GUARD_STAGE_MAX; pinned here
+# so that --turns can time a checkout that predates the constant)
+GUARD_STAGE_I = 32
 LAYOUT_R = 300          # a multiple of no plan's rows per block
 LAYOUT_MARGIN = 0.25
 
 
 def layout_cases(dev) -> list:
     """(label, op, case, k, margin, misalign, redrawn) for
-    ``routing_score`` ("score") and ``routing_topk`` ("topk"): every
-    ``LAYOUT_I`` with (R, I) rates and SLO rows, R = ``LAYOUT_R``; (R,)
-    shared rates and (I,) SLOs at I 4, 33 and 1024; a lam whose rows
-    start one float past a 16-byte boundary at I 4 and 1024; and k from
-    1 to 8 with a margin at I 5, 1024 and 1025. Fragile rows redrawn."""
+    ``routing_score`` ("score"), ``routing_topk`` ("topk") and
+    ``routing_attain`` ("attain"): every ``LAYOUT_I`` (attain also
+    ``ATTAIN_SCRATCH_I``) with (R, I) rates and SLO rows, R =
+    ``LAYOUT_R``; (R,) shared rates and (I,) SLOs at I 4, 33 and 1024; a
+    lam whose rows start one float past a 16-byte boundary at I 4 and
+    1024; and k from 1 to 8 with a margin at I 5, 1024 and 1025 (topk and
+    attain). Fragile rows redrawn."""
     out = []
     rows = dict(slo_rows=True, lam_rows=True)
 
     def add(label, op, case, k, margin, misalign=False):
         rng = np.random.default_rng(len(out) + 900)
-        redrawn = redraw_fragile("topk", case, dev, k, margin, rng)
+        redrawn = redraw_fragile("attain" if op == "attain" else "topk",
+                                 case, dev, k, margin, rng)
         out.append((label, op, case, k, margin, misalign, redrawn))
 
-    for i in LAYOUT_I:
-        add(f"layout_i{i}_r{LAYOUT_R}", "score",
-            score_case(i, LAYOUT_R, seed=700 + i, **rows), 1, 0.0)
-        add(f"layout_i{i}_r{LAYOUT_R}", "topk",
-            topk_case("topk", i, LAYOUT_R, seed=800 + i, **rows), TOPK_K,
+    # attain's seeds are topk's + 50 (topk_case draws sigma/avail instead
+    # of cost)
+    for i in LAYOUT_I + (ATTAIN_SCRATCH_I,):
+        if i != ATTAIN_SCRATCH_I:
+            add(f"layout_i{i}_r{LAYOUT_R}", "score",
+                score_case(i, LAYOUT_R, seed=700 + i, **rows), 1, 0.0)
+            add(f"layout_i{i}_r{LAYOUT_R}", "topk",
+                topk_case("topk", i, LAYOUT_R, seed=800 + i, **rows), TOPK_K,
+                LAYOUT_MARGIN)
+        add(f"layout_i{i}_r{LAYOUT_R}", "attain",
+            topk_case("attain", i, LAYOUT_R, seed=850 + i, **rows), TOPK_K,
             LAYOUT_MARGIN)
     for i in (4, 33, 1024):
         add(f"shared_rates_i{i}", "score", score_case(i, LAYOUT_R,
                                                       seed=1700 + i), 1, 0.0)
-        add(f"shared_rates_i{i}", "topk", topk_case("topk", i, LAYOUT_R,
-                                                    seed=1800 + i),
-            TOPK_K, LAYOUT_MARGIN)
+        for op, seed in (("topk", 1800), ("attain", 1850)):
+            add(f"shared_rates_i{i}", op, topk_case(op, i, LAYOUT_R,
+                                                    seed=seed + i),
+                TOPK_K, LAYOUT_MARGIN)
     for i in (4, 1024):
         add(f"misaligned_lam_i{i}", "score",
             score_case(i, LAYOUT_R, seed=2700 + i, **rows), 1, 0.0,
             misalign=True)
-        add(f"misaligned_lam_i{i}", "topk",
-            topk_case("topk", i, LAYOUT_R, seed=2800 + i, **rows), TOPK_K,
-            LAYOUT_MARGIN, misalign=True)
+        for op, seed in (("topk", 2800), ("attain", 2850)):
+            add(f"misaligned_lam_i{i}", op,
+                topk_case(op, i, LAYOUT_R, seed=seed + i, **rows), TOPK_K,
+                LAYOUT_MARGIN, misalign=True)
     for i in (5, 1024, 1025):
         for k in range(1, TOPK_K_MAX + 1):
-            add(f"k_sweep_i{i}", "topk",
-                topk_case("topk", i, LAYOUT_R, seed=3800 + 10 * i + k,
-                          **rows), k, LAYOUT_MARGIN)
+            for op, seed in (("topk", 3800), ("attain", 3850)):
+                add(f"k_sweep_i{i}", op,
+                    topk_case(op, i, LAYOUT_R, seed=seed + 10 * i + k,
+                              **rows), k, LAYOUT_MARGIN)
     return out
 
 
@@ -579,24 +601,74 @@ def guard_boundary_cases() -> list:
     return out
 
 
+def guard_layout_cases() -> list:
+    """(label, case, pinned offloaded or None) for ``routing_guard`` on
+    both sides of its staging cap (``GUARD_STAGE_MAX`` candidates staged
+    in shared memory), R 300: (R, I) and (R,) rates, every seventh row at
+    the top tier (up = -1), and the pinned edges tau == g_inst (held) and
+    one ulp below (offloaded) on the home column."""
+    import torch
+
+    from repro_torch.kernels.ref import _table_scores
+    from repro_torch.kernels.routing_decide import GUARD_STAGE_MAX
+    if GUARD_STAGE_MAX != GUARD_STAGE_I:
+        fail(f"routing_guard stages up to {GUARD_STAGE_MAX} candidates, "
+             f"chip_smoke's cases assume {GUARD_STAGE_I}")
+    out = []
+    for i in (GUARD_STAGE_I, GUARD_STAGE_I + 1):
+        for lam_rows in (True, False):
+            c = guard_case(i, LAYOUT_R, seed=5000 + i + 7 * lam_rows,
+                           lam_rows=lam_rows)
+            c["up"][::7] = -1
+            out.append((f"stage_i{i}_r{LAYOUT_R}_"
+                        f"{'rows' if lam_rows else 'shared'}", c, None))
+        # tau at g_inst of the home column (strict >: held) and one ulp
+        # below (offloaded where up >= 0); a zero home rate makes g_home
+        # alpha + rtt + 0 in both versions, with no exp/log in it
+        c = guard_case(i, LAYOUT_R, seed=5100 + i, lam_rows=True)
+        c["lam"][np.arange(LAYOUT_R), c["home"]] = 0.0
+        t = {k: torch.as_tensor(c[k]) for k in
+             ("lam", "alpha", "beta", "gamma", "mu", "n", "rtt", "table")}
+        g, rho = _table_scores(t["lam"], t["alpha"], t["beta"], t["gamma"],
+                               t["mu"], t["n"], t["rtt"], t["table"])
+        h = c["home"].astype(np.int64)
+        g_home = g.numpy()[np.arange(LAYOUT_R), h]
+        stable = rho.numpy()[np.arange(LAYOUT_R), h] < 1.0
+        g_inst = np.where(stable, g_home - c["rtt"][h], np.float32(1e9))
+        g_inst = g_inst.astype(np.float32)
+        c["tau"] = np.where(np.arange(LAYOUT_R) % 2 == 0, g_inst,
+                            np.nextafter(g_inst, np.float32(-1))
+                            ).astype(np.float32)
+        c["up"][::7] = -1
+        want = (np.arange(LAYOUT_R) % 2 == 1) & (c["up"] >= 0)
+        out.append((f"stage_i{i}_tau_edges", c, want))
+    return out
+
+
 def routing_bodies(log: str) -> list:
     """Registers, spills and dynamic shared memory of each body of
     ``routing.cu`` from ptxas's lines in the build log: the narrow (a
     candidate a lane, group 1) and wide (group 4) body of each row kernel,
     with ``row_plan``'s shared bytes at I 32 and at the fleet's I 1024,
-    and the guard and attain kernels (none)."""
+    and the staged and unstaged guard bodies (the staged one's bytes at
+    its cap, I 32, and T 65)."""
     import re
 
     from repro_torch.kernels.routing_score import row_plan
     out, row = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(routing_[a-z]+_kernel)"
-                      r"(?:ILi(\d+)E)?", ln)
+                      r"IL([ib])(\d+)E", ln)
         if m:
-            group = int(m.group(2)) if m.group(2) else None
-            row = {"kernel": m.group(1), "group": group,
-                   "dynamic_smem_bytes": row_plan(32 if group == 1 else 1024)
-                   .smem_bytes if group else 0}
+            kernel, kind, arg = m.group(1), m.group(2), int(m.group(3))
+            if kind == "i":
+                mode = kernel.removeprefix("routing_").removesuffix("_kernel")
+                row = {"kernel": kernel, "group": arg, "dynamic_smem_bytes":
+                       row_plan(32 if arg == 1 else 1024, mode).smem_bytes}
+            else:
+                row = {"kernel": kernel, "staged": bool(arg),
+                       "dynamic_smem_bytes":
+                       GUARD_STAGE_I * (TABLE_T + 6) * 4 if arg else 0}
             continue
         if row is None:
             continue
@@ -669,7 +741,9 @@ def phase_parity(dev) -> dict:
         if op == "score":
             score(label, case, misalign, redrawn)
         else:
-            topk("topk", f"{label}_k{k}", case, k, margin, redrawn, misalign)
+            topk(op, f"{label}_k{k}", case, k, margin, redrawn, misalign)
+    for label, case, want in guard_layout_cases():
+        guard(label, case, want)
     return errs
 
 
@@ -998,6 +1072,8 @@ def main_path_topk_case(op: str, i: int, r: int = 256) -> dict:
 
 
 def phase_times(dev) -> dict:
+    import torch
+
     from repro_torch.kernels import ref
     from repro_torch.kernels.routing_decide import (routing_attain,
                                                     routing_guard,
@@ -1005,6 +1081,30 @@ def phase_times(dev) -> dict:
     from repro_torch.kernels.routing_score import routing_score
     out = {"routing_score": {}, "routing_guard": {}, "routing_topk": {},
            "routing_attain": {}}
+
+    def guard_times(label, gc):
+        t = to_dev({k: gc[k] for k in GUARD_ARGS}, dev)
+        a2 = [t[k] for k in GUARD_ARGS]
+        off = routing_guard(*a2)[2].cpu().numpy()
+        nbytes, ops = guard_bytes_ops(gc, off)
+        bms, by = bound_ms(nbytes, ops)
+        out["routing_guard"][label] = row = dict(
+            ms=time_launches(lambda: routing_guard(*a2), dev),
+            plain_ms=time_launches(lambda: ref.routing_guard_ref(*a2), dev),
+            host_ms=time_host(lambda: routing_guard(*a2), dev),
+            call_host_ms=time_launches(lambda: routing_guard(*a2), dev,
+                                       n=1000, host=True),
+            plain_host_ms=time_host(lambda: ref.routing_guard_ref(*a2),
+                                    dev),
+            bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+        emit({"phase": "times", "kernel": "routing_guard", "shape": label,
+              **row})
+
+    # the launch floor: the least a launch takes, timed the same way
+    one = torch.zeros(1, device=dev)
+    out["launch_floor"] = {"ms": time_launches(lambda: one.fill_(1.0), dev)}
+    emit({"phase": "times", "kernel": "launch_floor",
+          "what": "one-element in-place fill_", **out["launch_floor"]})
     shapes = (("r256_i2", main_path_case(2), main_path_guard_case(2)),
               ("r256_i4", main_path_case(4), main_path_guard_case(4)),
               ("r4096_i1024", fleet_score_case(dev),
@@ -1024,22 +1124,10 @@ def phase_times(dev) -> dict:
             bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
         emit({"phase": "times", "kernel": "routing_score", "shape": label,
               **row})
-        t = to_dev({k: gc[k] for k in GUARD_ARGS}, dev)
-        a2 = [t[k] for k in GUARD_ARGS]
-        off = routing_guard(*a2)[2].cpu().numpy()
-        nbytes, ops = guard_bytes_ops(gc, off)
-        bms, by = bound_ms(nbytes, ops)
-        out["routing_guard"][label] = row = dict(
-            ms=time_launches(lambda: routing_guard(*a2), dev),
-            plain_ms=time_launches(lambda: ref.routing_guard_ref(*a2), dev),
-            host_ms=time_host(lambda: routing_guard(*a2), dev),
-            call_host_ms=time_launches(lambda: routing_guard(*a2), dev,
-                                       n=1000, host=True),
-            plain_host_ms=time_host(lambda: ref.routing_guard_ref(*a2),
-                                    dev),
-            bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
-        emit({"phase": "times", "kernel": "routing_guard", "shape": label,
-              **row})
+        guard_times(label, gc)
+    # the guard at its staging cap (staged) and one past it (not)
+    for i in (GUARD_STAGE_I, GUARD_STAGE_I + 1):
+        guard_times(f"r256_i{i}", main_path_guard_case(i))
     for op, kern, plain, bytes_ops in (
             ("topk", routing_topk, ref.routing_topk_ref, topk_bytes_ops),
             ("attain", routing_attain, ref.routing_attain_ref,
@@ -1049,9 +1137,9 @@ def phase_times(dev) -> dict:
         shapes = [("r256_i2", main_path_topk_case(op, 2), TOPK_K),
                   ("r256_i4", main_path_topk_case(op, 4), TOPK_K),
                   ("r4096_i1024", fleet_topk_case(op, dev)[0], TOPK_K)]
-        if op == "topk":   # the most duplicate passes
-            shapes.append(("r4096_i1024_k8", fleet_topk_case(
-                op, dev, k=TOPK_K_MAX)[0], TOPK_K_MAX))
+        shapes.append(   # the most duplicate passes
+            ("r4096_i1024_k8", fleet_topk_case(op, dev, k=TOPK_K_MAX)[0],
+             TOPK_K_MAX))
         for label, case, k in shapes:
             t = to_dev({k_: case[k_] for k_ in TOPK_ARGS[op]}, dev)
             a = [t[k_] for k_ in TOPK_ARGS[op]]
@@ -1062,8 +1150,8 @@ def phase_times(dev) -> dict:
                 ms=time_launches(lambda: kern(*a, **kw), dev),
                 plain_ms=time_launches(lambda: plain(*a, **kw), dev),
                 host_ms=time_host(lambda: kern(*a, **kw), dev),
-            call_host_ms=time_launches(lambda: kern(*a, **kw), dev, n=400,
-                                       host=True),
+                call_host_ms=time_launches(lambda: kern(*a, **kw), dev,
+                                           n=400, host=True),
                 plain_host_ms=time_host(lambda: plain(*a, **kw), dev),
                 bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops,
                 k=k, margin=margin)
@@ -1984,6 +2072,7 @@ def main() -> int:
             "fleet_ms": times[k.__name__]["r4096_i1024"]["ms"],
             "fleet_plain_ms": times[k.__name__]["r4096_i1024"]["plain_ms"],
             "fleet_bound_ms": times[k.__name__]["r4096_i1024"]["bound_ms"],
+            "launch_floor_ms": times["launch_floor"]["ms"],
         })
     sources = {"flash_attention": "src/repro/kernels/flash_attention.py:84",
                "decode_attention": "src/repro/kernels/decode_attention.py:72"}

@@ -49,16 +49,20 @@ SIGNATURES = {
         "laimr_routing_score": (
             [_VOIDP, _INT, _INT] + [_VOIDP] * 7 + [_INT] + [_VOIDP] * 2
             + [_INT] * 3 + [_INT] * 3 + [_VOIDP] + [_VOIDP] * 4),
+        # ... tau, home, up, table, R, I, T; idx, g, off, stream
         "laimr_routing_guard": (
-            [_VOIDP, _INT, _INT] + [_VOIDP] * 10 + [_INT] * 2
+            [_VOIDP, _INT, _INT] + [_VOIDP] * 10 + [_INT] * 3
             + [_VOIDP] * 4),
         "laimr_routing_topk": (
             [_VOIDP, _INT, _INT] + [_VOIDP] * 7 + [_INT] + [_VOIDP] * 2
             + [_INT] * 4 + [_FLOAT] + [_INT] * 3 + [_VOIDP]
             + [_VOIDP] * 4),
+        # ... slo_rs, sigma, avail, table, R, I, T, k, margin, the plan
+        # as routing_topk's; idx, g, ok, stream
         "laimr_routing_attain": (
             [_VOIDP, _INT, _INT] + [_VOIDP] * 7 + [_INT] + [_VOIDP] * 3
-            + [_INT] * 4 + [_FLOAT] + [_VOIDP] * 4),
+            + [_INT] * 4 + [_FLOAT] + [_INT] * 3 + [_VOIDP]
+            + [_VOIDP] * 4),
     },
     "attention": {
         # q, k, v, out, dtype, B, Sq, Skv, H, Hkv, D, scale, causal,

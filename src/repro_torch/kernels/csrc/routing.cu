@@ -7,8 +7,9 @@
 // routing_topk_kernel and routing_attain_kernel replace
 //   src/repro/kernels/routing_decide.py : routing_topk (_topk_kernel) and
 //   routing_attain (_attain_kernel).
-// routing_score_kernel and routing_topk_kernel share one body, whose note
-// is above it; routing_attain's note is above that kernel.
+// routing_score_kernel, routing_topk_kernel and routing_attain_kernel share
+// one body, whose note is above it; routing_guard's note is above that
+// kernel.
 //
 // What bounds them on an H100: bytes and launch latency. A window of R
 // decisions over I candidates reads R (or R*I) rates, seven f32 columns
@@ -22,24 +23,20 @@
 // about as long in instructions as the stream takes.
 //
 // Shared by all four kernels:
-//  * the (I, T) table is read through L1/L2 and never staged in shared
-//    memory: at I = 1024, T = 65 it is 266 KB, more than the 227 KB a
-//    block can hold, and a pair touches only two of its entries;
 //  * the TPU kernel's hat-function contraction over all T grid points is
 //    rewritten as the two entries that bracket rho: every other hat
 //    weight is exactly 0 and adding zeros is exact, so the two-term sum
 //    equals the full sum bit for bit;
-//  * routing_guard scores only each row's home column (and its upstream
-//    column when the guard fires), O(R) work where the TPU kernel scored
-//    all I candidates of every row: each g[r, i] is independent, so the
-//    outputs are the same.
+//  * routing_guard scores only each row's home and upstream columns, O(R)
+//    work where the TPU kernel scored all I candidates of every row: each
+//    g[r, i] is independent, so the outputs are the same.
 //
 // Arithmetic follows the TPU kernels: pow as exp(gamma * log(x)), float32
 // constants, no fused multiply-add (built with -fmad=false; the explicit
 // __f*_rn intrinsics pin the rounding of each step regardless), and the
-// accurate expf/logf (never --use_fast_math). Every kernel computes g with
-// the same pieces (proc_time, grid_pos, grid_j, grid_wait) in the same
-// order, so g is the same bits in all of them.
+// accurate expf/logf/erff (never --use_fast_math). Every kernel computes g
+// with the same pieces (proc_time, grid_pos, grid_j, grid_wait) in the
+// same order, so g is the same bits in all of them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,23 +46,25 @@ constexpr float kBig = 1e30f;       // argmin key mask (routing_score.py BIG)
 constexpr float kUnstable = 1e9f;   // router.BIG: unstable-pool sentinel
 constexpr float kNear = 1.00001f;   // float32(1 + 1e-5): the near band
 constexpr float kEps = 1e-9f;
-constexpr int kWarpsPerBlock = 8;   // routing_attain: one warp per row
-constexpr int kGuardThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNone = 0x7fffffff;   // "no column" in the argmin reductions
 constexpr int kMaxK = 8;            // routing_decide.K_MAX
 constexpr float kAttainBand = 1e-6f;
 constexpr float kSqrt2 = 1.41421356237309515f;  // float32(sqrt(2))
 
-// routing_score / routing_topk (routing_score.row_plan mirrors these)
+// the row kernels (routing_score.row_plan mirrors these)
 constexpr int kNarrowThreads = 256;   // a block of rows of I <= 32
 constexpr int kWideThreads = 512;     // a block of wider rows, a warp each
 constexpr int kTile = 1024;           // candidates whose columns are staged
 constexpr int kSmemMax = 227 * 1024;  // dynamic shared bytes a block may have
 constexpr int kBatch = 2;             // candidates a lane scores at once
 constexpr int kMaxDevices = 64;       // launch state kept per device
-// the staged column planes, tile floats each
-enum Plane { kAlpha, kBeta, kGamma, kN1, kNMu, kRtt, kSlo, kPlanes };
+
+// routing_guard (routing_decide.GUARD_STAGE_MAX mirrors kGuardStageMax)
+constexpr int kGuardThreads = 128;
+constexpr int kGuardRow = 8;          // (R, I) rate rows read whole up to I 8
+constexpr int kGuardStageMax = 32;    // candidates a block stages, at most
+constexpr int kGuardSmemMax = 48 * 1024;
 
 // ---- PTX: cp.async ---------------------------------------------------------
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -93,8 +92,7 @@ struct Cols {
 // as exp(gamma * log(x)); n1 = max(n, 1); alpha where lam <= 0. kSelect
 // computes the power whatever lam and selects, with no branch, so the
 // candidates of a batch interleave (the row kernels); otherwise it
-// branches (routing_guard, routing_attain). The operations, and so the
-// bits, are the same.
+// branches (routing_guard). The operations, and so the bits, are the same.
 template <bool kSelect>
 __device__ __forceinline__ float proc_time(float lam, float n1, float alpha,
                                            float beta, float gamma) {
@@ -133,23 +131,54 @@ __device__ __forceinline__ float grid_wait(float pos, int j, int t, float q0,
   return q;
 }
 
+// A float from shared memory (kShared) or, read-only, from device memory.
+template <bool kShared>
+__device__ __forceinline__ float ld(const float* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
 // Predicted latency g of candidate i at rate lam, and its rho, from the
-// columns in device memory (routing_guard, routing_attain).
+// columns and table in device memory, or staged in shared memory
+// (routing_guard).
+template <bool kShared>
 __device__ __forceinline__ float score(const Cols& c,
                                        const float* __restrict__ table,
                                        int t, int i, float lam, float* rho) {
-  const float n = __ldg(c.n + i);
+  const float n = ld<kShared>(c.n + i);
   const float proc =
-      proc_time<false>(lam, fmaxf(n, 1.0f), __ldg(c.alpha + i),
-                       __ldg(c.beta + i), __ldg(c.gamma + i));
-  const float r = __fdiv_rn(lam, fmaxf(__fmul_rn(n, __ldg(c.mu + i)), 1e-12f));
+      proc_time<false>(lam, fmaxf(n, 1.0f), ld<kShared>(c.alpha + i),
+                       ld<kShared>(c.beta + i), ld<kShared>(c.gamma + i));
+  const float r =
+      __fdiv_rn(lam, fmaxf(__fmul_rn(n, ld<kShared>(c.mu + i)), 1e-12f));
   const float pos = grid_pos(r, t);
   const int j = grid_j(pos, t);
   const float* row = table + static_cast<size_t>(i) * t;
-  const float q1 = j + 1 < t ? __ldg(row + j + 1) : 0.0f;
+  const float q1 = j + 1 < t ? ld<kShared>(row + j + 1) : 0.0f;
   *rho = r;
-  return __fadd_rn(__fadd_rn(proc, __ldg(c.rtt + i)),
-                   grid_wait(pos, j, t, __ldg(row + j), q1));
+  return __fadd_rn(__fadd_rn(proc, ld<kShared>(c.rtt + i)),
+                   grid_wait(pos, j, t, ld<kShared>(row + j), q1));
+}
+
+// Delivery-weighted SLO-attainment probability of one candidate:
+// avail * Phi((ln slo - ln g) / (sigma * sqrt2)), or avail * (g <= slo)
+// when sigma <= 0 (a step).
+__device__ __forceinline__ float attain_p(float g, float slo, float sigma,
+                                          float avail) {
+  float phi;
+  if (sigma > 0.0f) {
+    const float z = __fdiv_rn(
+        __fsub_rn(logf(fmaxf(slo, 1e-20f)), logf(fmaxf(g, 1e-20f))),
+        __fmul_rn(fmaxf(sigma, 1e-20f), kSqrt2));
+    phi = __fmul_rn(0.5f, __fadd_rn(1.0f, erff(fminf(fmaxf(z, -10.0f),
+                                                     10.0f))));
+  } else {
+    phi = g <= slo ? 1.0f : 0.0f;
+  }
+  return __fmul_rn(avail, phi);
 }
 
 // Argmin of (key, column) over each segment of `lanes` adjacent lanes (a
@@ -170,9 +199,31 @@ __device__ __forceinline__ void seg_argmin(float& key, int& col, float& g,
   }
 }
 
+// Argmax of p over each segment, ties to the lower g, then the lower
+// column: the lowest (g, column) among the columns that attain the max.
+__device__ __forceinline__ void seg_argmax_p(float& p, float& g, int& col,
+                                             int lanes) {
+  for (int off = lanes >> 1; off > 0; off >>= 1) {
+    const float op = __shfl_xor_sync(kFull, p, off, lanes);
+    const float og = __shfl_xor_sync(kFull, g, off, lanes);
+    const int oc = __shfl_xor_sync(kFull, col, off, lanes);
+    if (op > p || (op == p && (og < g || (og == g && oc < col)))) {
+      p = op;
+      g = og;
+      col = oc;
+    }
+  }
+}
+
 __device__ __forceinline__ float seg_min(float v, int lanes) {
   for (int off = lanes >> 1; off > 0; off >>= 1)
     v = fminf(v, __shfl_xor_sync(kFull, v, off, lanes));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
   return v;
 }
 
@@ -183,29 +234,21 @@ __device__ __forceinline__ bool seg_any(bool v, int lanes) {
   return x != 0;
 }
 
-__device__ __forceinline__ void warp_argmin(float& key, int& col, float& g) {
-  seg_argmin(key, col, g, 32);
-}
-
-__device__ __forceinline__ float warp_min(float v) { return seg_min(v, 32); }
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
 // ---------------------------------------------------------------------------
-// routing_score_kernel / routing_topk_kernel: route_best's decision, and
-// for routing_topk the k - 1 redundant-dispatch columns after it.
+// routing_score_kernel / routing_topk_kernel / routing_attain_kernel:
+// route_best's decision; for routing_topk the k - 1 redundant-dispatch
+// columns after it; for routing_attain (reliable) the attainment-argmax
+// primary and the same duplicates. One body, decide_rows, with a mode.
 //
 // What held the first design back (one warp per row, every pass
-// rescoring): at fleet scale it was 9.5x (score) and 17x (topk) its
-// byte bound, because each pass scored every pair again (2 passes for
-// score, 1 + k for topk), each score a chain of a rate load, arithmetic
-// and two dependent gathers walked one candidate at a time, and 7
-// column loads per pair repeated by every row; at I = 2..4, 28 of a
-// warp's 32 lanes idled.
+// rescoring): at fleet scale it was 9.5x (score), 17x (topk) and 14x
+// (attain) its byte bound, because each pass scored every pair again (2
+// passes for score, 1 + k for topk, 2 + (k - 1) for attain, whose first
+// two passes also evaluated the attainment probability, two logf, a
+// division and an erff, for every feasible pair), each score a chain of a
+// rate load, arithmetic and two dependent gathers walked one candidate at
+// a time, and 7 (attain 8) column loads per pair repeated by every row;
+// at I = 2..4, 28 of a warp's 32 lanes idled.
 //
 // What this design does:
 //  * lanes fit I. A row of I <= 32 candidates gets L lanes, the power of
@@ -218,41 +261,80 @@ __device__ __forceinline__ float warp_max(float v) {
 //    plan (routing_score.row_plan) is checked against I before launch;
 //  * each pair is scored once: pass 1 writes g to the row's cache, at the
 //    column's place, and a flag byte per group (bits 0-3 feasible, 4-7
-//    eligible for a duplicate); the near-band pass and each duplicate
-//    pass read only these, never the inputs. A lane reads back only what
-//    it wrote, so the cache needs no barrier. It lives in shared memory,
-//    or, where 16 rows of it do not fit there (I > 2944), in a device
-//    scratch that the wrapper keeps per device and stream;
+//    eligible for a duplicate); the primary's pass and each duplicate
+//    pass read only these, never the rows again. A lane reads back only
+//    what it wrote, so the cache needs no barrier (attain's wide rows
+//    excepted, below). It lives in shared memory, or, where 16 rows of it
+//    do not fit there (I > 2944; attain I > 1408), in a device scratch
+//    that the wrapper keeps per device and stream;
+//  * attain: pass 1 also evaluates each feasible pair's attainment
+//    probability p once, caches it beside g, and reduces the row's
+//    maximum with the lowest (g, column) that attains it. That pair is in
+//    the 1e-6 band, so pass 2 starts from it and reads p only for feasible
+//    pairs below it. Two things keep p's cost near the pairs that need
+//    it. In a warp of lanes that each held their own pairs, one feasible
+//    lane made the whole warp evaluate p, so in wide rows the row's 32
+//    lanes take a group's feasible pairs in turn, through a list of 128
+//    ints a row in shared memory (a __syncwarp on each side). And p =
+//    avail * Phi <= max(avail, 0), so a pair whose bound is below the
+//    row's running maximum less the band can be neither the maximum nor
+//    in the band: its p is not evaluated and caches as -BIG. p keeps
+//    attain_p's operations in their order, so every decision keeps the
+//    first design's bits. attain scores one candidate at a time (two
+//    spilled in the wide body);
 //  * duplicates come out in ascending (g, column) order over feasible &
 //    g <= slo - margin & column != primary: pass j takes the segment
 //    argmin above the (g, column) pair pass j - 1 chose, which is the
 //    stable ascending-g sort of the eligible set (ref._dup_order);
 //  * loads: the block stages the candidate columns in shared memory by
-//    cp.async, a tile of up to 1024 candidates at a time (once a launch
-//    when a row fits in one tile), and forms max(n, 1) and max(n mu,
-//    1e-12) there; cost, which only near-band candidates need, is read
-//    from device memory (staging it too made the fleet's block 4 KB
-//    larger and the kernel a third slower). A group's
-//    rates and SLOs load as one 16-byte vector each where the rows are
-//    aligned and I % 4 == 0 (scalar loads otherwise), and the table
-//    gathers of kBatch = 2 candidates start before their exp/log. Warps,
-//    not registers, hide the latency: two 512-thread blocks an SM hold 32
-//    warps at the 64 registers a thread this leaves;
+//    cp.async (attain: sigma and avail too), a tile of up to 1024
+//    candidates at a time (once a launch when a row fits in one tile),
+//    and forms max(n, 1) and max(n mu, 1e-12) there; cost, which only
+//    near-band candidates need, is read from device memory (staging it
+//    too made the fleet's block 4 KB larger and the kernel a third
+//    slower). A group's rates and SLOs load as one 16-byte vector each
+//    where the rows are aligned and I % 4 == 0 (scalar loads otherwise),
+//    and the table gathers of kBatch = 2 candidates start before their
+//    exp/log. Warps, not registers, hide the latency: two 512-thread
+//    blocks an SM hold 32 warps at the 64 registers a thread this leaves
+//    (attain's wide block, with p's cache, is 180,224 B at I 1024, one an
+//    SM; without the cache two fit and pass 2 re-evaluates p, which read
+//    4-10% faster at the fleet shape on an H100, but that body spilled);
 //  * blocks are persistent (no more than fit on the card at once) and
 //    walk row groups.
-// What bounds it now: instructions and latency, not bytes. A pair's two IEEE
-// divisions each sit in a slow-path region of their own that the
+// What bounds it now: instructions and latency, not bytes. A pair's two
+// IEEE divisions each sit in a slow-path region of their own that the
 // scheduler cannot cross, beside the accurate logf and expf and the
 // table's addressing; taking out the row loads, the table gathers or
-// exp/log each left most of the time in place.
+// exp/log each left most of the time in place. attain adds two logf, a
+// division and an erff for each pair whose p it evaluates, and its wide
+// body's one block an SM.
 // ---------------------------------------------------------------------------
 
-// One launch of routing_score_kernel / routing_topk_kernel.
+enum class Mode { kScore, kTopk, kAttain };
+
+// the staged column planes, tile floats each: the law's six columns (n
+// and mu as max(n, 1) and max(n mu, 1e-12)), a shared (I,) SLO row, and
+// for attain sigma and avail
+enum Plane { kAlpha, kBeta, kGamma, kN1, kNMu, kRtt, kSlo, kSigma, kAvail };
+
+__host__ __device__ constexpr int planes_of(Mode m) {
+  return m == Mode::kAttain ? 9 : 7;
+}
+
+// floats a row caches a column: g, and for attain p beside it
+__host__ __device__ constexpr int cache_floats(Mode m) {
+  return m == Mode::kAttain ? 2 : 1;
+}
+
+// One launch of a row kernel.
 struct Decide {
   const float* lam;       // (R,) shared rate: rs 1, cs 0; (R, I): rs I, cs 1
   int lam_rs, lam_cs;
   Cols c;
-  const float* cost;      // (I,)
+  const float* cost;      // (I,) score, topk
+  const float* sigma;     // (I,) attain
+  const float* avail;     // (I,) attain
   const float* slo;       // (I,) shared: rs 0; (R, I): rs I
   int slo_rs;
   const float* table;     // (I, T)
@@ -268,6 +350,16 @@ struct Decide {
   uint8_t* ok;            // (R,)
 };
 
+// What pass 1 folds over a lane's columns.
+struct RowAcc {
+  float gmin = kBig;       // feasible g minimum (score, topk)
+  float geff_min = kBig;   // g, the sentinel where rho >= 1 (topk, attain)
+  bool any = false;        // a feasible column
+  float pmax = -1.0f;      // attain: the feasible attainment maximum (-1
+  float gbest = kBig;      // when none) and the lowest (g, column) that
+  int cbest = kNone;       // attains it
+};
+
 // The row's column held in slot e of lane s's group q, G adjacent
 // candidates a group.
 template <int G>
@@ -277,6 +369,7 @@ __device__ __forceinline__ int slot_col(int q, int s, int e, int lanes) {
 
 // Stage candidates [base, base + tile) of the columns into the shared
 // planes; entries past I stay unset and are never used.
+template <Mode M>
 __device__ __forceinline__ void stage_columns(const Decide& a, float* sm,
                                               int tile, int base) {
   const int n = min(tile, a.I - base);
@@ -289,6 +382,10 @@ __device__ __forceinline__ void stage_columns(const Decide& a, float* sm,
     cp_async4(sm + kNMu * tile + x, a.c.mu + i);
     cp_async4(sm + kRtt * tile + x, a.c.rtt + i);
     if (a.slo_rs == 0) cp_async4(sm + kSlo * tile + x, a.slo + i);
+    if constexpr (M == Mode::kAttain) {
+      cp_async4(sm + kSigma * tile + x, a.sigma + i);
+      cp_async4(sm + kAvail * tile + x, a.avail + i);
+    }
   }
   cp_async_wait_all();
   // the column-only parts of the law, once per candidate, by the thread
@@ -345,14 +442,15 @@ __device__ __forceinline__ void row_vals(const float* row, int vec, int x,
 
 // Score the H candidates from column x on (tile-local column xl; rates
 // lam, SLOs slo): write g to the cache, set their flag bits from bit e
-// (feasible) and e + 4 (eligible), and fold the row's reductions
-// (feasible g minimum, any feasible, and for topk the minimum of g with
-// the sentinel where rho >= 1, over every column).
-template <int H, bool TOPK>
+// (feasible) and e + 4 (eligible), and fold the row's reductions into
+// acc: the feasible g minimum and any feasible (every mode), the minimum
+// of g with the sentinel where rho >= 1 over every column (topk, attain),
+// and each feasible pair's attainment probability (attain).
+template <int H, Mode M, bool kSlotP>
 __device__ __forceinline__ void score_slots(
     const Decide& a, const float* sm, int tile, int x, int xl, int e,
     const float (&lam)[H], const float (&slo)[H], float* cache,
-    unsigned& bits, float& gmin, float& geff_min, bool& any) {
+    float* pcache, unsigned& bits, RowAcc& acc) {
   bool valid[H];
   float nmu[H], rho[H], pos[H], q0[H], q1[H];
   int j[H];
@@ -381,13 +479,13 @@ __device__ __forceinline__ void score_slots(
                      grid_wait(pos[u], j[u], a.T, q0[u], q1[u]));
     const bool f = valid[u] && rho[u] < 1.0f && g[u] <= slo[u];
     if (f) {
-      gmin = fminf(gmin, g[u]);
-      any = true;
+      acc.gmin = fminf(acc.gmin, g[u]);
+      acc.any = true;
       bits |= 1u << (e + u);
     }
-    if constexpr (TOPK) {
+    if constexpr (M != Mode::kScore) {
       if (valid[u])
-        geff_min = fminf(geff_min, rho[u] < 1.0f ? g[u] : kUnstable);
+        acc.geff_min = fminf(acc.geff_min, rho[u] < 1.0f ? g[u] : kUnstable);
       if (f && g[u] <= __fsub_rn(slo[u], a.margin)) bits |= 16u << (e + u);
     }
   }
@@ -397,17 +495,38 @@ __device__ __forceinline__ void score_slots(
 #pragma unroll
     for (int u = 0; u < H; ++u) cache[x + u] = g[u];
   }
+  if constexpr (kSlotP) {
+    // after the batch's g, so that its gathers' state is dead; the lane's
+    // columns come in ascending order, so ties keep the first
+#pragma unroll
+    for (int u = 0; u < H; ++u) {
+      if ((bits >> (e + u)) & 1u) {
+        const float p = attain_p(g[u], slo[u], sm[kSigma * tile + xl + u],
+                                 sm[kAvail * tile + xl + u]);
+        pcache[x + u] = p;
+        if (p > acc.pmax || (p == acc.pmax && g[u] < acc.gbest)) {
+          acc.pmax = p;
+          acc.gbest = g[u];
+          acc.cbest = x + u;
+        }
+      }
+    }
+  }
 }
 
 // Pass 1 for group q of lane s, whose columns are staged in the tile from
 // column base on: load its rates and SLOs, score it kBatch candidates at
 // a time, and write its flag byte.
-template <int G, bool TOPK>
+template <int G, Mode M>
 __device__ __forceinline__ void score_group(
     const Decide& a, const float* sm, int tile, int base, int q, int s,
     const float* lam_row, const float* slo_row, float lam_one, float* cache,
-    uint8_t* flags, float& gmin, float& geff_min, bool& any) {
-  constexpr int H = G < kBatch ? G : kBatch;
+    float* pcache, uint8_t* flags, RowAcc& acc) {
+  // attain scores one candidate at a time (two spilled in the wide body)
+  constexpr int H = M == Mode::kAttain ? 1 : (G < kBatch ? G : kBatch);
+  // attain: a lane evaluates p for its own feasible columns in narrow rows;
+  // wide rows share the group's among the row's lanes (attain_group)
+  constexpr bool kSlotP = M == Mode::kAttain && G == 1;
   const int x = slot_col<G>(q, s, 0, a.lanes);
   float lam[G], slo[G];
   if (a.lam_cs == 0) {
@@ -430,15 +549,15 @@ __device__ __forceinline__ void score_group(
       lh[u] = lam[h + u];
       sh[u] = slo[h + u];
     }
-    score_slots<H, TOPK>(a, sm, tile, x + h, x + h - base, h, lh, sh, cache,
-                         bits, gmin, geff_min, any);
+    score_slots<H, M, kSlotP>(a, sm, tile, x + h, x + h - base, h, lh, sh,
+                              cache, pcache, bits, acc);
   }
   flags[q * a.lanes + s] = static_cast<uint8_t>(bits);
 }
 
-// Pass 2 over the lane's cache: the cheapest candidate inside the near
-// band, lowest column on ties; every other column keys at BIG, so a row
-// with nothing near yields its lowest column.
+// Pass 2 of score / topk over the lane's cache: the cheapest candidate
+// inside the near band, lowest column on ties; every other column keys at
+// BIG, so a row with nothing near yields its lowest column.
 template <int G>
 __device__ __forceinline__ void primary_pass(const Decide& a, int s,
                                              int groups, const float* cache,
@@ -462,6 +581,93 @@ __device__ __forceinline__ void primary_pass(const Decide& a, int s,
           col = i;
           g = v[e];
         }
+      }
+    }
+  }
+}
+
+// Attain, wide rows, right after pass 1 of group q (whose columns are in
+// the staged tile from column base on): each feasible pair's p, cached
+// beside its g and folded into acc, but only where it can reach the band:
+// p = avail * Phi <= max(avail, 0), so a pair whose bound is below the
+// row's running maximum less the band (cut) is neither the maximum nor in
+// the band, and its p is not evaluated (cached as -BIG). The row's 32
+// lanes take the remaining pairs in turn, through the row's list in
+// shared memory in ascending column order, so a warp evaluates p about as
+// often as pairs need it, not whenever one of its lanes holds one.
+__device__ __forceinline__ void attain_group(
+    const Decide& a, const float* sm, int tile, int base, int q, int s,
+    const float* slo_row, const float* cache, float* pcache,
+    const uint8_t* flags, int* list, float cut, RowAcc& acc) {
+  const unsigned feas = flags[q * 32 + s] & 15u;
+  const int x = slot_col<4>(q, s, 0, 32);
+  unsigned m = 0u;   // the lane's pairs that need p
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if ((feas >> e) & 1u) {
+      if (fmaxf(sm[kAvail * tile + x + e - base], 0.0f) >= cut)
+        m |= 1u << e;
+      else
+        pcache[x + e] = -kBig;
+    }
+  }
+  const int cnt = __popc(m);
+  int pre = cnt;   // inclusive prefix of the counts over the row's lanes
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(kFull, pre, off);
+    if (s >= off) pre += o;
+  }
+  const int total = __shfl_sync(kFull, pre, 31);
+  pre -= cnt;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if ((m >> e) & 1u) list[pre++] = x + e;
+  __syncwarp();   // the list, and the g other lanes cached
+  for (int t = s; t < total; t += 32) {
+    const int i = list[t];
+    const int xl = i - base;
+    const float g = cache[i];
+    const float slo =
+        a.slo_rs == 0 ? sm[kSlo * tile + xl] : __ldg(slo_row + i);
+    const float p =
+        attain_p(g, slo, sm[kSigma * tile + xl], sm[kAvail * tile + xl]);
+    pcache[i] = p;
+    // a lane's columns come in ascending order: ties keep the first
+    if (p > acc.pmax || (p == acc.pmax && g < acc.gbest)) {
+      acc.pmax = p;
+      acc.gbest = g;
+      acc.cbest = i;
+    }
+  }
+  __syncwarp();   // the list is the next group's
+}
+
+// Pass 2 of attain over the lane's cache: the lowest (g, column) among
+// the feasible columns whose p is at least floor_p, starting from (key,
+// col), the lowest pair that attains pmax, so only feasible columns below
+// it read their p.
+template <int G>
+__device__ __forceinline__ void attain_pass(const Decide& a, int s,
+                                            int groups, const float* cache,
+                                            const float* pcache,
+                                            const uint8_t* flags,
+                                            float floor_p, float& key,
+                                            int& col) {
+#pragma unroll 1
+  for (int q = 0; q < groups; ++q) {
+    const unsigned feas = flags[q * a.lanes + s] & 15u;
+    if (feas == 0u) continue;
+    const int x = slot_col<G>(q, s, 0, a.lanes);
+    float v[G];
+    run_vals<G>(cache + x, v);
+#pragma unroll
+    for (int e = 0; e < G; ++e) {
+      const int i = x + e;
+      if (((feas >> e) & 1u) && (v[e] < key || (v[e] == key && i < col)) &&
+          pcache[i] >= floor_p) {
+        key = v[e];
+        col = i;
       }
     }
   }
@@ -497,7 +703,7 @@ __device__ __forceinline__ void dup_pass(int s, int lanes, int groups,
 
 // G = 1: rows of I <= 32, a candidate a lane; G = 4: wider rows, a warp a
 // row, groups of four adjacent candidates a lane.
-template <int G, bool TOPK>
+template <int G, Mode M>
 __device__ __forceinline__ void decide_rows(const Decide& a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -511,14 +717,21 @@ __device__ __forceinline__ void decide_rows(const Decide& a) {
   const int per_tile = tile / (lanes * G);       // groups a tile
   const int tiles = (groups + per_tile - 1) / per_tile;
   const int flag_len = groups * lanes;           // flag bytes a row
-  // the row's cache and flags: after the planes in shared memory, or a
-  // slot per resident row of the scratch (g of every slot, then the flags
-  // of every slot), set in the row loop (hoisted, the fleet shape ran 8%
-  // slower); narrow rows always fit
-  float* cache = sm + kPlanes * tile + w * len;
-  uint8_t* flags = reinterpret_cast<uint8_t*>(sm + kPlanes * tile +
-                                              a.rows * len) + w * flag_len;
-  if (tiles == 1) stage_columns(a, sm, tile, 0);
+  const int planes = planes_of(M) * tile;        // staged floats
+  const int clen = len * cache_floats(M);        // a row's cached floats
+  // attain's wide rows: a group's feasible columns (attain_group)
+  constexpr bool kList = M == Mode::kAttain && G == 4;
+  const int list_len = kList ? lanes * G : 0;
+  int* list = reinterpret_cast<int*>(sm + planes) + w * list_len;
+  // the row's cache (g, then attain's p) and flags: after the planes and
+  // lists in shared memory, or a slot per resident row of the scratch (the
+  // caches of every slot, then the flags of every slot), set in the row
+  // loop (hoisted, the fleet shape ran 8% slower); narrow rows always fit
+  float* rows_sm = sm + planes + a.rows * list_len;
+  float* cache = rows_sm + w * clen;
+  uint8_t* flags = reinterpret_cast<uint8_t*>(rows_sm + a.rows * clen) +
+                   w * flag_len;
+  if (tiles == 1) stage_columns<M>(a, sm, tile, 0);
 
   for (int r0 = blockIdx.x * a.rows; r0 < a.R; r0 += gridDim.x * a.rows) {
     const int r = r0 + w;
@@ -526,8 +739,8 @@ __device__ __forceinline__ void decide_rows(const Decide& a) {
     if (G == 4 && a.scratch != nullptr) {
       const size_t slots = static_cast<size_t>(gridDim.x) * a.rows;
       const size_t slot = static_cast<size_t>(blockIdx.x) * a.rows + w;
-      cache = a.scratch + slot * len;
-      flags = reinterpret_cast<uint8_t*>(a.scratch + slots * len) +
+      cache = a.scratch + slot * clen;
+      flags = reinterpret_cast<uint8_t*>(a.scratch + slots * clen) +
               slot * flag_len;
     }
     const float* lam_row = a.lam + static_cast<size_t>(rl) * a.lam_rs;
@@ -535,30 +748,53 @@ __device__ __forceinline__ void decide_rows(const Decide& a) {
     const float lam_one = a.lam_cs == 0 ? __ldg(lam_row) : 0.0f;
 
     // pass 1: score once into the cache
-    float gmin = kBig, geff_min = kBig;
-    bool any = false;
+    RowAcc acc;
+    float row_pmax = -1.0f;   // attain, wide rows: the maximum so far
     for (int t = 0; t < tiles; ++t) {
       if (tiles > 1) {
         __syncthreads();   // every warp is done with the previous tile
-        stage_columns(a, sm, tile, t * tile);
+        stage_columns<M>(a, sm, tile, t * tile);
       }
       const int end = min(groups, (t + 1) * per_tile);
 #pragma unroll 1
-      for (int q = t * per_tile; q < end; ++q)
-        score_group<G, TOPK>(a, sm, tile, t * tile, q, s, lam_row, slo_row,
-                             lam_one, cache, flags, gmin, geff_min, any);
+      for (int q = t * per_tile; q < end; ++q) {
+        score_group<G, M>(a, sm, tile, t * tile, q, s, lam_row, slo_row,
+                          lam_one, cache, cache + len, flags, acc);
+        if constexpr (kList) {
+          attain_group(a, sm, tile, t * tile, q, s, slo_row, cache,
+                       cache + len, flags, list,
+                       __fsub_rn(row_pmax, kAttainBand), acc);
+          row_pmax = warp_max(acc.pmax);
+        }
+      }
     }
-    gmin = seg_min(gmin, lanes);
-    any = seg_any(any, lanes);
-    const float edge = __fadd_rn(__fmul_rn(gmin, kNear), kEps);
+    const bool any = seg_any(acc.any, lanes);
 
-    // pass 2: route_best's primary from the cache
+    // pass 2: the primary from the cache
     float key = kBig, g = 0.0f;
     int col = kNone;
-    primary_pass<G>(a, s, groups, cache, flags, edge, key, col, g);
-    seg_argmin(key, col, g, lanes);
+    if constexpr (M == Mode::kAttain) {
+      seg_argmax_p(acc.pmax, acc.gbest, acc.cbest, lanes);
+      key = acc.gbest;
+      col = acc.cbest;
+      if (any)
+        attain_pass<G>(a, s, groups, cache, cache + len, flags,
+                       __fsub_rn(acc.pmax, kAttainBand), key, col);
+      g = key;
+      seg_argmin(key, col, g, lanes);
+      // nothing in the band (only where p < -1): the lowest column
+      if (col == kNone) {
+        col = 0;
+        if (s == 0) g = cache[0];
+      }
+    } else {
+      const float gmin = seg_min(acc.gmin, lanes);
+      const float edge = __fadd_rn(__fmul_rn(gmin, kNear), kEps);
+      primary_pass<G>(a, s, groups, cache, flags, edge, key, col, g);
+      seg_argmin(key, col, g, lanes);
+    }
     const bool out = s == 0 && r < a.R;
-    if constexpr (!TOPK) {
+    if constexpr (M == Mode::kScore) {
       if (out) {
         a.idx[r] = col;
         a.g[r] = g;
@@ -568,7 +804,7 @@ __device__ __forceinline__ void decide_rows(const Decide& a) {
       // column 0: the primary and its g on a feasible row, -1 and the
       // row's g_eff minimum otherwise; then the duplicates, -1 and g 0
       // where none is left
-      geff_min = seg_min(geff_min, lanes);
+      const float geff_min = seg_min(acc.geff_min, lanes);
       int32_t* idx_row = a.idx + static_cast<size_t>(r) * a.k;
       float* g_row = a.g + static_cast<size_t>(r) * a.k;
       if (out) {
@@ -605,228 +841,156 @@ __device__ __forceinline__ void decide_rows(const Decide& a) {
 template <int G>
 __global__ void __launch_bounds__(kWideThreads, 2)
     routing_score_kernel(const Decide a) {
-  decide_rows<G, false>(a);
+  decide_rows<G, Mode::kScore>(a);
 }
 
-// One thread per request row: score home, apply the Algorithm-1 guard,
-// score upstream only when the guard fires.
-__global__ void routing_guard_kernel(
-    const float* __restrict__ lam, int lam_rs, int lam_cs, Cols c,
-    const float* __restrict__ tau, const int32_t* __restrict__ home,
-    const int32_t* __restrict__ up, const float* __restrict__ table,
-    int R, int T, int32_t* __restrict__ idx_out, float* __restrict__ g_out,
-    uint8_t* __restrict__ off_out) {
+// ---------------------------------------------------------------------------
+// routing_guard_kernel: Algorithm 1's guard, one thread per request row:
+// score home, strip its RTT (except from the 1e9 sentinel), offload to
+// the upstream column when the rest exceeds tau.
+//
+// What held the first design back: its time was a chain of dependent
+// global round trips, not bytes. A row loaded home, then its rate and six
+// columns at home, then rho and the two table entries, and where the
+// guard fired the same chain again for the upstream column: three round
+// trips on a held row, five on an offloaded one, so R 4096 cost about
+// what R 256 did.
+//
+// What this design does:
+//  * a row's loads go out together: home, up, tau and its rates; an (R,
+//    I) rate row of I <= 8 is read whole (16-byte vectors where aligned)
+//    and the home and upstream rates are selected in registers;
+//  * where the block can hold them (I <= 32 and I (T + 6) floats within
+//    48 KB; 9,088 bytes at T 65 and I 32), the (I, T) table and the six
+//    columns are staged in shared memory by cp.async while the row loads
+//    are in flight, so the column reads and the table gathers are
+//    shared-memory reads; wider candidate sets read them from device
+//    memory;
+//  * the upstream column is scored in the same instruction stream as
+//    home, its loads in flight beside home's, and selected afterwards
+//    (score() is deterministic, so the selected g is the same bits); a
+//    row at the top tier (up = -1) scores home twice and reads nothing
+//    at -1.
+// What bounds it now: the launch itself. On an H100 at the main path's
+// R 256 it reads about a microsecond above a one-element fill_ timed the
+// same way, as the first design did: one global round trip (two where
+// the columns are not staged, three at I > 8) and the block's start and
+// end.
+// ---------------------------------------------------------------------------
+
+// One launch of routing_guard_kernel.
+struct Guard {
+  const float* lam;      // (R,) shared rate: rs 1, cs 0; (R, I): rs I, cs 1
+  int lam_rs, lam_cs;
+  Cols c;
+  const float* tau;      // (R,)
+  const int32_t* home;   // (R,)
+  const int32_t* up;     // (R,), -1 at the top tier
+  const float* table;    // (I, T)
+  int R, I, T;
+  int lam_vec;           // an (R, I) row of I <= kGuardRow loads as float4
+  int32_t* idx;
+  float* g;
+  uint8_t* off;
+};
+
+// v[h] for h in [0, kGuardRow), by selects: v stays in registers.
+__device__ __forceinline__ float pick(const float (&v)[kGuardRow], int h) {
+  float out = v[0];
+#pragma unroll
+  for (int x = 1; x < kGuardRow; ++x) out = h == x ? v[x] : out;
+  return out;
+}
+
+// kStaged: the block stages the table (I * T floats) and then the six
+// columns (I floats each) in shared memory.
+template <bool kStaged>
+__global__ void __launch_bounds__(kGuardThreads)
+    routing_guard_kernel(const Guard a) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const int h = __ldg(home + r);
-  const int u = __ldg(up + r);
-  const float* lam_row = lam + static_cast<size_t>(r) * lam_rs;
-  float rho;
-  float g_home = score(c, table, T, h,
-                       __ldg(lam_row + static_cast<size_t>(h) * lam_cs), &rho);
-  if (!(rho < 1.0f)) g_home = kUnstable;
+  const int rl = min(r, a.R - 1);  // threads past R load row R - 1
+  const int h = __ldg(a.home + rl);
+  const int u = __ldg(a.up + rl);
+  const float tau = __ldg(a.tau + rl);
+  const int uu = u >= 0 ? u : h;   // the upstream column scored
+  const float* lam_row = a.lam + static_cast<size_t>(rl) * a.lam_rs;
+  float lam_h, lam_u;
+  if (a.lam_cs == 0) {
+    lam_h = lam_u = __ldg(lam_row);
+  } else if (a.I <= kGuardRow) {
+    float v[kGuardRow];
+    if (a.lam_vec) {
+      const float4 q0 = __ldg(reinterpret_cast<const float4*>(lam_row));
+      const float4 q1 = a.I > 4
+          ? __ldg(reinterpret_cast<const float4*>(lam_row) + 1)
+          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v[0] = q0.x; v[1] = q0.y; v[2] = q0.z; v[3] = q0.w;
+      v[4] = q1.x; v[5] = q1.y; v[6] = q1.z; v[7] = q1.w;
+    } else {
+#pragma unroll
+      for (int x = 0; x < kGuardRow; ++x)
+        v[x] = x < a.I ? __ldg(lam_row + x) : 0.0f;
+    }
+    lam_h = pick(v, h);
+    lam_u = pick(v, uu);
+  } else {
+    lam_h = __ldg(lam_row + h);
+    lam_u = __ldg(lam_row + uu);
+  }
+  Cols c = a.c;
+  const float* table = a.table;
+  if constexpr (kStaged) {
+    const int cells = a.I * a.T;
+    for (int x = threadIdx.x; x < cells; x += blockDim.x)
+      cp_async4(sm + x, a.table + x);
+    float* cs = sm + cells;
+    for (int x = threadIdx.x; x < a.I; x += blockDim.x) {
+      cp_async4(cs + 0 * a.I + x, a.c.alpha + x);
+      cp_async4(cs + 1 * a.I + x, a.c.beta + x);
+      cp_async4(cs + 2 * a.I + x, a.c.gamma + x);
+      cp_async4(cs + 3 * a.I + x, a.c.mu + x);
+      cp_async4(cs + 4 * a.I + x, a.c.n + x);
+      cp_async4(cs + 5 * a.I + x, a.c.rtt + x);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    c = Cols{cs, cs + a.I, cs + 2 * a.I, cs + 3 * a.I, cs + 4 * a.I,
+             cs + 5 * a.I};
+    table = sm;
+  }
+  if (r >= a.R) return;
+  float rho_h, rho_u;
+  float g_home = score<kStaged>(c, table, a.T, h, lam_h, &rho_h);
+  float g_up = score<kStaged>(c, table, a.T, uu, lam_u, &rho_u);
+  if (!(rho_h < 1.0f)) g_home = kUnstable;
+  if (!(rho_u < 1.0f)) g_up = kUnstable;
   // controllable latency: strip the home RTT except from the sentinel,
   // which must stay above any tau
-  const float g_inst = g_home < kUnstable
-                           ? __fsub_rn(g_home, __ldg(c.rtt + h)) : g_home;
-  const bool off = g_inst > __ldg(tau + r) && u >= 0;
-  float g_sel = g_home;
-  if (off) {
-    g_sel = score(c, table, T, u,
-                  __ldg(lam_row + static_cast<size_t>(u) * lam_cs), &rho);
-    if (!(rho < 1.0f)) g_sel = kUnstable;
-  }
-  idx_out[r] = off ? u : h;
-  g_out[r] = g_sel;
-  off_out[r] = off ? 1 : 0;
+  const float g_inst =
+      g_home < kUnstable ? __fsub_rn(g_home, ld<kStaged>(c.rtt + h)) : g_home;
+  const bool off = g_inst > tau && u >= 0;
+  a.idx[r] = off ? u : h;
+  a.g[r] = off ? g_up : g_home;
+  a.off[r] = off ? 1 : 0;
 }
 
 template <int G>
 __global__ void __launch_bounds__(kWideThreads, 2)
     routing_topk_kernel(const Decide a) {
-  decide_rows<G, true>(a);
+  decide_rows<G, Mode::kTopk>(a);
 }
 
-// ---------------------------------------------------------------------------
-// routing_attain_kernel: a primary plus k - 1 redundant-dispatch columns
-// per request row (reliable), in the first design: one warp per row.
-//
-// What bounds it on an H100: the same bytes and launch latency as
-// routing_score. A window reads the (R, I) rates and SLO rows, eight f32
-// columns of I entries, two Erlang-table entries per (request,
-// candidate), and writes 8k + 1 bytes per request. Scoring a pair is ~30
-// flops plus one logf and one expf; attain adds two logf and one erff
-// (~25 more flops) per pair. At the main path's I = 2..4 and k = 2 a
-// launch is launch latency around a few KB; at fleet scale (R = 4096,
-// I = 1024) the rows are an L2-resident stream rescored once per pass.
-//
-// What the design does about it:
-//  * one warp per request row, lanes striding over the candidates: pass 1
-//    reduces the feasible attainment maximum, the feasible flag, and the
-//    row minimum of g with the 1e9 sentinel where rho >= 1 (column 0 of
-//    an infeasible row, taken over every column, lane-excluded ones
-//    included); pass 2 takes the primary with the warp argmin;
-//  * each duplicate column is one more warp argmin over the eligible set
-//    (feasible, g <= slo - margin, not the primary). Duplicates come out
-//    in ascending (g, column) order, so pass j only has to look above
-//    the (g, column) pair pass j - 1 chose: no list of chosen columns,
-//    no shared memory, and the result is the stable ascending-g sort of
-//    the eligible set that the TPU kernel's masked argmin produces;
-//  * each pass rescores the row instead of keeping g: score() is
-//    deterministic, so every pass sees the same bits. k is capped at
-//    kMaxK passes. (routing_score / routing_topk above keep g instead.)
-// The Pallas kernels built the whole (block, I) score matrix in VMEM and
-// one-hot-gathered from it; nothing of that layout carries over.
-// ---------------------------------------------------------------------------
-
-// Delivery-weighted SLO-attainment probability of one candidate:
-// avail * Phi((ln slo - ln g) / (sigma * sqrt2)), or avail * (g <= slo)
-// when sigma <= 0 (a step).
-__device__ __forceinline__ float attain_p(float g, float slo, float sigma,
-                                          float avail) {
-  float phi;
-  if (sigma > 0.0f) {
-    const float z = __fdiv_rn(
-        __fsub_rn(logf(fmaxf(slo, 1e-20f)), logf(fmaxf(g, 1e-20f))),
-        __fmul_rn(fmaxf(sigma, 1e-20f), kSqrt2));
-    phi = __fmul_rn(0.5f, __fadd_rn(1.0f, erff(fminf(fmaxf(z, -10.0f),
-                                                     10.0f))));
-  } else {
-    phi = g <= slo ? 1.0f : 0.0f;
-  }
-  return __fmul_rn(avail, phi);
+template <int G>
+__global__ void __launch_bounds__(kWideThreads, 2)
+    routing_attain_kernel(const Decide a) {
+  decide_rows<G, Mode::kAttain>(a);
 }
 
-// One request row's rates (stride lam_cs between candidates: 0 for a
-// shared rate) and SLO row.
-struct RowIn {
-  const float* lam;
-  int lam_cs;
-  const float* slo;
-};
-
-__device__ __forceinline__ RowIn row_in(const float* lam, int lam_rs,
-                                        int lam_cs, const float* slo,
-                                        int slo_rs, int r) {
-  return RowIn{lam + static_cast<size_t>(r) * lam_rs, lam_cs,
-               slo + static_cast<size_t>(r) * slo_rs};
-}
-
-__device__ __forceinline__ float score_at(const Cols& c, const float* table,
-                                          int T, const RowIn& in, int i,
-                                          float* rho) {
-  return score(c, table, T, i,
-               __ldg(in.lam + static_cast<size_t>(i) * in.lam_cs), rho);
-}
-
-// Columns 1..k-1 of one row and its column 0: duplicates in ascending
-// (g, column) order over feasible & g <= slo - margin & column !=
-// primary; -1 and g 0 where none is left. Column 0 holds the primary
-// and its g on a feasible row, -1 and the row's g_eff minimum otherwise.
-__device__ __forceinline__ void finish_row(
-    const Cols& c, const float* table, int T, int I, const RowIn& in,
-    float margin, int k, int lane, bool any, int primary, float g_primary,
-    float geff_min, int32_t* idx_row, float* g_row) {
-  if (lane == 0) {
-    idx_row[0] = any ? primary : -1;
-    g_row[0] = any ? g_primary : geff_min;
-  }
-  float last_g = -kBig;   // the (g, column) pair the previous pass chose
-  int last_i = -1;
-  bool left = any;        // an infeasible row has no eligible column
-  for (int j = 1; j < k; ++j) {
-    float best_key = kBig;
-    int best_i = kNone;
-    float best_g = 0.0f;
-    if (left) {
-      for (int i = lane; i < I; i += 32) {
-        float rho;
-        const float g = score_at(c, table, T, in, i, &rho);
-        const float slo = __ldg(in.slo + i);
-        const bool elig = rho < 1.0f && g <= slo &&
-                          g <= __fsub_rn(slo, margin) && i != primary &&
-                          (g > last_g || (g == last_g && i > last_i));
-        if (elig && (g < best_key || (g == best_key && i < best_i))) {
-          best_key = g;
-          best_i = i;
-          best_g = g;
-        }
-      }
-      warp_argmin(best_key, best_i, best_g);
-    }
-    const bool has = best_i != kNone;
-    if (lane == 0) {
-      idx_row[j] = has ? best_i : -1;
-      g_row[j] = has ? best_g : 0.0f;
-    }
-    left = has;
-    last_g = best_g;
-    last_i = best_i;
-  }
-}
-
-// One warp per request row: attainment-argmax primary + k - 1 duplicates.
-__global__ void routing_attain_kernel(
-    const float* __restrict__ lam, int lam_rs, int lam_cs, Cols c,
-    const float* __restrict__ slo, int slo_rs,
-    const float* __restrict__ sigma, const float* __restrict__ avail,
-    const float* __restrict__ table, int R, int I, int T, int k,
-    float margin, int32_t* __restrict__ idx_out, float* __restrict__ g_out,
-    uint8_t* __restrict__ ok_out) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (r >= R) return;
-  const RowIn in = row_in(lam, lam_rs, lam_cs, slo, slo_rs, r);
-
-  // pass 1: feasible attainment maximum (-1 when nothing is feasible),
-  // any, row minimum of g_eff
-  float pmax = -1.0f;
-  float geff_min = kBig;
-  bool any = false;
-  for (int i = lane; i < I; i += 32) {
-    float rho;
-    const float g = score_at(c, table, T, in, i, &rho);
-    const float s = __ldg(in.slo + i);
-    geff_min = fminf(geff_min, rho < 1.0f ? g : kUnstable);
-    if (rho < 1.0f && g <= s) {
-      pmax = fmaxf(pmax, attain_p(g, s, __ldg(sigma + i), __ldg(avail + i)));
-      any = true;
-    }
-  }
-  pmax = warp_max(pmax);
-  geff_min = warp_min(geff_min);
-  any = __any_sync(kFull, any);
-  const float floor_p = __fsub_rn(pmax, kAttainBand);
-
-  // pass 2: lowest g inside the attainment band, lowest index on ties
-  float best_key = kBig;
-  int best_i = kNone;
-  float best_g = 0.0f;
-  for (int i = lane; i < I; i += 32) {
-    float rho;
-    const float g = score_at(c, table, T, in, i, &rho);
-    const float s = __ldg(in.slo + i);
-    const bool nearp =
-        rho < 1.0f && g <= s &&
-        attain_p(g, s, __ldg(sigma + i), __ldg(avail + i)) >= floor_p;
-    const float key = nearp ? g : kBig;
-    if (key < best_key || (key == best_key && i < best_i)) {
-      best_key = key;
-      best_i = i;
-      best_g = g;
-    }
-  }
-  warp_argmin(best_key, best_i, best_g);
-  finish_row(c, table, T, I, in, margin, k, lane, any, best_i, best_g,
-             geff_min, idx_out + static_cast<size_t>(r) * k,
-             g_out + static_cast<size_t>(r) * k);
-  if (lane == 0) ok_out[r] = any ? 1 : 0;
-}
-
-// What one body of routing_score_kernel / routing_topk_kernel holds on a
-// device: the dynamic shared bytes it is opted in to, and the blocks an
-// SM holds at the shared bytes of its last launch. Kept per process and
-// device.
+// What one row-kernel body holds on a device: the dynamic shared bytes it
+// is opted in to, and the blocks an SM holds at the shared bytes of its
+// last launch. Kept per process and device.
 struct BodyState {
   int opt_in = 48 * 1024;   // the default limit needs no opt-in
   int smem = -1;
@@ -836,10 +1000,12 @@ struct BodyState {
 
 // Launch one body: no more blocks than fit on the card at once (each
 // walks row groups).
-template <int G, bool TOPK>
+template <int G, Mode M>
 int launch_rows(const Decide& a, int smem, cudaStream_t stream) {
   void (*kernel)(const Decide) =
-      TOPK ? routing_topk_kernel<G> : routing_score_kernel<G>;
+      M == Mode::kScore  ? routing_score_kernel<G>
+      : M == Mode::kTopk ? routing_topk_kernel<G>
+                         : routing_attain_kernel<G>;
   static BodyState state[kMaxDevices];
   int dev = 0;
   int rc = static_cast<int>(cudaGetDevice(&dev));
@@ -875,8 +1041,9 @@ int launch_rows(const Decide& a, int smem, cudaStream_t stream) {
 
 // Check the wrapper's plan (routing_score.row_plan: lanes, rows per
 // block, shared bytes, and a scratch exactly when the cache is not in
-// shared memory) against I, then launch the body it names.
-template <bool TOPK>
+// shared memory) against I and the mode's planes, then launch the body it
+// names.
+template <Mode M>
 int launch_plan(Decide a, int smem, cudaStream_t stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   const bool wide = a.I > 32;
@@ -886,8 +1053,10 @@ int launch_plan(Decide a, int smem, cudaStream_t stream) {
   a.groups = wide ? (a.I + 127) / 128 : 1;
   const int len = a.groups * lanes * group;
   const int tile = len < kTile ? len : kTile;
-  const int planes = kPlanes * tile * 4;
-  const int cache = a.rows * (len * 4 + a.groups * lanes);
+  const int list = M == Mode::kAttain && wide ? a.rows * lanes * group * 4
+                                              : 0;
+  const int planes = planes_of(M) * tile * 4 + list;
+  const int cache = a.rows * (len * 4 * cache_floats(M) + a.groups * lanes);
   const bool shared = planes + cache <= kSmemMax;
   if (a.lanes != lanes ||
       a.rows * lanes != (wide ? kWideThreads : kNarrowThreads) ||
@@ -898,17 +1067,35 @@ int launch_plan(Decide a, int smem, cudaStream_t stream) {
               (reinterpret_cast<uintptr_t>(a.lam) & 15) == 0;
   a.slo_vec = a.slo_rs != 0 && a.I % 4 == 0 && a.slo_rs % 4 == 0 &&
               (reinterpret_cast<uintptr_t>(a.slo) & 15) == 0;
-  return wide ? launch_rows<4, TOPK>(a, smem, stream)
-              : launch_rows<1, TOPK>(a, smem, stream);
+  return wide ? launch_rows<4, M>(a, smem, stream)
+              : launch_rows<1, M>(a, smem, stream);
+}
+
+// Stage the candidates where the block can hold them, else read them
+// from device memory.
+int launch_guard(Guard a, cudaStream_t stream) {
+  const long long bytes = static_cast<long long>(a.I) * (a.T + 6) * 4;
+  const bool staged = a.I <= kGuardStageMax && bytes <= kGuardSmemMax;
+  a.lam_vec = a.lam_cs == 1 && a.I <= kGuardRow && a.I % 4 == 0 &&
+              a.lam_rs % 4 == 0 &&
+              (reinterpret_cast<uintptr_t>(a.lam) & 15) == 0;
+  const int grid = (a.R + kGuardThreads - 1) / kGuardThreads;
+  if (staged) {
+    routing_guard_kernel<true><<<grid, kGuardThreads,
+                                 static_cast<int>(bytes), stream>>>(a);
+  } else {
+    routing_guard_kernel<false><<<grid, kGuardThreads, 0, stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Each launcher enqueues on the
 // caller's stream, never synchronises, and returns cudaGetLastError() (or
-// the first error of its setup). routing_score and routing_topk take the
-// wrapper's plan (lanes per row, rows per block, shared bytes) and, for a
-// row whose g cache does not fit in shared memory, its scratch.
+// the first error of its setup). The three row kernels take the wrapper's
+// plan (lanes per row, rows per block, shared bytes) and, for a row whose
+// g cache does not fit in shared memory, its scratch.
 extern "C" {
 
 int laimr_routing_score(const float* lam, int lam_rs, int lam_cs,
@@ -921,9 +1108,10 @@ int laimr_routing_score(const float* lam, int lam_rs, int lam_cs,
                         void* stream) {
   if (R <= 0) return 0;
   const Decide a{lam, lam_rs, lam_cs, Cols{alpha, beta, gamma, mu, n, rtt},
-                 cost, slo, slo_rs, table, R, I, T, 1, 0.0f, lanes,
-                 rows_per_block, 1, 0, 0, scratch, idx, g, ok};
-  return launch_plan<false>(a, smem_bytes, static_cast<cudaStream_t>(stream));
+                 cost, nullptr, nullptr, slo, slo_rs, table, R, I, T, 1,
+                 0.0f, lanes, rows_per_block, 1, 0, 0, scratch, idx, g, ok};
+  return launch_plan<Mode::kScore>(a, smem_bytes,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 int laimr_routing_guard(const float* lam, int lam_rs, int lam_cs,
@@ -931,15 +1119,12 @@ int laimr_routing_guard(const float* lam, int lam_rs, int lam_cs,
                         const float* gamma, const float* mu, const float* n,
                         const float* rtt, const float* tau,
                         const int32_t* home, const int32_t* up,
-                        const float* table, int R, int T, int32_t* idx,
+                        const float* table, int R, int I, int T, int32_t* idx,
                         float* g, uint8_t* off, void* stream) {
   if (R <= 0) return 0;
-  const Cols c{alpha, beta, gamma, mu, n, rtt};
-  const dim3 block(kGuardThreads);
-  const dim3 grid((R + kGuardThreads - 1) / kGuardThreads);
-  routing_guard_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      lam, lam_rs, lam_cs, c, tau, home, up, table, R, T, idx, g, off);
-  return static_cast<int>(cudaGetLastError());
+  const Guard a{lam, lam_rs, lam_cs, Cols{alpha, beta, gamma, mu, n, rtt},
+                tau, home, up, table, R, I, T, 0, idx, g, off};
+  return launch_guard(a, static_cast<cudaStream_t>(stream));
 }
 
 int laimr_routing_topk(const float* lam, int lam_rs, int lam_cs,
@@ -953,9 +1138,11 @@ int laimr_routing_topk(const float* lam, int lam_rs, int lam_cs,
   if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   if (R <= 0) return 0;
   const Decide a{lam, lam_rs, lam_cs, Cols{alpha, beta, gamma, mu, n, rtt},
-                 cost, slo, slo_rs, table, R, I, T, k, margin, lanes,
-                 rows_per_block, 1, 0, 0, scratch, idx, g, ok};
-  return launch_plan<true>(a, smem_bytes, static_cast<cudaStream_t>(stream));
+                 cost, nullptr, nullptr, slo, slo_rs, table, R, I, T, k,
+                 margin, lanes, rows_per_block, 1, 0, 0, scratch, idx, g,
+                 ok};
+  return launch_plan<Mode::kTopk>(a, smem_bytes,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 int laimr_routing_attain(const float* lam, int lam_rs, int lam_cs,
@@ -964,18 +1151,17 @@ int laimr_routing_attain(const float* lam, int lam_rs, int lam_cs,
                          const float* rtt, const float* slo, int slo_rs,
                          const float* sigma, const float* avail,
                          const float* table, int R, int I, int T, int k,
-                         float margin, int32_t* idx, float* g, uint8_t* ok,
-                         void* stream) {
+                         float margin, int lanes, int rows_per_block,
+                         int smem_bytes, float* scratch, int32_t* idx,
+                         float* g, uint8_t* ok, void* stream) {
   if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   if (R <= 0) return 0;
-  const Cols c{alpha, beta, gamma, mu, n, rtt};
-  const dim3 block(32 * kWarpsPerBlock);
-  const dim3 grid((R + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  routing_attain_kernel<<<grid, block, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      lam, lam_rs, lam_cs, c, slo, slo_rs, sigma, avail, table, R, I, T, k,
-      margin, idx, g, ok);
-  return static_cast<int>(cudaGetLastError());
+  const Decide a{lam, lam_rs, lam_cs, Cols{alpha, beta, gamma, mu, n, rtt},
+                 nullptr, sigma, avail, slo, slo_rs, table, R, I, T, k,
+                 margin, lanes, rows_per_block, 1, 0, 0, scratch, idx, g,
+                 ok};
+  return launch_plan<Mode::kAttain>(a, smem_bytes,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 const char* laimr_cuda_error_string(int code) {

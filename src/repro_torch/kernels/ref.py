@@ -200,6 +200,20 @@ def routing_topk_ref(lam, alpha, beta, gamma, mu, n, rtt, slo, cost,
     return _topk_outputs(g, rho, feasible, primary, gate, k)
 
 
+def _attain_p(g: torch.Tensor, slo_: torch.Tensor, sigma: torch.Tensor,
+              avail: torch.Tensor) -> torch.Tensor:
+    """The delivery-weighted attainment probability of every (row,
+    column): ``avail * Phi((ln slo - ln g) / (sigma * sqrt2))``, the step
+    ``avail * (g <= slo)`` where ``sigma <= 0``; float32 throughout."""
+    sig = sigma.to(torch.float32)[None, :]
+    z = (torch.log(torch.clamp_min(slo_, 1e-20))
+         - torch.log(torch.clamp_min(g, 1e-20))) \
+        / (torch.clamp_min(sig, 1e-20) * _f32(_SQRT2, g))
+    phi = 0.5 * (1.0 + torch.erf(torch.clamp(z, -10.0, 10.0)))
+    return avail.to(torch.float32)[None, :] * torch.where(
+        sig > 0.0, phi, (g <= slo_).to(torch.float32))
+
+
 def routing_attain_ref(lam, alpha, beta, gamma, mu, n, rtt, slo, sigma,
                        avail, erlang_c_table, k: int = 2,
                        margin: float = 0.0):
@@ -218,13 +232,7 @@ def routing_attain_ref(lam, alpha, beta, gamma, mu, n, rtt, slo, sigma,
                            erlang_c_table)
     inf = torch.full((), float("inf"), dtype=torch.float32, device=g.device)
     feasible = (rho < 1.0) & (g <= slo_)
-    sig = sigma.to(torch.float32)[None, :]
-    z = (torch.log(torch.clamp_min(slo_, 1e-20))
-         - torch.log(torch.clamp_min(g, 1e-20))) \
-        / (torch.clamp_min(sig, 1e-20) * _f32(_SQRT2, g))
-    phi = 0.5 * (1.0 + torch.erf(torch.clamp(z, -10.0, 10.0)))
-    p = avail.to(torch.float32)[None, :] * torch.where(
-        sig > 0.0, phi, (g <= slo_).to(torch.float32))
+    p = _attain_p(g, slo_, sigma, avail)
     p_masked = torch.where(feasible, p, torch.full_like(p, -1.0))
     pmax = p_masked.amax(dim=1, keepdim=True)
     nearp = feasible & (p_masked >= pmax - _f32(ATTAIN_BAND, g))

@@ -5,17 +5,20 @@ Three hand-written CUDA kernels in ``csrc/routing.cu``, each replacing
 the TPU kernel of the same name in ``src/repro/kernels/routing_decide.py``:
 
 * :func:`routing_guard` (``routing_guard_kernel``, ``guarded_alg1``):
-  each row scores its home column, applies the paper's guard
-  ``(g_home - rtt_home) > tau -> upstream``, and scores the upstream
-  column only when the guard fires;
+  each row scores its home and upstream columns, applies the paper's
+  guard ``(g_home - rtt_home) > tau -> upstream`` and keeps the column
+  it picks; a block stages the candidates in shared memory where it can
+  hold them (I <= GUARD_STAGE_MAX);
 * :func:`routing_topk` (``routing_topk_kernel``, ``safetail``): the
   route_best primary plus the next ``k - 1`` feasible candidates in
-  ascending g, headroom-gated by ``g <= slo - margin``; it shares
-  ``routing_score_kernel``'s body and launch plan
-  (``routing_score.row_plan``): each pair scored once;
+  ascending g, headroom-gated by ``g <= slo - margin``;
 * :func:`routing_attain` (``routing_attain_kernel``, ``reliable``): the
   primary maximises the delivery-weighted SLO-attainment probability,
   duplicates as in ``routing_topk``.
+
+``routing_topk`` and ``routing_attain`` share ``routing_score_kernel``'s
+body and launch plan (``routing_score.row_plan``): each pair scored
+once.
 
 CUDA tensors go to the kernel (or the wrapper raises); CPU tensors go
 to the plain versions in ``repro_torch.kernels.ref``.
@@ -26,6 +29,9 @@ import torch
 
 UNSTABLE_G = 1e9    # router.BIG: the unstable-pool sentinel
 K_MAX = 8           # most columns routing_topk / routing_attain emit
+#: most candidates whose table and columns a routing_guard block stages in
+#: shared memory (routing.cu kGuardStageMax); wider sets read device memory
+GUARD_STAGE_MAX = 32
 
 
 def apply_guard(g_home: torch.Tensor, rtt_home: torch.Tensor,
@@ -92,7 +98,7 @@ def routing_guard(lam: torch.Tensor, alpha: torch.Tensor,
         lam.data_ptr(), lam_rs, lam_cs, alpha.data_ptr(), beta.data_ptr(),
         gamma.data_ptr(), mu.data_ptr(), n.data_ptr(), rtt.data_ptr(),
         tau.data_ptr(), home.data_ptr(), up.data_ptr(),
-        erlang_c_table.data_ptr(), r, t, idx.data_ptr(), g.data_ptr(),
+        erlang_c_table.data_ptr(), r, i, t, idx.data_ptr(), g.data_ptr(),
         off.data_ptr(), stream_ptr(dev))
     lib.check(rc, "routing_guard")
     routing_guard.launches += 1
@@ -103,8 +109,8 @@ routing_guard.launches = 0
 
 
 def _check_k(what: str, k: int) -> None:
-    """The kernels emit at most K_MAX columns (one rescoring pass each);
-    the wrapper holds CPU and CUDA callers to the same cap."""
+    """The kernels emit at most K_MAX columns (one cache pass each); the
+    wrapper holds CPU and CUDA callers to the same cap."""
     if not 1 <= k <= K_MAX:
         raise ValueError(f"{what}: k={k} outside [1, {K_MAX}]")
 
@@ -115,8 +121,7 @@ def _launch_topk(what: str, fn_name: str, lam, cols, slo, extra, table,
     input, allocates (idx (R, k) int32, g (R, k) f32, ok (R,)) and
     enqueues on the current stream. ``extra`` holds the kernel's (I,)
     columns after ``slo`` (cost, or sigma and avail); ``plan``, the
-    launch plan's arguments where the kernel takes one, after
-    ``margin``."""
+    launch plan's arguments, after ``margin``."""
     from repro_torch.kernels._build import library
     from repro_torch.kernels.routing_score import (check_input, row_strides,
                                                    stream_ptr)
@@ -174,7 +179,7 @@ def routing_topk(lam: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
         [("alpha", alpha), ("beta", beta), ("gamma", gamma), ("mu", mu),
          ("n", n), ("rtt", rtt)], slo, [("cost", cost)], erlang_c_table,
         k, margin, plan_args(lam.shape[0], erlang_c_table.shape[0],
-                             lam.device))
+                             lam.device, "topk"))
     routing_topk.launches += 1
     return out
 
@@ -202,11 +207,14 @@ def routing_attain(lam: torch.Tensor, alpha: torch.Tensor,
                                       k=k, margin=margin)
     if lam.device.type != "cuda":
         raise ValueError(f"routing_attain: no kernel for {lam.device}")
+    from repro_torch.kernels.routing_score import plan_args
     out = _launch_topk(
         "routing_attain", "laimr_routing_attain", lam,
         [("alpha", alpha), ("beta", beta), ("gamma", gamma), ("mu", mu),
          ("n", n), ("rtt", rtt)], slo, [("sigma", sigma), ("avail", avail)],
-        erlang_c_table, k, margin)
+        erlang_c_table, k, margin,
+        plan_args(lam.shape[0], erlang_c_table.shape[0], lam.device,
+                  "attain"))
     routing_attain.launches += 1
     return out
 

@@ -7,7 +7,8 @@ card this is the hand-written CUDA kernel in ``csrc/routing.cu``
 (``routing_score_kernel``: lanes per row fitted to I, each pair scored
 once into a g cache); it replaces the TPU kernel
 ``src/repro/kernels/routing_score.py:routing_score``. :func:`row_plan`
-lays out its launches and those of ``routing_topk_kernel``.
+lays out its launches and those of ``routing_topk_kernel`` and
+``routing_attain_kernel``, which share its body.
 
 The wrapper launches the kernel for CUDA tensors and raises on anything
 the kernel does not take; for tensors on the CPU it runs the plain
@@ -29,34 +30,42 @@ import torch
 from repro_torch.core import queueing
 from repro_torch.kernels import ref
 
-#: threads per block of routing_score_kernel and routing_topk_kernel: rows
-#: of at most 32 candidates get lanes fitted to I in blocks of
-#: NARROW_THREADS; wider rows a warp each, 16 to a block of WIDE_THREADS
+#: threads per block of the three row kernels (routing_score_kernel,
+#: routing_topk_kernel, routing_attain_kernel): rows of at most 32
+#: candidates get lanes fitted to I in blocks of NARROW_THREADS; wider rows
+#: a warp each, 16 to a block of WIDE_THREADS
 NARROW_THREADS = 256
 WIDE_THREADS = 512
 #: candidates whose columns a block stages in shared memory at a time
 TILE = 1024
-#: column planes staged in shared memory: alpha, beta, gamma, max(n, 1),
-#: max(n mu, 1e-12), rtt and a shared (I,) SLO row
+#: column planes staged in shared memory by routing_score and routing_topk:
+#: alpha, beta, gamma, max(n, 1), max(n mu, 1e-12), rtt and a shared (I,)
+#: SLO row; routing_attain stages sigma and avail too
 COLUMN_PLANES = 7
+ATTAIN_PLANES = COLUMN_PLANES + 2
+#: the row kernels' modes (routing.cu's Mode)
+MODES = ("score", "topk", "attain")
 #: dynamic shared memory a block of the card may opt in to
 SMEM_MAX = 227 * 1024
 
 
 class RowPlan(NamedTuple):
-    """The layout of one routing_score / routing_topk launch."""
+    """The layout of one launch of a row kernel."""
     lanes: int            # lanes deciding one request row
     group: int            # adjacent candidates a lane holds a group
     groups: int           # groups a lane scores and caches
     rows_per_block: int
-    smem_bytes: int       # the staged columns, and the cache unless scratch
+    smem_bytes: int       # the staged columns (and attain's column lists),
+    #                       then the cache unless it is in the scratch
     scratch: bool         # the g cache and flags are in device memory
+    cache_floats: int = 1  # floats cached a column: g (attain: and p)
 
     @property
     def row_bytes(self) -> int:
-        """A row's g cache (a float a column) and flags (a byte a group
-        and lane)."""
-        return self.groups * self.lanes * (self.group * 4 + 1)
+        """A row's cache (``cache_floats`` floats a column) and flags (a
+        byte a group and lane)."""
+        return self.groups * self.lanes * (
+            self.group * 4 * self.cache_floats + 1)
 
 
 def _pow2_at_least(x: int) -> int:
@@ -64,23 +73,33 @@ def _pow2_at_least(x: int) -> int:
 
 
 @functools.cache
-def row_plan(i: int) -> RowPlan:
-    """The layout of a launch over I candidates. A row of I <= 32 gets
-    the power of two >= I lanes, a candidate each, in blocks of
-    NARROW_THREADS; a wider row a warp whose lanes hold ceil(I / 128)
-    groups of four adjacent candidates, 16 rows a block. Shared bytes:
-    the column planes of a tile of up to TILE candidates, then the rows'
-    g cache and flags, which go to a device scratch instead where they do
-    not fit in SMEM_MAX (I > 2944)."""
+def row_plan(i: int, mode: str = "score") -> RowPlan:
+    """The layout of a launch over I candidates of the row kernel of
+    ``mode`` (one of MODES). A row of I <= 32 gets the power of two >= I
+    lanes, a candidate each, in blocks of NARROW_THREADS; a wider row a
+    warp whose lanes hold ceil(I / 128) groups of four adjacent
+    candidates, 16 rows a block. Shared bytes: the column planes of a
+    tile of up to TILE candidates (COLUMN_PLANES, attain ATTAIN_PLANES),
+    for attain's wide rows a list of a group's columns a row (128
+    ints), then the rows' cache (g, and for attain p) and flags, which go
+    to a device scratch instead where they do not fit in SMEM_MAX (I >
+    2944; attain I > 1408)."""
     if i < 1:
         raise ValueError(f"row_plan: I={i}")
+    if mode not in MODES:
+        raise ValueError(f"row_plan: mode {mode!r}")
+    attain = mode == "attain"
     lanes = min(32, _pow2_at_least(i))
     group = 1 if i <= 32 else 4
     groups = -(-i // (lanes * group))
     threads = NARROW_THREADS if group == 1 else WIDE_THREADS
     rows = threads // lanes
-    planes = COLUMN_PLANES * min(groups * lanes * group, TILE) * 4
-    plan = RowPlan(lanes, group, groups, rows, planes, False)
+    planes = ((ATTAIN_PLANES if attain else COLUMN_PLANES)
+              * min(groups * lanes * group, TILE) * 4)
+    if attain and group == 4:
+        planes += rows * lanes * group * 4
+    plan = RowPlan(lanes, group, groups, rows, planes, False,
+                   2 if attain else 1)
     cache = rows * plan.row_bytes
     if planes + cache <= SMEM_MAX:
         return plan._replace(smem_bytes=planes + cache)
@@ -103,11 +122,13 @@ def _scratch(dev: torch.device, stream: int, nbytes: int) -> torch.Tensor:
     return buf
 
 
-def plan_args(r: int, i: int, dev: torch.device) -> tuple:
+def plan_args(r: int, i: int, dev: torch.device,
+              mode: str = "score") -> tuple:
     """The plan arguments of ``laimr_routing_score`` /
-    ``laimr_routing_topk``: lanes, rows per block, shared bytes, and the
+    ``laimr_routing_topk`` / ``laimr_routing_attain`` (``mode`` "score",
+    "topk" or "attain"): lanes, rows per block, shared bytes, and the
     scratch (None unless the plan puts the cache there)."""
-    p = row_plan(i)
+    p = row_plan(i, mode)
     if not p.scratch:
         return p.lanes, p.rows_per_block, p.smem_bytes, None
     # a slot per resident row: at most one per row of every row group

@@ -242,8 +242,46 @@ def tau_boundary_inputs():
     return args, g_inst
 
 
+def guard_stage_inputs(i, seed, lam_rows=True, tau_edges=False, r=300):
+    """``routing_guard`` inputs around the kernel's staging cap: (R, I)
+    or (R,) rates, every seventh row at the top tier (up = -1). With
+    ``tau_edges`` ((R, I) rates), a zero rate at each row's home column
+    makes g_home = alpha + rtt exactly, and tau is g_inst on even rows
+    (strict >: held) and one ulp below on odd ones (offloaded where up
+    >= 0). Returns (args, pinned offloaded or None)."""
+    args = guard_inputs(i, r, seed)
+    if lam_rows:
+        args[0] = np.random.default_rng(seed + 1).uniform(
+            0.0, 10.0, (r, i)).astype(np.float32)
+    home, up = args[8], args[9]
+    up[::7] = -1
+    if not tau_edges:
+        return args, None
+    args[0][np.arange(r), home] = 0.0
+    alpha, rtt = args[1], args[6]
+    g_inst = alpha[home] + rtt[home] - rtt[home]
+    odd = np.arange(r) % 2 == 1
+    args[7] = np.where(odd, np.nextafter(g_inst, np.float32(-1.0)),
+                       g_inst).astype(np.float32)
+    return args, odd & (up >= 0)
+
+
 class TestGuardEdges:
     """The reference's pinned guard edges (tests/test_kernels.py)."""
+
+    @pytest.mark.parametrize("i", [trd.GUARD_STAGE_MAX,
+                                   trd.GUARD_STAGE_MAX + 1])
+    def test_tau_edges_at_the_staging_cap(self, i):
+        """The pinned tau == g_inst edges with top-tier rows on both
+        sides of the CUDA kernel's staging cap (its card test's inputs):
+        the plain version and the JAX oracle offload exactly the pinned
+        rows."""
+        args, want = guard_stage_inputs(i, 5100 + i, tau_edges=True)
+        gi, _, off = np_out(tref.routing_guard_ref(*as_torch(args)))
+        np.testing.assert_array_equal(off, want)
+        wi, _, woff = np_out(jops.routing_guard(*as_jax(args), impl="ref"))
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(off, woff)
 
     @pytest.mark.parametrize("below,want_off", [(False, False),
                                                 (True, True)])
@@ -632,10 +670,11 @@ class TestCudaTopKKernels:
 
 
 # ------------------------------------- routing row kernels' design --
-# routing_score_kernel and routing_topk_kernel cannot run here; these hold
-# the arithmetic of their design (routing_score.row_plan's lanes and slots,
-# per-lane partials in slot order, width-L butterflies, the cached g and
-# the duplicate passes) to the plain versions.
+# routing_score_kernel, routing_topk_kernel and routing_attain_kernel cannot
+# run here; these hold the arithmetic of their shared design
+# (routing_score.row_plan's lanes and slots, per-lane partials in slot
+# order, width-L butterflies, the cached g, attain's band pass and the
+# duplicate passes) to the plain versions.
 BIG = np.float32(1e30)       # the kernels' argmin key mask
 NONE = 0x7FFFFFFF            # "no column"
 NEAR = np.float32(1.00001)
@@ -662,6 +701,21 @@ def lane_better(key, col, k, c):
     return (k < key) | ((k == key) & (c < col))
 
 
+def butterfly_argmax_p(lanes, p, g, c):
+    """Width-``lanes`` xor shuffles of ``seg_argmax_p``: the highest p,
+    then the lowest g, then the lowest column; lane 0's result."""
+    p, g, c = p.copy(), g.copy(), c.copy()
+    off = lanes >> 1
+    while off:
+        partner = np.arange(lanes) ^ off
+        op, og, oc = p[:, partner], g[:, partner], c[:, partner]
+        take = (op > p) | ((op == p) & ((og < g) | ((og == g) & (oc < c))))
+        p, g, c = (np.where(take, op, p), np.where(take, og, g),
+                   np.where(take, oc, c))
+        off >>= 1
+    return p[:, 0], g[:, 0], c[:, 0]
+
+
 def butterfly(lanes, *vals, argmin=True):
     """Width-``lanes`` xor shuffles over the lane axis (last), offsets
     lanes/2 .. 1, as ``seg_argmin`` (key, col, g) or ``seg_min`` (one
@@ -680,28 +734,38 @@ def butterfly(lanes, *vals, argmin=True):
     return [v[:, 0] for v in vals]
 
 
-def row_design(args, k, margin, topk=True):
-    """routing_topk (or, with ``topk`` False, routing_score) as the row
-    kernels take it, with the plain version's g: pass 1 scores every
-    (row, column) once into the cache and folds per-lane partials; pass
-    2 takes the primary from the cache; each duplicate pass the argmin
-    above the previous pick. Returns the plain versions' outputs."""
-    lam, alpha, beta, gamma, mu, n, rtt, slo, cost, table = as_torch(args)
+def row_design(args, k, margin, mode="topk"):
+    """routing_topk (``mode`` "topk"), routing_score ("score") or
+    routing_attain ("attain", with attain's inputs) as the row kernels
+    take it, with the plain version's g (and for attain its p): pass 1
+    scores every (row, column) once into the cache and folds per-lane
+    partials; pass 2 takes the primary from the cache (attain: the lowest
+    (g, column) in the 1e-6 band, starting from the lowest pair that
+    attains the maximum); each duplicate pass the argmin above the
+    previous pick. Returns the plain versions' outputs."""
+    lam, alpha, beta, gamma, mu, n, rtt, slo = as_torch(args[:8])
+    table = as_torch(args[-1:])[0]
     g, rho = (x.numpy() for x in tref._table_scores(
         lam, alpha, beta, gamma, mu, n, rtt, table))
     r, i = g.shape
     slo_ = np.broadcast_to(slo.numpy(), (r, i))
-    cost_ = cost.numpy()
-    plan = trs.row_plan(i)
+    plan = trs.row_plan(i, mode)
     cols = slot_columns(plan, i)
     lanes = plan.lanes
     feas = (rho < 1.0) & (g <= slo_)
     elig = feas & (g <= slo_ - np.float32(margin))
     big = np.full((r, lanes), BIG, np.float32)
     # pass 1: per-lane feasible minimum, any, g_eff minimum (the cache is
-    # g itself: each column scored once)
+    # g itself: each column scored once); attain: per-lane maximum p and
+    # the lowest (g, column) attaining it, in the lane's column order
     gmin, geff = big.copy(), big.copy()
     anyf = np.zeros((r, lanes), bool)
+    if mode == "attain":
+        sigma, avail = as_torch(args[8:10])
+        p = tref._attain_p(torch.as_tensor(g), torch.as_tensor(
+            np.array(slo_)), sigma, avail).numpy()
+        pm = np.full((r, lanes), -1.0, np.float32)
+        gb, cb = big.copy(), np.full((r, lanes), NONE)
     for col in cols:
         v = col >= 0
         gc = g[:, np.where(v, col, 0)]
@@ -711,23 +775,49 @@ def row_design(args, k, margin, topk=True):
         ge = np.where(rho[:, np.where(v, col, 0)] < 1.0, gc,
                       np.float32(1e9))
         geff = np.where(v, np.minimum(geff, ge), geff)
+        if mode == "attain":
+            pc = p[:, np.where(v, col, 0)]
+            take = f & ((pc > pm) | ((pc == pm) & (gc < gb)))
+            pm, gb, cb = (np.where(take, pc, pm), np.where(take, gc, gb),
+                          np.where(take, col, cb))
     gmin, = butterfly(lanes, gmin, argmin=False)
     geff, = butterfly(lanes, geff, argmin=False)
     anyr = anyf.any(axis=1)
-    edge = (gmin * NEAR + EPS).astype(np.float32)[:, None]
-    # pass 2: the primary from the cache
-    key, best, bg = big.copy(), np.full((r, lanes), NONE), \
-        np.zeros((r, lanes), np.float32)
-    for col in cols:
-        v = col >= 0
-        cc = np.where(v, col, 0)
-        near = feas[:, cc] & (g[:, cc] <= edge)
-        kk = np.where(near, cost_[cc], BIG)
-        take = v & lane_better(key, best, kk, col)
-        key, best, bg = (np.where(take, kk, key), np.where(take, col, best),
-                         np.where(take, g[:, cc], bg))
-    _, primary, g0 = butterfly(lanes, key, best, bg)
-    if not topk:
+    if mode == "attain":
+        # pass 2: feasible columns below the pmax pair, in the band
+        pmax, gstar, cstar = butterfly_argmax_p(lanes, pm, gb, cb)
+        floor = (pmax - np.float32(1e-6)).astype(np.float32)[:, None]
+        key = np.repeat(gstar[:, None], lanes, 1)
+        best = np.repeat(cstar[:, None], lanes, 1)
+        for col in cols:
+            v = col >= 0
+            cc = np.where(v, col, 0)
+            take = (v & feas[:, cc] & anyr[:, None]
+                    & lane_better(key, best, g[:, cc], col)
+                    & (p[:, cc] >= floor))
+            key, best = np.where(take, g[:, cc], key), \
+                np.where(take, col, best)
+        g0, primary, _ = butterfly(lanes, key, best, key)
+        none = primary == NONE            # nothing in the band
+        primary = np.where(none, 0, primary)
+        g0 = np.where(none, g[:, 0], g0)
+    else:
+        edge = (gmin * NEAR + EPS).astype(np.float32)[:, None]
+        cost_ = as_torch(args[8:9])[0].numpy()
+        # pass 2: the primary from the cache
+        key, best, bg = big.copy(), np.full((r, lanes), NONE), \
+            np.zeros((r, lanes), np.float32)
+        for col in cols:
+            v = col >= 0
+            cc = np.where(v, col, 0)
+            near = feas[:, cc] & (g[:, cc] <= edge)
+            kk = np.where(near, cost_[cc], BIG)
+            take = v & lane_better(key, best, kk, col)
+            key, best, bg = (np.where(take, kk, key),
+                             np.where(take, col, best),
+                             np.where(take, g[:, cc], bg))
+        _, primary, g0 = butterfly(lanes, key, best, bg)
+    if mode == "score":
         return primary.astype(np.int32), g0, anyr
     idx = [np.where(anyr, primary, -1)]
     gout = [np.where(anyr, g0, geff)]
@@ -769,6 +859,24 @@ def design_case(name):
     return edge_case(name)[1]
 
 
+def attain_design_case(name):
+    """Inputs (routing_attain's order) for the design tests: the
+    reference's attain sweep draws and edges, and at every other name of
+    ``DESIGN_CASES`` the topk inputs with cost replaced by sigma and
+    avail drawn from a seeded generator."""
+    if name.startswith("sweep"):
+        i, r = map(int, name.split("_")[1:])
+        return attain_inputs(i, r, seed=60 + i)
+    if name.startswith("attain"):
+        return edge_case(name)[1]
+    args = design_case(name)
+    i = args[-1].shape[0]
+    rng = np.random.default_rng(500 + i)
+    sigma = rng.uniform(0.05, 0.8, i).astype(np.float32)
+    avail = rng.uniform(0.7, 1.0, i).astype(np.float32)
+    return args[:8] + [sigma, avail, args[-1]]
+
+
 DESIGN_CASES = (["sweep_2_64", "sweep_6_256", "sweep_11_128",
                  "topk_all_infeasible", "topk_k_exceeds_feasible",
                  "topk_clones"]
@@ -779,12 +887,18 @@ DESIGN_CASES = (["sweep_2_64", "sweep_6_256", "sweep_11_128",
                                                   (50, 37))])
 
 
+ATTAIN_DESIGN_CASES = DESIGN_CASES + [
+    "attain_clones", "attain_sigma_zero", "attain_uniform",
+    "attain_all_infeasible"]
+
+
 class TestRowDesign:
     """The row kernels' design, not the kernels: :func:`row_design`
-    re-takes routing_topk's and routing_score's decisions in the order
-    the kernels take them (lanes and slots from ``row_plan``, per-lane
-    partials, width-L butterflies, the cached g, duplicate passes above
-    the previous pick) on the plain version's g, and must give the plain
+    re-takes routing_topk's, routing_score's and routing_attain's
+    decisions in the order the kernels take them (lanes and slots from
+    ``row_plan``, per-lane partials, width-L butterflies, the cached g,
+    attain's band pass below the pmax pair, duplicate passes above the
+    previous pick) on the plain version's g, and must give the plain
     versions' outputs field for field. The kernels themselves are held
     on the card by ``TestCudaRowLayout`` and chip_smoke.py."""
 
@@ -802,8 +916,19 @@ class TestRowDesign:
     @pytest.mark.parametrize("name", DESIGN_CASES)
     def test_score_field_for_field(self, name):
         args = design_case(name)
-        got = row_design(args, 1, 0.0, topk=False)
+        got = row_design(args, 1, 0.0, mode="score")
         want = np_out(tref.routing_score_ref(*as_torch(args)))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+    @pytest.mark.parametrize("name", ATTAIN_DESIGN_CASES)
+    @pytest.mark.parametrize("k,margin", [(1, 0.0), (2, 0.0), (3, 0.25),
+                                          (8, 0.5)])
+    def test_attain_field_for_field(self, name, k, margin):
+        args = attain_design_case(name)
+        got = row_design(args, k, margin, mode="attain")
+        want = np_out(tref.routing_attain_ref(*as_torch(args), k=k,
+                                              margin=margin))
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
 
@@ -815,7 +940,7 @@ class TestRowDesign:
 
 
 class TestRowPlan:
-    """``routing_score.row_plan``: the layout the wrapper hands the two
+    """``routing_score.row_plan``: the layout the wrapper hands the three
     row kernels, and the scratch it keeps for rows too long for shared
     memory. The kernels check the plan against I before launch."""
 
@@ -839,6 +964,41 @@ class TestRowPlan:
         assert p.scratch == (i > 2944)
         assert p.smem_bytes == planes + (0 if p.scratch else cache)
         assert p.smem_bytes <= 227 * 1024
+
+    @pytest.mark.parametrize("i", [1, 4, 32, 33, 1024, 1025, 1408, 1409,
+                                   2944, 2945, 100_000])
+    def test_attain_stages_sigma_avail_and_caches_p(self, i):
+        """routing_attain's plan: the same lanes, groups and rows as
+        routing_score's; two more staged planes (sigma, avail), in wide
+        rows a list of 128 ints a row, p cached beside g, and so the cache
+        in the scratch from I 1409 (2945 for the other modes)."""
+        p, q = trs.row_plan(i), trs.row_plan(i, "attain")
+        assert trs.row_plan(i, "topk") == p and p.cache_floats == 1
+        assert trs.ATTAIN_PLANES == trs.COLUMN_PLANES + 2 == 9
+        assert p[:4] == q[:4]                # lanes, group, groups, rows
+        assert q.cache_floats == 2
+        length = q.groups * q.lanes * q.group
+        assert q.row_bytes == q.groups * q.lanes * (8 * q.group + 1)
+        lists = q.rows_per_block * q.lanes * q.group * 4 if q.group == 4 \
+            else 0
+        staged = trs.ATTAIN_PLANES * min(length, trs.TILE) * 4 + lists
+        cache = q.rows_per_block * q.row_bytes
+        assert q.scratch == (staged + cache > trs.SMEM_MAX) == (i > 1408)
+        assert q.smem_bytes == staged + (0 if q.scratch else cache)
+        assert q.smem_bytes <= trs.SMEM_MAX
+
+    def test_attain_fleet_shape(self):
+        q = trs.row_plan(1024, "attain")
+        # planes, lists, g and p caches and flags of 16 rows: one block an
+        # SM (two fit only without p's cache, which was slower)
+        assert q.smem_bytes == (9 * 1024 + 16 * 128 + 16 * 2048) * 4 \
+            + 16 * 8 * 32
+        assert q.smem_bytes + 1024 <= 228 * 1024 < 2 * (q.smem_bytes + 1024)
+
+    def test_modes_other_than_the_kernels_raise(self):
+        for mode in ("", "guard", "ATTAIN"):
+            with pytest.raises(ValueError, match="mode"):
+                trs.row_plan(4, mode)
 
     def test_main_path_fills_the_warps(self):
         """At I = 2..4 a warp decides 8 to 16 rows, not one."""
@@ -881,19 +1041,27 @@ class TestRowPlan:
                         trs._SCRATCH[(None, 3)].data_ptr())
         assert trs._SCRATCH[(None, 3)].numel() == rows * p.row_bytes
         assert p.row_bytes == p.groups * 32 * (4 * 4 + 1)
+        # attain: shared memory at 1408, the scratch from 1409
+        assert trs.plan_args(300, 1408, dev, "attain")[3] is None
+        q = trs.row_plan(1409, "attain")
+        assert trs.plan_args(300, 1409, dev, "attain") == (
+            q.lanes, q.rows_per_block, q.smem_bytes,
+            trs._SCRATCH[(None, 3)].data_ptr())
 
 
-def calm(args, k, margin, seed):
+def calm(args, k, margin, seed, attain=False):
     """Redraw (in place) the rates of rows whose decision two float32
     evaluations of g ~1e-6 apart could flip (a g within 1e-5 of the SLO
     cut or the headroom gate, two of the k + 1 lowest feasible g within
-    1e-5, or a feasible g at the near-band edge): the kernel's exp/log
-    and the plain version's pow/lerp differ in the last bits, and with a
-    thousand candidates a row such near-ties occur by chance."""
+    1e-5, or a feasible g at the near-band edge; with ``attain``, a
+    feasible p within reach of the 1e-6 band edge instead): the kernel's
+    exp/log/erf and the plain version's pow/lerp/erf differ in the last
+    bits, and with a thousand candidates a row such near-ties occur by
+    chance."""
     rng = np.random.default_rng(seed)
     for _ in range(50):
-        lam, alpha, beta, gamma, mu, n, rtt, slo, cost, table = \
-            as_torch(args)
+        lam, alpha, beta, gamma, mu, n, rtt, slo = as_torch(args[:8])
+        table = as_torch(args[-1:])[0]
         g, rho = (x.numpy().astype(np.float64) for x in tref._table_scores(
             lam, alpha, beta, gamma, mu, n, rtt, table))
         s_ = np.broadcast_to(slo.numpy(), g.shape)
@@ -904,10 +1072,27 @@ def calm(args, k, margin, seed):
         low = np.sort(np.where(feas, g, 1e30), 1)[:, :k + 1]
         bad |= ((np.diff(low, axis=1) <= 1e-5 * np.abs(low[:, 1:]))
                 & (low[:, 1:] < 1e29)).any(1)
-        gf = np.where(feas, g, 1e30)
-        edge = gf.min(1, keepdims=True) * (1 + 1e-5) + 1e-9
-        others = np.arange(g.shape[1])[None, :] != gf.argmin(1)[:, None]
-        bad |= (feas & others & (np.abs(g - edge) <= 1e-5 * edge)).any(1)
+        cols = np.arange(g.shape[1])[None, :]
+        if attain:
+            sig = np.maximum(args[8].astype(np.float64), 1e-20) * np.sqrt(2)
+            avail = args[9].astype(np.float64)
+            z = np.clip((np.log(np.maximum(s_, 1e-20))
+                         - np.log(np.maximum(g, 1e-20))) / sig, -10, 10)
+            phi = 0.5 * (1 + torch.erf(torch.as_tensor(z)).numpy())
+            p = np.where(feas, avail * np.where(args[8] > 0, phi, g <= s_),
+                         -1.0)
+            # a 1e-6 relative shift of g moves p by Phi' * 1e-6 / sig
+            dp = np.where(args[8] > 0, avail * np.exp(-z * z)
+                          / np.sqrt(np.pi) * 1e-6 / sig, 0.0)
+            top = p.argmax(1)[:, None]
+            edge = np.take_along_axis(p, top, 1) - 1e-6
+            reach = dp + np.take_along_axis(dp, top, 1) + 1e-7
+            bad |= (feas & (cols != top) & (np.abs(p - edge) <= reach)).any(1)
+        else:
+            gf = np.where(feas, g, 1e30)
+            edge = gf.min(1, keepdims=True) * (1 + 1e-5) + 1e-9
+            others = cols != gf.argmin(1)[:, None]
+            bad |= (feas & others & (np.abs(g - edge) <= 1e-5 * edge)).any(1)
         if not bad.any():
             return args
         shape = (int(bad.sum()),) + args[0].shape[1:]
@@ -925,13 +1110,20 @@ class TestCudaRowLayout:
     g within ``rtol=1e-4``."""
 
     @staticmethod
-    def run(args, k, margin, dev, misalign=False):
+    def placed(args, dev, misalign):
+        """The inputs on ``dev``; with ``misalign``, lam starting 4 bytes
+        past a 16-byte boundary."""
         t = as_torch(args, dev)
         if misalign:
             buf = torch.empty(t[0].numel() + 1, device=dev)
             buf[1:].copy_(t[0].flatten())
             t[0] = buf[1:].view(t[0].shape)
             assert t[0].data_ptr() % 16 == 4
+        return t
+
+    @classmethod
+    def run(cls, args, k, margin, dev, misalign=False):
+        t = cls.placed(args, dev, misalign)
         before = trs.routing_score.launches, trd.routing_topk.launches
         got = np_out(trs.routing_score(*t))
         want = np_out(tref.routing_score_ref(*t))
@@ -968,6 +1160,72 @@ class TestCudaRowLayout:
         args = topk_inputs(i, 300, 990 + i + k, slo_rows=True,
                            lam_rows=True)
         self.run(calm(args, k, 0.25, k), k, 0.25, cuda_device)
+
+    @classmethod
+    def run_attain(cls, args, k, margin, dev, misalign=False):
+        t = cls.placed(args, dev, misalign)
+        before = trd.routing_attain.launches
+        got = np_out(trd.routing_attain(*t, k=k, margin=margin))
+        want = np_out(tref.routing_attain_ref(*t, k=k, margin=margin))
+        check_topk(got, want, 1e-4, exact=True)
+        assert trd.routing_attain.launches == before + 1
+
+    @pytest.mark.parametrize("i", [1, 2, 3, 4, 5, 16, 31, 32, 33, 1023,
+                                   1024, 1025, 1408, 1409, 2945])
+    def test_attain_lanes_groups_and_scratch(self, cuda_device, i):
+        """routing_attain on the same body: every layout edge, and 1408 /
+        1409, around the first I whose attain cache is in the scratch."""
+        args = attain_inputs(i, 300, 1100 + i, slo_rows=True, lam_rows=True)
+        self.run_attain(calm(args, 2, 0.25, i, attain=True), 2, 0.25,
+                        cuda_device)
+
+    @pytest.mark.parametrize("i", [4, 33, 1024])
+    def test_attain_shared_rates(self, cuda_device, i):
+        args = calm(attain_inputs(i, 300, 1150 + i), 2, 0.25, i, attain=True)
+        self.run_attain(args, 2, 0.25, cuda_device)
+
+    @pytest.mark.parametrize("i", [4, 1024])
+    def test_attain_misaligned_rates(self, cuda_device, i):
+        args = attain_inputs(i, 300, 1170 + i, slo_rows=True, lam_rows=True)
+        self.run_attain(calm(args, 2, 0.25, i, attain=True), 2, 0.25,
+                        cuda_device, misalign=True)
+
+    @pytest.mark.parametrize("k", range(1, trd.K_MAX + 1))
+    @pytest.mark.parametrize("i", [5, 1024, 1025])
+    def test_attain_k_with_margin(self, cuda_device, i, k):
+        args = attain_inputs(i, 300, 1190 + i + k, slo_rows=True,
+                             lam_rows=True)
+        self.run_attain(calm(args, k, 0.25, k, attain=True), k, 0.25,
+                        cuda_device)
+
+
+@pytest.mark.cuda
+class TestCudaGuardStaging:
+    """routing_guard on both sides of its staging cap (the candidates in
+    shared memory up to ``GUARD_STAGE_MAX``, device memory past it),
+    with top-tier rows, against the plain version: ``offloaded`` and
+    ``idx`` exact, g within ``rtol=1e-4``; and the pinned tau == g_inst
+    edges, held and one ulp below offloaded."""
+
+    @pytest.mark.parametrize("lam_rows", [True, False])
+    @pytest.mark.parametrize("i", [trd.GUARD_STAGE_MAX,
+                                   trd.GUARD_STAGE_MAX + 1])
+    def test_both_sides_of_the_staging_cap(self, cuda_device, i, lam_rows):
+        args, _ = guard_stage_inputs(i, 5000 + i, lam_rows)
+        t = as_torch(args, cuda_device)
+        before = trd.routing_guard.launches
+        got = np_out(trd.routing_guard(*t))
+        assert trd.routing_guard.launches == before + 1
+        check_guard(got, np_out(tref.routing_guard_ref(*t)), 1e-4)
+
+    @pytest.mark.parametrize("i", [trd.GUARD_STAGE_MAX,
+                                   trd.GUARD_STAGE_MAX + 1])
+    def test_tau_edges(self, cuda_device, i):
+        args, want = guard_stage_inputs(i, 5100 + i, tau_edges=True)
+        t = as_torch(args, cuda_device)
+        got = np_out(trd.routing_guard(*t))
+        np.testing.assert_array_equal(got[2], want)
+        check_guard(got, np_out(tref.routing_guard_ref(*t)), 1e-4)
 
 
 # ---------------------------------------------------------- attention --
