@@ -86,11 +86,25 @@ Each phase prints one JSON object per line:
    (``routing_topk`` and ``routing_attain`` also at k = 8, their most
    duplicate passes; ``routing_guard`` also at its staging cap, I = 32,
    and past it), beside the launch floor: a one-element ``fill_`` timed
-   the same way.
+   the same way;
+15. the bucketed simulator twin (``SimConfig.backend="jax"``,
+   ``core/jaxsim.py``) on the card, its buckets replayed from CUDA
+   graphs: the seven smoke cells of ``tests/test_jaxsim.py`` against the
+   twin on the CPU (every latency sample within ``TWIN_TRACE_RTOL``,
+   ``offload_fast`` exact) and the event loop (``jaxsim.TOLERANCES``);
+   the 1M-arrival flash trace of ``benchmarks/bench_sim_throughput.py``
+   on its fleet cluster (scalar Algorithm 1; about 815,000 arrivals,
+   10,060 buckets) and ``guarded_alg1`` at a 0.1 s window at 200,000,
+   each against the event loop on the same trace (conservation exact,
+   ``TOLERANCES``), with both wall times and arrivals/s, graph replays
+   and the replays' device span; a profiled 20,000-arrival run in a
+   process of its own (device ops per bucket, kernel time against the
+   replays' span), the same trace eager on the card and with graphs of
+   1 and 16 buckets, and the 1M trace with graphs of 1 and 16.
 
 Launch counters are set to 0 just before each policy's run in phases
 3-5, each ``generate`` of phases 9 and 13 and one more decode step after
-it, and read just after; a kernel that the path runs and that did not
+it, and phase 15, and read just after; a kernel that the path runs and that did not
 launch exactly as often as it should fails the run (``hybrid`` must
 launch both of its constituents' kernels on the flash stream). The line
 before the last is the kernel table, the last line the device.
@@ -1894,6 +1908,332 @@ def phase_ssd_times(dev) -> dict:
 
 
 # ------------------------------------------------ checkouts in turns --
+# ----------------------------------------------------------- phase 15 ----
+# tests/test_jaxsim.py SMOKE_CELLS: (scenario, admission window, policy,
+# pods); the policy is ignored at window 0 (the scalar Algorithm-1 path)
+TWIN_CELLS = [
+    ("poisson", 0.0, "route_best", 1),
+    ("flash", 0.0, "route_best", 2),
+    ("mmpp", 0.1, "route_best", 1),
+    ("poisson", 0.1, "route_best", 2),
+    ("diurnal", 0.1, "guarded_alg1", 1),
+    ("bursts", 0.1, "guarded_alg1", 2),
+    ("mixed", 0.1, "guarded_alg1", 1),
+]
+# the card's twin against the CPU twin, sample for sample: the same
+# float32 step on two devices, whose pow and Erlang recurrence may round
+# apart by a few ulps (the same bound holds the CPU twin to the JAX twin)
+TWIN_TRACE_RTOL = 1e-5
+TWIN_LAM = 2000.0                  # bench_sim_throughput's --lam default
+TWIN_ARRIVALS = 1_000_000          # and its --arrivals default
+TWIN_GUARDED_ARRIVALS = 200_000
+TWIN_PROFILE_ARRIVALS = 20_000
+
+
+def twin_scenario(name: str):
+    """The port's twin of ``tests/test_sim_golden.py``'s ``scenario``:
+    (cluster, trace) built with the port's catalogue and generators."""
+    from repro_torch.core import workload as wl
+    from repro_torch.core.catalogue import paper_cluster
+    if name == "poisson":
+        return golden_two_tier(), wl.poisson_arrivals(4.0, 60.0, "yolov5m",
+                                                      seed=5)
+    if name == "bursts":
+        return golden_two_tier(), wl.bounded_pareto_bursts(
+            2.0, 60.0, "yolov5m", seed=5)
+    if name == "diurnal":
+        return golden_two_tier(), wl.diurnal_arrivals(
+            3.0, 90.0, "yolov5m", seed=5, amplitude=0.9, period=45.0)
+    if name == "mmpp":
+        return golden_two_tier(), wl.mmpp_arrivals(
+            [1.0, 8.0], 10.0, 80.0, "yolov5m", seed=5)
+    if name == "flash":
+        return golden_two_tier(), wl.flash_crowd_arrivals(
+            1.0, 12.0, 90.0, "yolov5m", seed=5, t_start=30.0,
+            duration=20.0, ramp=5.0)
+    if name == "mixed":
+        return paper_cluster(), wl.mixed_traffic(
+            {"efficientdet": 4.0, "yolov5m": 2.0, "faster_rcnn": 0.5},
+            60.0, seed=5)
+    raise KeyError(name)
+
+
+def fleet_cluster(n_edge: int = 16, n_cloud: int = 16):
+    """``benchmarks/bench_sim_throughput.py``'s ``fleet_cluster``, built
+    from the port's catalogue: two candidates of 16 replicas each,
+    ``n_max`` 64."""
+    from repro_torch.core.catalogue import Cluster, Deployment
+    from repro_torch.core.latency_model import CLOUD, PI4_EDGE, YOLOV5M
+    from repro_torch.core.scheduler import QualityClass
+    edge = dataclasses.replace(PI4_EDGE, net_rtt=0.05, speedup=100.0,
+                               r_max=300.0)
+    cloud = dataclasses.replace(CLOUD, net_rtt=0.086, r_max=19000.0,
+                                speedup=400.0)
+    return Cluster([
+        Deployment(YOLOV5M, edge, QualityClass.BALANCED,
+                   n_replicas=n_edge, n_max=4 * n_edge),
+        Deployment(YOLOV5M, cloud, QualityClass.BALANCED,
+                   n_replicas=n_cloud, n_max=4 * n_cloud),
+    ])
+
+
+def fleet_flash_trace(n_arrivals: int, lam: float = TWIN_LAM,
+                      seed: int = 0):
+    """``bench_sim_throughput.make_trace("flash", ...)``: base lam / 2, a
+    surge to 2 lam over the middle fifth of the horizon."""
+    from repro_torch.core.workload import flash_crowd_arrivals
+    horizon = max(n_arrivals / lam, 1.0)
+    return flash_crowd_arrivals(lam * 0.5, lam * 2.0, horizon, "yolov5m",
+                                seed=seed, t_start=horizon * 0.4,
+                                duration=horizon * 0.2,
+                                ramp=horizon * 0.02)
+
+
+def sync_all() -> None:
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def sim_run(cluster, cfg, arr, stats=None):
+    """One simulator run through ``ClusterSimulator.run``, timed to its
+    end on the card; with ``stats`` the bucketed twin goes through
+    ``jaxsim.simulate`` (what ``run`` calls) to collect them."""
+    from repro_torch.core import jaxsim
+    from repro_torch.core.simulator import ClusterSimulator
+    sync_all()
+    t0 = time.perf_counter()
+    if stats is not None and cfg.backend == "jax":
+        res = jaxsim.simulate(cluster, cfg, arr, stats=stats)
+    else:
+        res = ClusterSimulator(cluster, cfg).run(arr)
+    sync_all()
+    return res, time.perf_counter() - t0
+
+
+def conserved(res, n: int) -> bool:
+    if res.backend == "jax":
+        return res.n_arrivals == n and res.latency_trace.size == n \
+            and res.failed_count() == 0
+    return len(res.completed) + len(res.failed) == n
+
+
+def tolerance_gaps(label: str, oracle, twin, n: int) -> dict:
+    """The twin against the event loop by ``jaxsim.TOLERANCES``; fails
+    the run on a violation or a lost arrival."""
+    from repro_torch.core.jaxsim import TOLERANCES
+    if not conserved(oracle, n) or not conserved(twin, n):
+        fail(f"twin {label}: arrivals not conserved")
+    gaps = {}
+    for q, tol in ((50.0, TOLERANCES["p50_rel"]),
+                   (99.0, TOLERANCES["p99_rel"])):
+        ref, got = oracle.percentile(q), twin.percentile(q)
+        gaps[f"p{q:.0f}_rel"] = abs(got - ref) / ref
+        if not gaps[f"p{q:.0f}_rel"] <= tol:
+            fail(f"twin {label}: P{q:.0f} {got} vs event loop {ref}")
+    gaps["offload_abs"] = abs(twin.offload_fast - oracle.offload_fast) / n
+    if gaps["offload_abs"] > TOLERANCES["offload_abs"]:
+        fail(f"twin {label}: offload {twin.offload_fast} vs "
+             f"{oracle.offload_fast} of {n}")
+    return gaps
+
+
+def replay_ms(stats: dict):
+    """Device time from the first graph replay to the end of the last
+    (None where the twin ran eagerly)."""
+    span = stats.get("replay_events")
+    return span[0].elapsed_time(span[1]) if span else None
+
+
+def twin_profile(cluster, cfg, arr) -> dict:
+    """``torch.profiler`` over one twin run: the device work that starts
+    after the first graph launch (the replays; the warm-up and capture
+    come before it), its ops per bucket, and its kernel time against
+    the replays' device span, profiled and in an unprofiled run of the
+    same trace (the profiler stretches the gaps between the replays'
+    small kernels). The record counts as complete only when the device
+    work it holds spans the profiled replays' own span (CUDA events)
+    within 10%; otherwise the derived numbers are null."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    stats = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim_run(cluster, cfg, arr, stats)
+    events = prof.events()
+    launches = [ev.time_range.start for ev in events
+                if ev.name == "cudaGraphLaunch"]
+    dev_ev = [ev for ev in events
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and launches and ev.time_range.start >= min(launches)]
+    plain = {}
+    sim_run(cluster, cfg, arr, plain)
+    out = {"buckets": stats["buckets"], "graph_launches": len(launches),
+           "replay_device_ms": replay_ms(plain),
+           "profiled_replay_device_ms": replay_ms(stats),
+           "device_ops": len(dev_ev), "profiled_span_ms": None,
+           "complete": False, "ops_per_bucket": None, "busy_ms": None,
+           "busy_share": None, "idle_share": None}
+    if dev_ev:
+        busy = sum(ev.time_range.elapsed_us() for ev in dev_ev) / 1e3
+        span = (max(ev.time_range.end for ev in dev_ev)
+                - min(ev.time_range.start for ev in dev_ev)) / 1e3
+        out["profiled_span_ms"] = span
+        want = out["profiled_replay_device_ms"]
+        if want and abs(span - want) <= 0.1 * want:
+            share = busy / out["replay_device_ms"]
+            out.update(complete=True,
+                       ops_per_bucket=len(dev_ev) / stats["buckets"],
+                       busy_ms=busy, profiled_busy_share=busy / span,
+                       busy_share=share, idle_share=1.0 - share)
+    return out
+
+
+def twin_profile_child(n_profile: int) -> int:
+    """``--twin-profile N``: :func:`twin_profile` of the fleet flash trace
+    at N requested arrivals, in a process of its own (a profiler that
+    earlier phases of the same process used recorded only part of the
+    replays), printed as one JSON line."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch.core.simulator import SimConfig
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = SimConfig(mode="laimr", seed=0, backend="jax",
+                    twin_device=str(dev))
+    arr = fleet_flash_trace(n_profile)
+    emit({"requested": n_profile, "arrivals": len(arr),
+          **twin_profile(fleet_cluster(), cfg, arr)})
+    return 0
+
+
+def twin_graph_widths(cluster, cfg, arr, widths=(0, 1, 16)) -> dict:
+    """The twin's wall time on one trace, eager on the card
+    (``graph_buckets`` 0) and with graphs of 1 and 16 buckets: host
+    clock to the end of the run, and the replays' device span."""
+    from repro_torch.core import jaxsim
+    out = {}
+    for k in widths + widths[::-1]:
+        stats = {}
+        sync_all()
+        t0 = time.perf_counter()
+        jaxsim.simulate(cluster, cfg, arr, graph_buckets=k, stats=stats)
+        sync_all()
+        row = out.setdefault(str(k), {"wall_s": [], "replay_device_ms": []})
+        row["wall_s"].append(time.perf_counter() - t0)
+        row["replay_device_ms"].append(replay_ms(stats))
+    return out
+
+
+def phase_twin(dev, smi: str, cells=TWIN_CELLS,
+               n_big: int = TWIN_ARRIVALS,
+               n_guarded: int = TWIN_GUARDED_ARRIVALS,
+               n_profile: int = TWIN_PROFILE_ARRIVALS) -> dict:
+    """The bucketed twin (``SimConfig.backend="jax"``) on the card: the
+    seven smoke cells against the CPU twin and the event loop; the
+    1M-arrival flash trace of ``bench_sim_throughput.py`` on its fleet
+    cluster (scalar Algorithm 1) against the event loop; ``guarded_alg1``
+    at a 0.1 s window on the same scenario at ``n_guarded`` arrivals; a
+    profiled run of ``n_profile`` arrivals for ops per bucket and the
+    device's busy and idle share over the replays."""
+    from repro_torch.core.jaxsim import GRAPH_BUCKETS
+    from repro_torch.core.simulator import SimConfig
+    # (a) the smoke cells
+    worst = {"trace_rel": 0.0}
+    for name, window, policy, pods in cells:
+        label = f"{name}/w{window}/{policy}/pods{pods}"
+        runs = {}
+        for key, backend, device in (("cuda", "jax", str(dev)),
+                                     ("cpu", "jax", "cpu"),
+                                     ("event", "event", "cpu")):
+            cluster, arr = twin_scenario(name)
+            cfg = SimConfig(mode="laimr", seed=5, slo=1.8, jitter_sigma=0.2,
+                            admission_window=window, policy=policy,
+                            pods_per_deployment=pods, backend=backend,
+                            twin_device=device, admission_device=str(dev))
+            runs[key] = sim_run(cluster, cfg, arr)[0]
+        n = len(arr)
+        got, cpu = runs["cuda"], runs["cpu"]
+        if got.n_arrivals != n or cpu.n_arrivals != n \
+                or got.latency_trace.size != n:
+            fail(f"twin {label}: n_arrivals {got.n_arrivals} / "
+                 f"{cpu.n_arrivals} of {n}")
+        rel = float(np.max(np.abs(got.latency_trace - cpu.latency_trace)
+                           / np.abs(cpu.latency_trace)))
+        if not rel <= TWIN_TRACE_RTOL or got.offload_fast != cpu.offload_fast:
+            fail(f"twin {label}: card vs CPU trace rel {rel}, offload "
+                 f"{got.offload_fast} vs {cpu.offload_fast}")
+        gaps = tolerance_gaps(label, runs["event"], got, n)
+        worst["trace_rel"] = max(worst["trace_rel"], rel)
+        for k, v in gaps.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        emit({"phase": "twin_cell", "cell": label, "arrivals": n,
+              "trace_rel_vs_cpu": rel, "offload_fast": got.offload_fast,
+              "p50": got.percentile(50.0), "p99": got.percentile(99.0),
+              "vs_event": gaps})
+    emit({"phase": "twin_cells", "cells": len(cells), "worst": worst,
+          "trace_rtol": TWIN_TRACE_RTOL})
+
+    # (b) the bench's own 1M-arrival flash run, then guarded_alg1
+    out = {}
+    for label, size, kw in (
+            ("flash_scalar", n_big, {}),
+            ("flash_guarded_w0.1", n_guarded,
+             dict(admission_window=0.1, policy="guarded_alg1"))):
+        arr = fleet_flash_trace(size)
+        n = len(arr)
+        rows = {}
+        for backend in ("jax", "event"):
+            cfg = SimConfig(mode="laimr", seed=0, backend=backend,
+                            twin_device=str(dev), admission_device=str(dev),
+                            **kw)
+            stats = {}
+            res, seconds = sim_run(fleet_cluster(), cfg, arr, stats)
+            rows[backend] = (res, seconds, stats)
+        (twin, t_twin, stats), (oracle, t_event, _) = rows["jax"], \
+            rows["event"]
+        gaps = tolerance_gaps(label, oracle, twin, n)
+        row = {"phase": "twin_run", "cell": label, "requested": size,
+               "arrivals": n,
+               "buckets": stats["buckets"],
+               "graph_buckets": stats.get("graph_buckets"),
+               "graphs": stats.get("graphs"),
+               "replays": stats.get("replays"),
+               "replay_device_ms": replay_ms(stats),
+               "twin_wall_s": t_twin, "twin_arrivals_per_s": n / t_twin,
+               "event_wall_s": t_event, "event_arrivals_per_s": n / t_event,
+               "speedup": t_event / t_twin,
+               "twin_p50": twin.percentile(50.0),
+               "twin_p99": twin.percentile(99.0),
+               "event_p50": oracle.percentile(50.0),
+               "event_p99": oracle.percentile(99.0),
+               "twin_offload_rate": twin.offload_fast / n,
+               "event_offload_rate": oracle.offload_fast / n,
+               "vs_event": gaps, "card": smi}
+        emit(row)
+        out[label] = row
+
+    # (c) one profiled run in a process of its own: ops per bucket, busy
+    # and idle share; then the profiled trace eager on the card and with
+    # graphs of 1 and 16 buckets, and the 1M trace with graphs of 1 and 16
+    child = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--twin-profile",
+         str(n_profile)], capture_output=True, text=True, check=True)
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    emit({"phase": "twin_profile", "graph_buckets": GRAPH_BUCKETS,
+          "card": smi, **prof})
+    out["profile"] = prof
+    cfg = SimConfig(mode="laimr", seed=0, backend="jax",
+                    twin_device=str(dev))
+    for size, widths in ((n_profile, (0, 1, 16)), (n_big, (1, 16))):
+        arr = fleet_flash_trace(size)
+        emit({"phase": "twin_graph_widths", "requested": size,
+              "arrivals": len(arr), "card": smi,
+              "by_graph_buckets": twin_graph_widths(fleet_cluster(), cfg,
+                                                    arr, widths)})
+    return out
+
+
 def phase_tree(dev) -> None:
     """The routing path of the checkout whose ``src`` is first on the
     path, measured by this file's phases: each routing kernel's device
@@ -1906,11 +2246,14 @@ def phase_tree(dev) -> None:
 
 
 def main_turns(argv: list) -> int:
-    """``--tree DIR``: :func:`phase_tree` on the checkout at DIR.
+    """``--twin-profile N``: :func:`twin_profile_child`.
+    ``--tree DIR``: :func:`phase_tree` on the checkout at DIR.
     ``--turns DIR [DIR ...] [--rounds N]``: that for each DIR in turn, a
     process each, the order reversed every other round (A B, B A, ...),
     so that checkouts are compared within one call by the same code.
     Each process is pinned to the same CPU core."""
+    if argv[0] == "--twin-profile":
+        return twin_profile_child(int(argv[1]))
     if argv[0] == "--tree":
         sys.path.insert(0, str(Path(argv[1]).resolve() / "src"))
         # one core, the same for every checkout: host times then spread
@@ -2048,6 +2391,15 @@ def main() -> int:
                          **MAMBA_SERVE)
     torch.cuda.empty_cache()
     ssd_times = phase_ssd_times(dev)
+
+    # the bucketed twin: no hand-written kernel on its path (it routes
+    # through the plain torch select/guard), counted all the same
+    for k in kernels:
+        k.launches = 0
+    phase_twin(dev, smi)
+    sync(dev)
+    emit({"phase": "launches", "path": "twin",
+          **{k.__name__: k.launches for k in kernels}})
 
     times = phase_times(dev)
     main_shape = "r256_i4"

@@ -788,12 +788,16 @@ class SimConfig:
     # an empty plan. tests/test_faults.py walls the semantics.
     faults: "FaultPlan" = dataclasses.field(default_factory=FaultPlan)
     # Simulation backend. "event" (default) is the discrete event loop —
-    # the oracle, bit-identical to every golden digest. The bucketed
-    # time-step twin ("jax" in the reference package) is not ported yet
-    # and raises ValueError; the field and ``bucket_width`` keep the
-    # reference's config surface.
+    # the oracle, bit-identical to every golden digest. "jax" (the
+    # reference's spelling) runs the bucketed time-step twin,
+    # repro_torch.core.jaxsim: the same physics per fixed-width bucket,
+    # distribution-pinned to the event loop within jaxsim.TOLERANCES.
     backend: str = "event"
+    # Bucket width (seconds) for backend="jax".
     bucket_width: float = 0.05
+    # torch device the bucketed twin runs on ("cuda" unless the caller
+    # asks for the CPU; no fallback when there is no card)
+    twin_device: str = "cuda"
 
 
 @dataclasses.dataclass
@@ -1490,15 +1494,15 @@ class ClusterSimulator:
     # ------------------------------------------------------------------ #
     def run(self, arrivals: list[Arrival], horizon: Optional[float] = None) -> SimResult:
         if self.cfg.backend == "jax":
-            # the bucketed time-step twin is not ported yet (ROADMAP
-            # queue 1): refuse rather than silently run the event loop
-            raise ValueError(
-                "SimConfig.backend='jax' (the bucketed twin) is not ported "
-                "to repro_torch yet; use backend='event'")
+            # The bucketed twin. Pure in (cluster, cfg, arrivals): never
+            # mutates this simulator's pools/telemetry, so the same
+            # ClusterSimulator could still run the event loop afterwards.
+            from repro_torch.core.jaxsim import simulate as _twin_simulate
+            return _twin_simulate(self.cluster, self.cfg, arrivals, horizon)
         if self.cfg.backend != "event":
             raise ValueError(
                 f"unknown SimConfig.backend {self.cfg.backend!r} "
-                "(expected 'event')")
+                "(expected 'event' or 'jax')")
         self._now = 0.0
         for arr in arrivals:
             self._push(arr.t, _ARRIVAL, arr)

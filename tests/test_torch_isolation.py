@@ -60,7 +60,8 @@ def test_port_has_the_slice_modules():
             "models/__init__.py", "models/layers.py",
             "models/transformer.py", "models/model.py",
             "serving/engine.py", "models/ssm.py", "kernels/ssd_scan.py",
-            "kernels/csrc/ssd.cu", "configs/mamba2_370m.py"]
+            "kernels/csrc/ssd.cu", "configs/mamba2_370m.py",
+            "core/jaxsim.py"]
     missing = [m for m in want if not (PORT / m).is_file()]
     assert not missing, missing
 
@@ -85,6 +86,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.kernels.ops, repro_torch.convert\n"
             "import repro_torch.models.model, repro_torch.configs\n"
             "import repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
+            "import repro_torch.core.jaxsim\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"

@@ -322,9 +322,29 @@ class TestUnpinnedStreams:
         np.testing.assert_array_equal(got["latencies"], want["latencies"])
 
 
-class TestUnportedSurface:
-    def test_bucketed_backend_raises(self):
+class TestBucketedBackend:
+    def test_bucketed_backend_runs(self):
+        """``backend="jax"`` runs the port's bucketed twin: one latency
+        sample per arrival, the event loop's pools left untouched."""
+        arr = trace_for("ramp")
         sim = tsim.ClusterSimulator(two_tier(), tsim.SimConfig(
-            mode="laimr", seed=11, slo=1.0, backend="jax"))
-        with pytest.raises(ValueError, match="not ported"):
-            sim.run(trace_for("ramp"), horizon=10.0)
+            mode="laimr", seed=11, slo=1.0, backend="jax",
+            twin_device="cpu"))
+        res = sim.run(arr, horizon=500.0)
+        assert res.backend == "jax"
+        assert res.n_arrivals == res.latency_trace.size == len(arr)
+        assert (res.latency_trace > 0).all()
+        assert [d.n_replicas for d in sim.cluster] == [2, 2]
+
+    def test_unknown_backend_raises_the_references_message(self):
+        arr = trace_for("ramp")
+        want = jsim.ClusterSimulator(jsg.two_tier(), jsim.SimConfig(
+            mode="laimr", seed=11, slo=1.0, backend="tpu"))
+        got = tsim.ClusterSimulator(two_tier(), tsim.SimConfig(
+            mode="laimr", seed=11, slo=1.0, backend="tpu"))
+        with pytest.raises(ValueError) as exc_want:
+            want.run(jsg.trace_for("ramp"), horizon=10.0)
+        with pytest.raises(ValueError,
+                           match="expected 'event' or 'jax'") as exc_got:
+            got.run(arr, horizon=10.0)
+        assert str(exc_got.value) == str(exc_want.value)
