@@ -43,7 +43,10 @@ Each phase prints one JSON object per line:
 7. both attention kernels (``flash_attention``, ``decode_attention``)
    against their plain versions: the reference's sweeps in float32 and
    bfloat16, head_dim 80, a 200-token sequence and an all-invalid decode
-   row, and the model's shapes, within ``2e-5`` in float32 (the
+   row, the model's shapes, and the served heads of phase 16 (h 10 / hkv
+   1 / d 256 with a binding 2048 window, decode on a wrapped ring; h 32 /
+   hkv 16 / d 128 with softcap 50 and scale 144^-0.5, windowed and
+   global; h 96 / hkv 8 / d 192), within ``2e-5`` in float32 (the
    reference's own bound) and ``MODEL_BF16_TOL`` in bfloat16 (inside the
    reference's ``5e-2``);
 8. StableLM-3B at full width in float32 (weights from generator seed
@@ -60,9 +63,11 @@ Each phase prints one JSON object per line:
    the live requests, and a ``torch.profiler`` breakdown of one prefill
    and one decode step;
 10. the attention kernels' times (CUDA events, medians of 100 launches)
-   at the model's shapes, against their plain versions and
-   ``scaled_dot_product_attention``, and each wrapper's host time per
-   call (``time_launches(host=True)``);
+   at the model's shapes and the served heads of phase 16
+   (``ATTN_TIME_SHAPES``), against their plain versions and
+   ``scaled_dot_product_attention`` (none with a softcap, which it
+   lacks), and each wrapper's host time per call
+   (``time_launches(host=True)``);
 11. ``ssd_scan`` against its plain version, y and the final state: the
    CPU tests' cases (the reference's sweep, groups 2 and 4, L = 1, 100
    and 200, initial states, a long-memory case), P of 64, 40 and 24 at
@@ -100,11 +105,24 @@ Each phase prints one JSON object per line:
    and the replays' device span; a profiled 20,000-arrival run in a
    process of its own (device ops per bucket, kernel time against the
    replays' span), the same trace eager on the card and with graphs of
-   1 and 16 buckets, and the 1M trace with graphs of 1 and 16.
+   1 and 16 buckets, and the 1M trace with graphs of 1 and 16;
+16. the expert-free decoders at full width (``DECODERS``), weights from
+   generator seed 0: RecurrentGemma-2B whole (26 layers, 8 of them local
+   attention) in float32 parity as phase 8 with 8 x 2048 prompts, then
+   in bf16 ``phase_prefill_logits`` and serving as phase 9 with 8 x 2048
+   prompts and 64 steps, every decode step wrapping the local layers'
+   2048-slot ring (8 ``flash_attention`` per prefill, 8
+   ``decode_attention`` per step); Phi-3-medium-14B, Gemma2-27B,
+   Chameleon-34B and Nemotron-4-340B in float32 parity at one pattern
+   period (Gemma2's ``@sw`` variant too), then in bf16 at the most
+   layers whose weights and caches fit the card (``served_depth``, from
+   the meta-device ``param_count``): ``phase_prefill_logits`` and serving
+   with 8 x 512 prompts and 32 steps. Every depth run is printed against
+   the published one (``phase: depth``).
 
 Launch counters are set to 0 just before each policy's run in phases
-3-5, each ``generate`` of phases 9 and 13 and one more decode step after
-it, and phase 15, and read just after; a kernel that the path runs and that did not
+3-5, each ``generate`` of phases 9, 13 and 16 and one more decode step
+after it, and phase 15, and read just after; a kernel that the path runs and that did not
 launch exactly as often as it should fails the run (``hybrid`` must
 launch both of its constituents' kernels on the flash stream). The line
 before the last is the kernel table, the last line the device.
@@ -1192,6 +1210,7 @@ LOGIT_BOUND = 1e-4
 SERVE = dict(slots=8, max_len=2048, prompt=512, steps=64, partial=4)
 PARITY = dict(batch=8, prompt=512, steps=16)
 FLASH_MAIN = dict(b=8, s=512, h=32, d=80)      # prefill at the served shape
+GEMMA2_SCALE = (4608 / 32) ** -0.5             # Gemma2's q-scale, 144^-0.5
 DECODE_MAIN = dict(b=8, c=2048, h=32, d=80)    # decode at max_len
 # (b, sq, skv, h, hkv, d, kwargs): the reference's flash sweep and
 # extras, head_dim 80 and a 200-token sequence among them
@@ -1215,6 +1234,15 @@ FLASH_CASES = [
     (2, 192, 192, 8, 2, 80, {}),
     (2, 100, 40, 4, 2, 80, {}),
     (1, 300, 300, 2, 2, 80, dict(window=97)),
+    # the served heads of the expert-free decoders: RecurrentGemma (MQA,
+    # rep 10, head_dim 256) with its 2048 window binding; Gemma2's
+    # softcap 50 and scale 144^-0.5 at head_dim 128, windowed and global;
+    # Nemotron's head_dim 192 (the 16-chunk body, a quarter of it zeros)
+    (1, 2560, 2560, 10, 1, 256, dict(window=2048)),
+    (1, 4352, 4352, 32, 16, 128, dict(window=4096, softcap=50.0,
+                                      scale=GEMMA2_SCALE)),
+    (2, 512, 512, 32, 16, 128, dict(softcap=50.0, scale=GEMMA2_SCALE)),
+    (2, 512, 512, 96, 8, 192, {}),
 ]
 # (b, h, hkv, d, c, kwargs, mask): the reference's decode sweep and
 # extras; mask as in decode_inputs
@@ -1227,6 +1255,16 @@ DECODE_CASES = [
     # cache of 2048; whole splits with no valid slot beside valid ones
     (2, 4, 4, 80, 1, {}, "sweep"), (2, 32, 32, 80, 200, {}, "sweep"),
     (2, 8, 2, 80, 2048, {}, "full"), (2, 8, 8, 80, 1024, {}, "tail"),
+    # the served heads, as FLASH_CASES: RecurrentGemma's 2048-slot ring
+    # after it wrapped; Gemma2 windowed (wrapped, and the sweep's draws
+    # at a window that binds) and global; Nemotron full
+    (2, 10, 1, 256, 2048, dict(window=2048), "ring"),
+    (2, 32, 16, 128, 2048, dict(window=4096, softcap=50.0,
+                                scale=GEMMA2_SCALE), "ring"),
+    (2, 32, 16, 128, 512, dict(window=128, softcap=50.0,
+                               scale=GEMMA2_SCALE), "sweep"),
+    (2, 32, 16, 128, 2048, dict(softcap=50.0, scale=GEMMA2_SCALE), "full"),
+    (2, 96, 8, 192, 2048, {}, "full"),
 ]
 
 
@@ -1251,10 +1289,13 @@ def flash_inputs(seed, b, sq, skv, h, hkv, d, dtype, dev, mult=1.0):
 
 def decode_inputs(seed, b, h, hkv, d, c, dtype, dev, mask="sweep"):
     """Random q and caches. ``mask``: "full", every slot holds a position
-    before the query's (a cache filled to C); "sweep", the reference
-    sweep's draws, kv_pos in [-1, 300) and q_pos in [100, 300], with row
-    0 all -1; "tail", as "sweep" with every slot but the last 5 set to
-    -1 (every split before the last has no valid slot)."""
+    before the query's (a cache filled to C); "ring", a ring of C slots
+    that has wrapped, as a decode step leaves it: row r's query at
+    position C + 37 (r + 1), written into its slot, and every slot j
+    holding the newest position p <= q_pos with p = j mod C; "sweep", the
+    reference sweep's draws, kv_pos in [-1, 300) and q_pos in [100,
+    300], with row 0 all -1; "tail", as "sweep" with every slot but the
+    last 5 set to -1 (every split before the last has no valid slot)."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = randn(gen, (b, h, d), dev, dtype)
@@ -1265,6 +1306,12 @@ def decode_inputs(seed, b, h, hkv, d, c, dtype, dev, mask="sweep"):
             .repeat(b, 1)
         q_pos = torch.full((b,), c, dtype=torch.int32, device=dev)
         return q, k, v, kv_pos, q_pos
+    if mask == "ring":
+        q_pos = c + 37 * torch.arange(1, b + 1, dtype=torch.int32,
+                                      device=dev)
+        slot = torch.arange(c, dtype=torch.int32, device=dev)[None]
+        kv_pos = q_pos[:, None] - (q_pos[:, None] - slot) % c
+        return q, k, v, kv_pos.to(torch.int32), q_pos
     kv_pos = torch.randint(-1, 300, (b, c), generator=gen, device=dev,
                            dtype=torch.int32)
     q_pos = torch.randint(100, 301, (b,), generator=gen, device=dev,
@@ -1449,15 +1496,17 @@ PREFILL_REL = 0.06
 NEAR_TIE = 0.01
 
 
-def phase_prefill_logits(dev, cfg, batch: int, prompt: int) -> dict:
+def phase_prefill_logits(dev, cfg, batch: int, prompt: int,
+                         params=None) -> dict:
     """One prefill of ``batch`` x ``prompt`` tokens at ``cfg``'s widths
-    (weights from generator seed 0) under ``kernels="cuda"`` and
-    ``"ref"``: the last position's logits finite, within ``PREFILL_REL``
-    x max |logit| of the plain run, and the greedy first tokens equal
-    except at a near-tie (``NEAR_TIE``)."""
+    (``params``, or weights from generator seed 0) under
+    ``kernels="cuda"`` and ``"ref"``: the last position's logits finite,
+    within ``PREFILL_REL`` x max |logit| of the plain run, and the greedy
+    first tokens equal except at a near-tie (``NEAR_TIE``)."""
     import torch
     from repro_torch.models import model
-    params = model.init_params(cfg, seed=0, device=dev)
+    if params is None:
+        params = model.init_params(cfg, seed=0, device=dev)
     tokens = prompts(5, batch, prompt, cfg.vocab_size, dev)
     got, _ = model.prefill(params, cfg, {"tokens": tokens}, kernels="cuda")
     want, _ = model.prefill(params, cfg, {"tokens": tokens}, kernels="ref")
@@ -1481,7 +1530,7 @@ def phase_prefill_logits(dev, cfg, batch: int, prompt: int) -> dict:
             fail(f"prefill logits {cfg.name}: row {int(row)} flips its first "
                  f"token with a top-2 gap {gap} above {near}")
     row = {"phase": "prefill_logits", "arch": cfg.name, "dtype": cfg.dtype,
-           "batch": batch, "prompt": prompt,
+           "n_layers": cfg.n_layers, "batch": batch, "prompt": prompt,
            "max_abs_delta": delta.max().item(), "max_abs_logit": scale,
            "rel": rel, "rel_bound": PREFILL_REL,
            "first_tokens_equal": not flips, "flips": flips}
@@ -1559,19 +1608,21 @@ def expected_launches(cfg, steps: int) -> tuple[dict, dict]:
 
 
 def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
-                 steps: int, partial: int, kernels: str = "cuda") -> dict:
-    """``ServingEngine`` at ``cfg``'s widths, weights from generator seed
-    0: ``b == slots`` (prompts adopt the prefill cache: an S-deep ring,
-    or the Mamba-2 states) and ``b = partial < slots`` (merged into the
-    engine's cache), ``steps`` greedy tokens each. The path's kernel
-    counters, set to 0 just before each ``generate`` and just before one
-    more decode step and read just after, must show exactly the launches
-    of ``expected_launches``. Prefill and one decode step are profiled."""
+                 steps: int, partial: int, kernels: str = "cuda",
+                 params=None) -> dict:
+    """``ServingEngine`` at ``cfg``'s widths (``params``, or weights from
+    generator seed 0): ``b == slots`` (prompts adopt the prefill cache:
+    an S-deep ring, or the recurrent states) and ``b = partial < slots``
+    (merged into the engine's cache), ``steps`` greedy tokens each. The
+    path's kernel counters, set to 0 just before each ``generate`` and
+    just before one more decode step and read just after, must show
+    exactly the launches of ``expected_launches``. Prefill and one decode step are profiled."""
     import torch
     from repro_torch.models import model
     from repro_torch.serving import ServingEngine
     counters = path_kernels(cfg) if kernels == "cuda" else ()
-    params = model.init_params(cfg, seed=0, device=dev)
+    if params is None:
+        params = model.init_params(cfg, seed=0, device=dev)
     out = {"launches": {k.__name__: 0 for k in path_kernels(cfg)}}
     for label, b in (("b_eq_slots", slots), ("b_lt_slots", partial)):
         if dev.type == "cuda":
@@ -1611,14 +1662,14 @@ def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
             t0 = time.perf_counter()
             eng.step()                     # ends in a device-to-host copy
             step_ms.append((time.perf_counter() - t0) * 1e3)
-        first = eng.cache["layers"][0]
-        cache_len = first["k"].shape[1] if "k" in first else None
+        first = next((c for c in eng.cache["layers"] if "k" in c), None)
+        cache_len = None if first is None else first["k"].shape[1]
         depth = f"C{cache_len}" if cache_len else "state"
         prof_prefill = profile_call(lambda: eng._prefill(params, batch),
                                     dev, f"prefill/{label}/S{prompt}")
         prof = profile_call(eng.step, dev, f"decode/{label}/{depth}")
         row = {"phase": "engine", "arch": cfg.name, "cell": label,
-               "dtype": cfg.dtype,
+               "dtype": cfg.dtype, "n_layers": cfg.n_layers,
                "batch": b, "slots": slots, "prompt": prompt,
                "steps": steps, "cache_len": cache_len,
                "generate_s": seconds, "launches": counts,
@@ -1639,16 +1690,151 @@ def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
     return out
 
 
-def flash_bytes_ops(b, s, h, d, elem=2) -> tuple[int, int]:
-    """q, k, v read once and out written once; causal QK^T and PV, 2
-    FLOP per multiply-add over the s(s+1)/2 visible pairs."""
-    return 4 * b * s * h * d * elem, 4 * b * h * d * (s * (s + 1) // 2)
+# ------------------------------------- the expert-free decoders: phases --
+# Per architecture: float32 parity (``phase_model_parity``, prompts of
+# ``parity["prompt"]``), then bf16 serving (``phase_prefill_logits`` and
+# ``phase_engine``). RecurrentGemma-2B runs whole in both, its 2048-token
+# prompts filling the local layers' 2048-slot ring so that every decode
+# step wraps it; the dense configs' parity runs one pattern period and
+# their serving the most layers that fit (``served_depth``). Gemma2's
+# sliding-window variant (``@sw``, global layers windowed to 32768) runs
+# the parity only: below 32768 tokens it computes what Gemma2 does.
+DECODERS = {
+    "recurrentgemma_2b": dict(
+        whole_parity=True, parity=dict(batch=8, prompt=2048, steps=16),
+        serve=dict(slots=8, max_len=2048, prompt=2048, steps=64, partial=4)),
+    "phi3_medium_14b": dict(
+        parity=dict(batch=8, prompt=512, steps=16),
+        serve=dict(slots=8, max_len=2048, prompt=512, steps=32, partial=4)),
+    "gemma2_27b": dict(
+        parity=dict(batch=8, prompt=512, steps=16),
+        serve=dict(slots=8, max_len=2048, prompt=512, steps=32, partial=4)),
+    "gemma2_27b@sw": dict(parity=dict(batch=8, prompt=512, steps=16)),
+    "chameleon_34b": dict(
+        parity=dict(batch=8, prompt=512, steps=16),
+        serve=dict(slots=8, max_len=2048, prompt=512, steps=32, partial=4)),
+    "nemotron_4_340b": dict(
+        parity=dict(batch=8, prompt=512, steps=16),
+        serve=dict(slots=8, max_len=2048, prompt=512, steps=32, partial=4)),
+}
+# Memory kept free beside a bf16 engine's weights and caches: the
+# prefill's activations (Nemotron's 8 x 512 x 73728 MLP intermediate and
+# its float32 copies, ~3.6 GB), the plain attention's float32 scores and
+# the allocator's slack.
+ENGINE_RESERVE = 12e9
 
 
-def decode_bytes_ops(b, c, h, d, elem=2) -> tuple[int, int]:
-    """q and out, the K and V caches, kv_pos and q_pos; every slot of
-    this run's cache is valid, so every one is needed."""
-    nbytes = 2 * b * h * d * elem + 2 * b * c * h * d * elem + b * c * 4 \
+def decoder_config(arch: str, dtype: str):
+    """The published config of ``arch`` (``"gemma2_27b@sw"``: Gemma2's
+    ``CONFIG_SW``) in ``dtype``."""
+    if arch == "gemma2_27b@sw":
+        from repro_torch.configs.gemma2_27b import CONFIG_SW
+        return dataclasses.replace(CONFIG_SW, dtype=dtype)
+    return full_width(arch, dtype)
+
+
+def engine_bytes(cfg, slots: int, max_len: int) -> int:
+    """``cfg``'s weights (``model.param_count`` on the meta device) and
+    two engine caches: the b == slots path holds the engine's and the
+    prefill's until it adopts the latter."""
+    import torch
+    from repro_torch.models import model
+    cache = model.init_cache(cfg, slots, max_len, device="meta")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for layer in cache["layers"] for t in layer.values())
+    elem = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    return model.param_count(cfg) * elem + 2 * cache_bytes
+
+
+def served_depth(dev, cfg, slots: int, max_len: int) -> int:
+    """The published depth when its weights and caches fit the card's free
+    memory less ``ENGINE_RESERVE``, else the most whole pattern periods
+    that do."""
+    import torch
+    free = torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda" else 1e15
+    room = free - ENGINE_RESERVE
+    if engine_bytes(cfg, slots, max_len) <= room:
+        return cfg.n_layers
+    n = cfg.period
+    while n + cfg.period < cfg.n_layers and engine_bytes(
+            dataclasses.replace(cfg, n_layers=n + cfg.period), slots,
+            max_len) <= room:
+        n += cfg.period
+    if engine_bytes(dataclasses.replace(cfg, n_layers=n), slots,
+                    max_len) > room:
+        fail(f"{cfg.name}: one pattern period does not fit {room / 1e9} GB")
+    return n
+
+
+def emit_depth(arch: str, phase: str, cfg, published: int, why: str) -> None:
+    emit({"phase": "depth", "arch": arch, "run": phase,
+          "n_layers": cfg.n_layers, "published": published,
+          "cut": cfg.n_layers != published, "why": why})
+
+
+def phase_decoders(dev) -> dict:
+    """Every expert-free decoder of ``DECODERS`` at full width: float32
+    parity, then (where it has a ``serve`` entry) a bf16 prefill under
+    both kernel routes and ``phase_engine``. Each depth run against the
+    published one is printed (``phase: depth``). Returns arch -> {
+    "launches": the engine's counts, "parity": ..., "prefill": ...}."""
+    import torch
+    from repro_torch.models import model
+    out = {}
+    for arch, spec in DECODERS.items():
+        cfg = decoder_config(arch, "float32")
+        published = cfg.n_layers
+        if not spec.get("whole_parity"):
+            cfg = dataclasses.replace(cfg, n_layers=cfg.period)
+        emit_depth(arch, "parity_float32", cfg, published,
+                   "whole" if cfg.n_layers == published
+                   else "one pattern period")
+        row = {"parity": phase_model_parity(dev, cfg, **spec["parity"])}
+        emit({"phase": "model_parity_summary", "arch": arch,
+              "n_layers": cfg.n_layers, **row["parity"]})
+        torch.cuda.empty_cache()
+        if "serve" in spec:
+            serve = spec["serve"]
+            cfg = decoder_config(arch, "bfloat16")
+            cfg = dataclasses.replace(cfg, n_layers=served_depth(
+                dev, cfg, serve["slots"], serve["max_len"]))
+            emit_depth(arch, "serve_bfloat16", cfg, published,
+                       "whole" if cfg.n_layers == published else
+                       "the most layers whose weights and caches fit")
+            params = model.init_params(cfg, seed=0, device=dev)
+            row["prefill"] = phase_prefill_logits(
+                dev, cfg, batch=serve["slots"], prompt=serve["prompt"],
+                params=params)
+            torch.cuda.empty_cache()
+            row["engine"] = phase_engine(dev, cfg, **serve, params=params)
+            row["launches"] = row["engine"]["launches"]
+            del params
+            torch.cuda.empty_cache()
+        out[arch] = row
+    return out
+
+
+def flash_bytes_ops(b, s, h, d, elem=2, hkv=None, window=0
+                    ) -> tuple[int, int]:
+    """q and out (``h`` heads), k and v (``hkv``, default ``h``) read or
+    written once; causal QK^T and PV, 2 FLOP per multiply-add over the
+    visible pairs: s(s+1)/2, or with a window w each query's last
+    min(i + 1, w) keys."""
+    hkv = h if hkv is None else hkv
+    if window and window < s:
+        pairs = window * (window + 1) // 2 + (s - window) * window
+    else:
+        pairs = s * (s + 1) // 2
+    return (2 * b * s * h * d + 2 * b * s * hkv * d) * elem, \
+        4 * b * h * d * pairs
+
+
+def decode_bytes_ops(b, c, h, d, elem=2, hkv=None) -> tuple[int, int]:
+    """q and out, the K and V caches (``hkv`` heads, default ``h``),
+    kv_pos and q_pos; every slot of this run's cache is valid (a full or
+    wrapped ring inside the window), so every one is needed."""
+    hkv = h if hkv is None else hkv
+    nbytes = 2 * b * h * d * elem + 2 * b * c * hkv * d * elem + b * c * 4 \
         + b * 4
     return nbytes, 4 * b * h * c * d
 
@@ -1659,60 +1845,137 @@ def bf16_bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# Shapes the attention kernels are timed at, bf16: label -> (b, s or c, h,
+# hkv, d, kwargs, decode mask). The first of each kernel is its main-path
+# shape (StableLM-3B served); then its second (B 4 prefill, C 512
+# decode); then the served heads of RecurrentGemma-2B (8 x 2048 prompts,
+# the 2048 window; decode on the wrapped ring), Gemma2-27B (8 x 512
+# prompts, softcap 50, its local layers' 4096 window; decode on a wrapped
+# 2048-slot ring) and Nemotron-4-340B (head_dim 192).
+ATTN_TIME_SHAPES = {
+    "flash_attention": {
+        "b8_s512_h32_d80_bf16_causal": (8, 512, 32, 32, 80, {}, None),
+        "b4_s512_h32_d80_bf16_causal": (4, 512, 32, 32, 80, {}, None),
+        "rg_b8_s2048_h10_hkv1_d256_w2048": (
+            8, 2048, 10, 1, 256, dict(window=2048), None),
+        "gemma2_b8_s512_h32_hkv16_d128_w4096_cap50": (
+            8, 512, 32, 16, 128, dict(window=4096, softcap=50.0,
+                                      scale=GEMMA2_SCALE), None),
+        "nemotron_b8_s512_h96_hkv8_d192": (8, 512, 96, 8, 192, {}, None),
+    },
+    "decode_attention": {
+        "b8_c2048_h32_d80_bf16": (8, 2048, 32, 32, 80, {}, "full"),
+        "b8_c512_h32_d80_bf16": (8, 512, 32, 32, 80, {}, "full"),
+        "rg_b8_c2048_h10_hkv1_d256_w2048_ring": (
+            8, 2048, 10, 1, 256, dict(window=2048), "ring"),
+        "gemma2_b8_c2048_h32_hkv16_d128_cap50_ring": (
+            8, 2048, 32, 16, 128, dict(window=4096, softcap=50.0,
+                                       scale=GEMMA2_SCALE), "ring"),
+        "nemotron_b8_c2048_h96_hkv8_d192": (
+            8, 2048, 96, 8, 192, {}, "full"),
+    },
+}
+
+
+def sdpa(q, k, v, **kw):
+    """``scaled_dot_product_attention`` on (B, H, S, D) tensors, with
+    ``enable_gqa`` where k and v have fewer heads than q."""
+    import torch.nn.functional as F
+    if k.shape[1] != q.shape[1]:
+        kw["enable_gqa"] = True
+    return lambda: F.scaled_dot_product_attention(q, k, v, **kw)
+
+
 def phase_attention_times(dev) -> dict:
     """Kernel, plain version and the one PyTorch call computing the same
-    function (``scaled_dot_product_attention``: causal on pre-transposed
-    (B, H, S, D) tensors; for decode with a boolean mask from kv_pos made
-    outside the timed region), in bf16 at the model's shapes: flash at
-    B 8 and B 4 (S 512), decode at C 2048 (4 live requests' cache) and
-    C 512 (8 live), B 8; ``host_ms`` is the wrapper's host time per call.
-    Returns kernel -> shape label -> row; the first label of each kernel
-    is its main-path shape."""
+    function (``scaled_dot_product_attention``: causal, or with a window
+    as a boolean mask, on pre-transposed (B, H, S, D) tensors; for decode
+    with a boolean mask from kv_pos; masks made outside the timed region;
+    none with a softcap, which SDPA lacks), in bf16 at every shape of
+    ``ATTN_TIME_SHAPES``; ``host_ms`` is the wrapper's host time per call.
+    Each shape's kernel output is first held to its plain version on the
+    same inputs within ``MODEL_BF16_TOL`` (the served batch, and so the
+    decode kernel's split layout, as the main path gives it). Returns
+    kernel -> shape label -> row."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ref
+    from repro_torch.models.layers import float32_gemms
     flash, decode = attention_kernels()
-    m = FLASH_MAIN
     out = {"flash_attention": {}, "decode_attention": {}}
-    for b in (m["b"], 4):
-        q, k, v = flash_inputs(910, b, m["s"], m["s"], m["h"], m["h"],
-                               m["d"], torch.bfloat16, dev)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        nbytes, ops = flash_bytes_ops(b, m["s"], m["h"], m["d"])
+
+    def held(kernel, label, got, plain):
+        with float32_gemms():
+            want = plain()
+        return compare_attention(kernel, f"timed_{label}", got, want,
+                                 "bfloat16")
+    for label, (b, s, h, hkv, d, kw, _) in \
+            ATTN_TIME_SHAPES["flash_attention"].items():
+        q, k, v = flash_inputs(910, b, s, s, h, hkv, d, torch.bfloat16, dev)
+        window = kw.get("window", 0)
+        library = None
+        if not kw.get("softcap"):
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            if window and window < s:
+                i = torch.arange(s, device=dev)
+                mask = (i[None, :] <= i[:, None]) \
+                    & (i[:, None] - i[None, :] < window)
+                library = sdpa(qt, kt, vt, attn_mask=mask)
+            else:
+                library = sdpa(qt, kt, vt, is_causal=True)
+        err = held("flash_attention", label, flash(q, k, v, **kw),
+                   lambda: ref.flash_attention_ref(q, k, v, **kw))
+        nbytes, ops = flash_bytes_ops(b, s, h, d, hkv=hkv, window=window)
         bms, by = bf16_bound_ms(nbytes, ops)
-        out["flash_attention"][f"b{b}_s512_h32_d80_bf16_causal"] = dict(
-            ms=time_launches(lambda: flash(q, k, v), dev, n=100),
-            plain_ms=time_launches(lambda: ref.flash_attention_ref(q, k, v),
-                                   dev, n=100),
-            library_ms=time_launches(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), dev, n=100),
-            host_ms=time_launches(lambda: flash(q, k, v), dev, n=100,
+        out["flash_attention"][label] = dict(
+            max_abs_err=err,
+            ms=time_launches(lambda: flash(q, k, v, **kw), dev, n=100),
+            plain_ms=time_launches(
+                lambda: ref.flash_attention_ref(q, k, v, **kw), dev, n=100),
+            library_ms=None if library is None else
+            time_launches(library, dev, n=100),
+            host_ms=time_launches(lambda: flash(q, k, v, **kw), dev, n=100,
                                   host=True),
             bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
-    m = DECODE_MAIN
-    for c in (m["c"], 512):
+        del q, k, v, library
+    for label, (b, c, h, hkv, d, kw, mask) in \
+            ATTN_TIME_SHAPES["decode_attention"].items():
         q, kc, vc, kv_pos, q_pos = decode_inputs(
-            911, m["b"], m["h"], m["h"], m["d"], c, torch.bfloat16, dev,
-            "full")
-        qd = q[:, :, None, :]
-        kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
-        mask = ((kv_pos >= 0) & (kv_pos <= q_pos[:, None]))[:, None, None, :]
-        nbytes, ops = decode_bytes_ops(m["b"], c, m["h"], m["d"])
+            911, b, h, hkv, d, c, torch.bfloat16, dev, mask)
+        library = None
+        if not kw.get("softcap"):
+            qd = q[:, :, None, :]
+            kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+            valid = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+            if kw.get("window"):
+                valid &= kv_pos > q_pos[:, None] - kw["window"]
+            library = sdpa(qd, kt, vt, attn_mask=valid[:, None, None, :])
+        err = held("decode_attention", label,
+                   decode(q, kc, vc, kv_pos, q_pos, **kw),
+                   lambda: ref.decode_attention_ref(q, kc, vc, kv_pos,
+                                                    q_pos, **kw))
+        nbytes, ops = decode_bytes_ops(b, c, h, d, hkv=hkv)
         bms, by = bf16_bound_ms(nbytes, ops)
-        out["decode_attention"][f"b8_c{c}_h32_d80_bf16"] = dict(
-            ms=time_launches(lambda: decode(q, kc, vc, kv_pos, q_pos), dev,
-                             n=100),
+        out["decode_attention"][label] = dict(
+            max_abs_err=err,
+            ms=time_launches(lambda: decode(q, kc, vc, kv_pos, q_pos, **kw),
+                             dev, n=100),
             plain_ms=time_launches(lambda: ref.decode_attention_ref(
-                q, kc, vc, kv_pos, q_pos), dev, n=100),
-            library_ms=time_launches(lambda: F.scaled_dot_product_attention(
-                qd, kt, vt, attn_mask=mask), dev, n=100),
-            host_ms=time_launches(lambda: decode(q, kc, vc, kv_pos, q_pos),
-                                  dev, n=100, host=True),
+                q, kc, vc, kv_pos, q_pos, **kw), dev, n=100),
+            library_ms=None if library is None else
+            time_launches(library, dev, n=100),
+            host_ms=time_launches(lambda: decode(q, kc, vc, kv_pos, q_pos,
+                                                 **kw), dev, n=100,
+                                  host=True),
             bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+        del q, kc, vc, library
     for name, rows in out.items():
         for shape, row in rows.items():
             emit({"phase": "times", "kernel": name, "shape": shape, **row,
-                  "x_library": row["ms"] / row["library_ms"],
+                  "x_library": None if row["library_ms"] is None else
+                  row["ms"] / row["library_ms"],
+                  "library": "scaled_dot_product_attention"
+                  if row["library_ms"] is not None else
+                  "none: SDPA has no softcap",
                   "x_bound": row["ms"] / row["bound_ms"]})
     return out
 
@@ -2391,6 +2654,13 @@ def main() -> int:
                          **MAMBA_SERVE)
     torch.cuda.empty_cache()
     ssd_times = phase_ssd_times(dev)
+    torch.cuda.empty_cache()
+
+    # the expert-free decoders: RecurrentGemma-2B whole, the dense
+    # configs at full width (parity one period, serving the depth that
+    # fits)
+    decoders = phase_decoders(dev)
+    torch.cuda.empty_cache()
 
     # the bucketed twin: no hand-written kernel on its path (it routes
     # through the plain torch select/guard), counted all the same
@@ -2429,7 +2699,7 @@ def main() -> int:
     sources = {"flash_attention": "src/repro/kernels/flash_attention.py:84",
                "decode_attention": "src/repro/kernels/decode_attention.py:72"}
     for k in attention_kernels():
-        (shape, tm), (shape2, tm2) = attn_times[k.__name__].items()
+        (shape, tm), (shape2, tm2), *others = attn_times[k.__name__].items()
         rows.append({
             "name": k.__name__, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/attention.cu",
@@ -2440,7 +2710,15 @@ def main() -> int:
             "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
             "shape": shape,
             "shape2": shape2, "ms2": tm2["ms"],
-            "library_ms2": tm2["library_ms"], "bound_ms2": tm2["bound_ms"]})
+            "library_ms2": tm2["library_ms"], "bound_ms2": tm2["bound_ms"],
+            # the expert-free decoders' launches and served heads, beside
+            # StableLM-3B's above
+            "launches_by_arch": {a: row["launches"][k.__name__]
+                                 for a, row in decoders.items()
+                                 if "launches" in row},
+            "shapes": {label: {key: row[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err")} for label, row in others}})
     tm, long = ssd_times["main"], ssd_times["long"]
     rows.append({
         "name": "ssd_scan", "route": "cuda",

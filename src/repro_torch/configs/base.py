@@ -20,17 +20,13 @@ ARCH_IDS = [
     "whisper_small", "phi3_medium_14b",
 ]
 #: architectures the port runs
-PORTED = ("stablelm_3b", "mamba2_370m")
+PORTED = ("stablelm_3b", "mamba2_370m", "recurrentgemma_2b", "gemma2_27b",
+          "phi3_medium_14b", "chameleon_34b", "nemotron_4_340b")
 #: the others -> where they wait in ROADMAP.md
 WAITING = {
     "dbrx_132b": "queue 1 item b (MoE layers)",
     "arctic_480b": "queue 1 item b (MoE layers)",
-    "recurrentgemma_2b": "queue 1 item c (RG-LRU layers)",
     "whisper_small": "queue 1 item d (the encoder-decoder)",
-    "chameleon_34b": "queue 1 item h (the other dense-decoder configs)",
-    "gemma2_27b": "queue 1 item h (the other dense-decoder configs)",
-    "nemotron_4_340b": "queue 1 item h (the other dense-decoder configs)",
-    "phi3_medium_14b": "queue 1 item h (the other dense-decoder configs)",
 }
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -34,7 +35,15 @@ from repro_torch.kernels import ops
 
 class Init:
     """Draws weights: a seeded ``torch.Generator`` on ``device``. On the
-    ``meta`` device it only shapes them (``model.param_count``)."""
+    ``meta`` device it only shapes them (``model.param_count``).
+
+    A weight is drawn in blocks of rows of at most ``DRAW_BLOCK``
+    elements, each Normal(0, 1) in float32, scaled and cast into the
+    result: a weight of up to ``DRAW_BLOCK`` elements is one draw, and a
+    larger one never needs a float32 buffer of its full size beside it
+    (a 256000 x 18432 head would need 18.9 GB)."""
+
+    DRAW_BLOCK = 1 << 28
 
     def __init__(self, seed: int, device="cuda"):
         self.device = torch.device(device)
@@ -49,9 +58,14 @@ class Init:
         """Normal(0, std^2) in float32, cast to ``dtype``."""
         if self.gen is None:
             return torch.empty(shape, dtype=dtype, device=self.device)
-        w = torch.randn(shape, generator=self.gen, dtype=torch.float32,
-                        device=self.device)
-        return w.mul_(std).to(dtype)
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        rows = max(1, self.DRAW_BLOCK // math.prod(shape[1:]))
+        for i in range(0, shape[0], rows):
+            block = out[i:i + rows]
+            block.copy_(torch.randn(block.shape, generator=self.gen,
+                                    dtype=torch.float32,
+                                    device=self.device).mul_(std))
+        return out
 
     def full(self, shape: tuple, value: float, dtype=torch.float32
              ) -> torch.Tensor:

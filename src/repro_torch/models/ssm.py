@@ -74,10 +74,12 @@ def _split(cfg: ArchConfig, proj: torch.Tensor):
 
 
 def _causal_conv(conv_w: torch.Tensor, conv_b: torch.Tensor,
-                 u: torch.Tensor, buf: torch.Tensor | None = None):
-    """Depthwise causal conv, then SiLU. u: (B, L, C); buf: the W-1
-    inputs before u, or None (zeros). Returns (y (B, L, C) in u's dtype,
-    the last W-1 inputs as a new contiguous buffer for decode)."""
+                 u: torch.Tensor, buf: torch.Tensor | None = None,
+                 silu: bool = True):
+    """Depthwise causal conv, then SiLU unless ``silu`` is False (Mamba
+    applies it, Griffin does not). u: (B, L, C); buf: the W-1 inputs
+    before u, or None (zeros). Returns (y (B, L, C) in u's dtype, the
+    last W-1 inputs as a new contiguous buffer for decode)."""
     w = conv_w.shape[0]
     length = u.shape[1]
     if buf is None:
@@ -89,7 +91,9 @@ def _causal_conv(conv_w: torch.Tensor, conv_b: torch.Tensor,
     y = ext[:, 0:length] * conv_w[0]
     for i in range(1, w):
         y = y + ext[:, i:i + length] * conv_w[i]
-    y = F.silu((y + conv_b).to(torch.float32))
+    y = (y + conv_b).to(torch.float32)
+    if silu:
+        y = F.silu(y)
     new_buf = ext[:, ext.shape[1] - (w - 1):].clone(
         memory_format=torch.contiguous_format)
     return y.to(u.dtype), new_buf

@@ -10,12 +10,14 @@ counterpart and is dropped.
 Three entry points: ``forward`` (full logits), ``prefill`` (last-token
 logits plus the cache), ``decode_step`` (one token per sequence), each
 run under ``layers.float32_gemms``.
-Layer kinds ``"attn"``, ``"local"`` (attention with a KV cache) and
-``"mamba2"`` (``models/ssm.py``, with a conv buffer and an SSM state) are
-ported; ``"rglru"`` and mixture-of-experts layers raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item where they wait.
-As in the reference, a ``"mamba2"`` layer is the whole layer: it never
-carries an MLP, whatever ``d_ff`` is.
+Every layer kind of the reference is ported: ``"attn"`` and ``"local"``
+(attention with a KV cache), ``"mamba2"`` (``models/ssm.py``, with a conv
+buffer and an SSM state) and ``"rglru"`` (``models/rglru.py``, with a
+conv buffer and a hidden state); ``NOT_PORTED`` is empty. Mixture-of-
+experts layers raise ``NotImplementedError`` naming the ``ROADMAP.md``
+item where they wait. As in the reference, a ``"mamba2"`` layer is the
+whole layer: it never carries an MLP, whatever ``d_ff`` is; an
+``"rglru"`` layer carries one, as an attention layer does.
 """
 from __future__ import annotations
 
@@ -24,12 +26,14 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, rglru, ssm
 
 ATTN_KINDS = ("attn", "local")
-NOT_PORTED = {
-    "rglru": "ROADMAP.md queue 1 item c (RG-LRU layers)",
-}
+#: recurrent layer kind -> its module: init, forward (with state,
+#: return_state and kernels), init_state and an in-place decode_step
+MIXERS = {"mamba2": ssm, "rglru": rglru}
+#: layer kind -> the ROADMAP.md item where it waits (none left)
+NOT_PORTED: dict[str, str] = {}
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
@@ -43,7 +47,7 @@ def check_ported(cfg: ArchConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: {kind!r} layers are not ported yet: "
                 f"{NOT_PORTED[kind]}")
-        if kind not in ATTN_KINDS + ("mamba2",):
+        if kind not in ATTN_KINDS + tuple(MIXERS):
             raise ValueError(f"unknown layer kind {kind}")
     if cfg.n_experts > 0:
         raise NotImplementedError(
@@ -76,7 +80,8 @@ def cache_len_for(cfg: ArchConfig, kind: str, max_len: int) -> int:
 
 
 def _has_mlp(cfg: ArchConfig, kind: str) -> bool:
-    # Mamba-2 blocks are the whole layer; attention layers carry an MLP.
+    # Mamba-2 blocks are the whole layer; attention/rglru layers carry an
+    # MLP.
     return cfg.d_ff > 0 and kind != "mamba2"
 
 
@@ -87,7 +92,7 @@ def layer_init(init: layers.Init, cfg: ArchConfig, kind: str) -> dict:
     if kind in ATTN_KINDS:
         p["attn"] = layers.attention_init(init, attn_spec(cfg, kind), dt)
     else:
-        p["mixer"] = ssm.init(init, cfg, dt)
+        p["mixer"] = MIXERS[kind].init(init, cfg, dt)
     if _has_mlp(cfg, kind):
         p["norm2"] = layers.norm_init(init, cfg.norm, cfg.d_model)
         p["mlp"] = layers.mlp_init(init, cfg.d_model, cfg.d_ff,
@@ -129,14 +134,24 @@ def _embed(params: dict, cfg: ArchConfig, inp: torch.Tensor) -> torch.Tensor:
     return params["embed"][inp.long()]
 
 
+#: float32 elements of the head upcast at a time in ``_logits``
+HEAD_BLOCK = 1 << 28
+
+
 def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm and head with a float32 result. bf16 x bf16 products
     are exact in float32, so a float32 GEMM of the upcast operands is
     the reference's bf16 product with float32 accumulation and output; a
-    bf16 GEMM would round the logits to bf16 and flip greedy tokens."""
+    bf16 GEMM would round the logits to bf16 and flip greedy tokens. A
+    head of more than ``HEAD_BLOCK`` elements is upcast a block of
+    vocabulary columns at a time (each logit is its own column's sum),
+    so no float32 copy of a whole 18432 x 256000 head is made."""
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(x.to(torch.float32), head.to(torch.float32))
+    x = x.to(torch.float32)
+    parts = [torch.matmul(x, block.to(torch.float32)) for block in
+             head.split(max(1, HEAD_BLOCK // head.shape[0]), dim=1)]
+    logits = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
     if cfg.final_softcap > 0:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return logits
@@ -162,7 +177,7 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             x = x + layers.self_attention(p["attn"], attn_spec(cfg, kind), h,
                                           positions, kernels)
         else:
-            x = x + ssm.forward(p["mixer"], cfg, h, kernels=kernels)
+            x = x + MIXERS[kind].forward(p["mixer"], cfg, h, kernels=kernels)
         x = _mlp_block(p, cfg, kind, x)
     return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32,
                                                 device=x.device)
@@ -171,8 +186,8 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------- caches
 def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                      device="cuda") -> dict:
-    if kind == "mamba2":
-        return ssm.init_state(cfg, batch, dtype_of(cfg), device)
+    if kind in MIXERS:
+        return MIXERS[kind].init_state(cfg, batch, dtype_of(cfg), device)
     c = cache_len_for(cfg, kind, max_len)
     shape = (batch, c, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
@@ -187,7 +202,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"
     "pos" (batch, C)} for attention layers, C = max_len for global
     layers, min(window, max_len) for local ones, pos -1 marking a slot
     never written; {"conv" (batch, W-1, conv channels), "ssm" (batch, H,
-    P, N) float32} for Mamba-2 layers, zeros."""
+    P, N) float32} for Mamba-2 layers, {"conv" (batch, W-1, w), "h"
+    (batch, w) float32} for RG-LRU layers, zeros."""
     check_ported(cfg)
     return {"layers": [init_layer_cache(cfg, kind, batch, max_len, device)
                        for kind in layer_kinds(cfg)]}
@@ -200,8 +216,8 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             ) -> tuple[torch.Tensor, dict]:
     """Prefill pass: ((B, V) float32 last-token logits, cache). An
     attention layer's cache depth is ``max_len``, or the prompt length S
-    when it is None (as in the reference); a Mamba-2 layer's state has
-    no depth."""
+    when it is None (as in the reference); a Mamba-2 or RG-LRU layer's
+    state has no depth."""
     x = _embed(params, cfg, tokens)
     b, s = x.shape[:2]
     max_len = max_len or s
@@ -214,8 +230,8 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                 p["attn"], attn_spec(cfg, kind), h, positions,
                 cache_len_for(cfg, kind, max_len), kernels)
         else:
-            y, c = ssm.forward(p["mixer"], cfg, h, return_state=True,
-                               kernels=kernels)
+            y, c = MIXERS[kind].forward(p["mixer"], cfg, h,
+                                        return_state=True, kernels=kernels)
         x = _mlp_block(p, cfg, kind, x + y)
         caches.append(c)
     return _logits(params, cfg, x[:, -1:, :])[:, 0, :], {"layers": caches}
@@ -240,6 +256,6 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             y, _ = layers.self_attention_decode(
                 p["attn"], attn_spec(cfg, kind), h, c, pos, kernels)
         else:
-            y, _ = ssm.decode_step(p["mixer"], cfg, h, c)
+            y, _ = MIXERS[kind].decode_step(p["mixer"], cfg, h, c)
         x = _mlp_block(p, cfg, kind, x + y)
     return _logits(params, cfg, x)[:, 0, :], cache

@@ -61,7 +61,10 @@ def test_port_has_the_slice_modules():
             "models/transformer.py", "models/model.py",
             "serving/engine.py", "models/ssm.py", "kernels/ssd_scan.py",
             "kernels/csrc/ssd.cu", "configs/mamba2_370m.py",
-            "core/jaxsim.py"]
+            "core/jaxsim.py", "models/rglru.py",
+            "configs/recurrentgemma_2b.py", "configs/gemma2_27b.py",
+            "configs/phi3_medium_14b.py", "configs/chameleon_34b.py",
+            "configs/nemotron_4_340b.py"]
     missing = [m for m in want if not (PORT / m).is_file()]
     assert not missing, missing
 
@@ -86,7 +89,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.kernels.ops, repro_torch.convert\n"
             "import repro_torch.models.model, repro_torch.configs\n"
             "import repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
-            "import repro_torch.core.jaxsim\n"
+            "import repro_torch.core.jaxsim, repro_torch.models.rglru\n"
+            "from repro_torch.configs import get_config, PORTED\n"
+            "[get_config(a) for a in PORTED]\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"

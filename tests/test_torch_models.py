@@ -10,6 +10,15 @@ at ``reduced(...)`` widths (2 layers, d_model 256, 4 heads), the
 reference through its pure-jnp attention oracle, the port through the
 plain versions of its attention kernels (``kernels="ref"``).
 
+The expert-free decoders of slice 6 (``DECODERS``: reduced
+``recurrentgemma_2b`` with the pattern (rglru, rglru, local), the four
+dense configs and ``gemma2_27b@sw``) are held the same way at a prompt of
+80 tokens against a 64-token window, so every local layer's ring wraps in
+prefill and in decode; RecurrentGemma's gates are drawn at random in the
+reference's weights before they are carried across (its zero init makes
+r and i a constant 0.5). Their configs equal the reference's field for
+field with equal ``param_count``.
+
 The Mamba-2 cases hold ``repro_torch.models.ssm`` and the reduced
 ``mamba2_370m`` (2 layers, d_model 256, 16 SSM heads of 32, state 16)
 to ``repro.models.ssm`` and the reference model the same way, the SSD
@@ -22,9 +31,12 @@ reference's own float32 kernel bound); logits ``atol = rtol = 1e-4``.
 The largest logit gap measured (prefill and four decode steps, logits
 up to 4.3 in magnitude) is 5.2e-6 on the StableLM config and 4.9e-6 on
 the local-window variant, 4.8e-6 on the reduced Mamba-2 (logits up to
-3.6); cache positions are exact.
+3.6); cache positions are exact. The RG-LRU layers' states (conv buffer
+and float32 hidden state) are held to the layer tolerance: the port's
+doubling scan and XLA's associative scan group their sums differently.
 """
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -87,6 +99,66 @@ def mamba_pair(hybrid: bool = False):
     return jc, tc
 
 
+#: the expert-free decoders ported in slice 6 ("@sw": Gemma2's CONFIG_SW)
+DECODERS = ["recurrentgemma_2b", "gemma2_27b", "gemma2_27b@sw",
+            "phi3_medium_14b", "chameleon_34b", "nemotron_4_340b"]
+#: the reference's param_count of each (printed by it on the CPU)
+PARAMS = {"recurrentgemma_2b": 2_658_736_640,
+          "gemma2_27b": 27_226_704_384, "gemma2_27b@sw": 27_226_704_384,
+          "phi3_medium_14b": 14_659_507_200,
+          "chameleon_34b": 34_293_436_416,
+          "nemotron_4_340b": 341_029_195_776}
+
+
+def published_pair(arch: str):
+    """(reference cfg, port cfg) as published; "gemma2_27b@sw" is each
+    package's ``gemma2_27b.CONFIG_SW``."""
+    if arch.endswith("@sw"):
+        name = arch.removesuffix("@sw")
+        return (importlib.import_module(f"repro.configs.{name}").CONFIG_SW,
+                importlib.import_module(
+                    f"repro_torch.configs.{name}").CONFIG_SW)
+    return j_get_config(arch), get_config(arch)
+
+
+def decoder_pair(arch: str):
+    """(reference cfg, port cfg) reduced: 2 layers (RecurrentGemma one
+    (rglru, rglru, local) period), d_model 256, 4 heads, window 64."""
+    jc, tc = published_pair(arch)
+    return j_reduced(jc), reduced(tc)
+
+
+def random_gates(tree: dict, seed: int = 7) -> dict:
+    """``tree`` (a reference ``init_params`` pytree with numpy leaves) with
+    every RG-LRU mixer's gates and Λ redrawn: w_a, w_x ~ N(0, 1), b_a,
+    b_x ~ N(0, 0.25), Λ ~ U(-9, -4.4) (the init's range)."""
+    rng = np.random.default_rng(seed)
+
+    def redraw(layer):
+        mixer = layer.get("mixer", {})
+        if "lam" in mixer:
+            for key, scale in (("w_a", 1.0), ("w_x", 1.0), ("b_a", 0.5),
+                               ("b_x", 0.5)):
+                mixer[key] = (rng.normal(size=mixer[key].shape) * scale) \
+                    .astype(np.float32)
+            mixer["lam"] = rng.uniform(-9, -4.4, mixer["lam"].shape) \
+                .astype(np.float32)
+    for layer in tree.get("blocks", {}).values():
+        redraw(layer)
+    for layer in tree.get("remainder", []):
+        redraw(layer)
+    return tree
+
+
+def decoder_params(jc, tc):
+    """Reference weights from PRNGKey(0) (RG-LRU gates redrawn), as a jax
+    pytree and the port's parameters."""
+    tree = random_gates(jax.tree.map(np.asarray, jm.init_params(
+        jax.random.PRNGKey(0), jc)))
+    return (jax.tree.map(jnp.asarray, tree),
+            model_params_from_numpy(tree, tc, device="cpu"))
+
+
 def params_pair(jc, tc):
     jp = jm.init_params(jax.random.PRNGKey(0), jc)
     tp = model_params_from_numpy(jax.tree.map(np.asarray, jp), tc,
@@ -142,13 +214,40 @@ class TestConfigs:
 
     @pytest.mark.parametrize("change,match", [
         (dict(n_experts=4, top_k=2), "queue 1 item b"),
-        (dict(layer_pattern=("rglru", "attn")), "queue 1 item c"),
         (dict(is_encoder_decoder=True), "queue 1 item d"),
     ])
     def test_unported_layers_raise(self, change, match):
         cfg = dataclasses.replace(cfg_pair()[1], **change)
         with pytest.raises(NotImplementedError, match=match):
             tm.init_params(cfg, device="cpu")
+
+
+    def test_only_moe_and_the_encoder_decoder_wait(self):
+        assert sorted(WAITING) == ["arctic_480b", "dbrx_132b",
+                                   "whisper_small"]
+        assert tt.NOT_PORTED == {}
+
+    def test_unknown_layer_kind_raises(self):
+        cfg = dataclasses.replace(cfg_pair()[1], layer_pattern=("conv",))
+        with pytest.raises(ValueError, match="unknown layer kind"):
+            tm.init_params(cfg, device="meta")
+
+    @pytest.mark.parametrize("arch", DECODERS)
+    def test_decoder_config_matches_the_reference(self, arch):
+        """Field for field, published and reduced, with equal
+        ``param_count`` (computed on the meta device, no allocation)."""
+        jc, tc = published_pair(arch)
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+        assert dataclasses.asdict(reduced(tc)) == \
+            dataclasses.asdict(j_reduced(jc))
+        assert tm.param_count(tc) == jm.param_count(jc) == PARAMS[arch]
+        assert tm.param_count(reduced(tc)) == jm.param_count(j_reduced(jc))
+
+    @pytest.mark.parametrize("arch", [a for a in DECODERS if "@" not in a])
+    def test_get_config_returns_the_module_config(self, arch):
+        mod = importlib.import_module(f"repro_torch.configs.{arch}")
+        assert get_config(arch) is mod.CONFIG
+        assert get_config(arch.replace("_", "-")) is mod.CONFIG
 
 
 # ---------------------------------------------------------------- init --
@@ -631,3 +730,146 @@ def test_mamba2_layer_ignores_d_ff():
     jl_, _ = jm.forward(jp, jc, {"tokens": jnp.asarray(tokens)})
     tl_, _ = tm.forward(tp, tc, {"tokens": t_of(tokens)}, kernels="ref")
     np.testing.assert_allclose(np_of(tl_), np.asarray(jl_), **LOGIT_TOL)
+
+
+# ------------------------------------------------ expert-free decoders --
+def check_layer_caches(tcache, jcache, jc):
+    """Every layer's cache against the reference's: K/V rings and RG-LRU
+    states within the layer tolerance, positions exact."""
+    want_layers = jax_layer_caches(jcache, jc)
+    assert len(tcache["layers"]) == len(want_layers) == jc.n_layers
+    for got, want in zip(tcache["layers"], want_layers):
+        assert set(got) == set(want)
+        for key in want:
+            if key == "pos":
+                np.testing.assert_array_equal(np_of(got[key]), want[key])
+            else:
+                np.testing.assert_allclose(np_of(got[key]), want[key],
+                                           **LAYER_TOL)
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+class TestDecoders:
+    def test_prefill_and_decode_match_the_reference(self, arch):
+        jc, tc = decoder_pair(arch)
+        jp, tp = decoder_params(jc, tc)
+        b, s = 2, 80
+        rng = np.random.default_rng(50)
+        tokens = rng.integers(0, tc.vocab_size, (b, s)).astype(np.int32)
+        jl_, jcache = jm.prefill(jp, jc, {"tokens": jnp.asarray(tokens)})
+        tl_, tcache = tm.prefill(tp, tc, {"tokens": t_of(tokens)},
+                                 kernels="ref")
+        np.testing.assert_allclose(np_of(tl_), np.asarray(jl_), **LOGIT_TOL)
+        check_layer_caches(tcache, jcache, jc)
+        pos = np.full((b,), s, np.int32)
+        for _ in range(4):
+            tok = rng.integers(0, tc.vocab_size, (b,)).astype(np.int32)
+            jl_, jcache = jm.decode_step(jp, jc, jnp.asarray(tok), jcache,
+                                         jnp.asarray(pos))
+            tl_, tcache = tm.decode_step(tp, tc, t_of(tok), tcache,
+                                         t_of(pos), kernels="ref")
+            np.testing.assert_allclose(np_of(tl_), np.asarray(jl_),
+                                       **LOGIT_TOL)
+            pos = pos + 1
+        check_layer_caches(tcache, jcache, jc)
+
+    def test_forward_matches_the_reference(self, arch):
+        jc, tc = decoder_pair(arch)
+        jp, tp = decoder_params(jc, tc)
+        tokens = np.random.default_rng(51).integers(
+            0, tc.vocab_size, (2, 80)).astype(np.int32)
+        jl_, _ = jm.forward(jp, jc, {"tokens": jnp.asarray(tokens)})
+        tl_, aux = tm.forward(tp, tc, {"tokens": t_of(tokens)},
+                              kernels="ref")
+        np.testing.assert_allclose(np_of(tl_), np.asarray(jl_), **LOGIT_TOL)
+        assert float(aux) == 0.0
+
+    def test_init_cache_matches_the_reference(self, arch):
+        jc, tc = decoder_pair(arch)
+        want = jax_layer_caches(jm.init_cache(jc, 3, 24), jc)
+        got = tm.init_cache(tc, 3, 24, device="cpu")["layers"]
+        assert len(got) == len(want) == tc.n_layers
+        for g, w in zip(got, want):
+            assert set(g) == set(w)
+            for key in w:
+                assert tuple(g[key].shape) == w[key].shape
+                assert str(g[key].dtype).split(".")[1] == str(w[key].dtype)
+                np.testing.assert_array_equal(np_of(g[key]), w[key])
+
+    def test_layers_carry_the_reference_blocks(self, arch):
+        """Attention and RG-LRU layers carry an MLP; the mixer dict of an
+        RG-LRU layer holds the reference's leaves."""
+        jc, tc = decoder_pair(arch)
+        p = tm.init_params(tc, device="meta")
+        for layer, kind in zip(p["layers"], tt.layer_kinds(tc)):
+            assert "mlp" in layer and "norm2" in layer
+            assert ("mixer" in layer) == (kind == "rglru")
+            assert ("attn" in layer) == (kind in tt.ATTN_KINDS)
+            if kind == "rglru":
+                assert set(layer["mixer"]) == {
+                    "in_proj", "conv_w", "conv_b", "w_a", "b_a", "w_x",
+                    "b_x", "lam", "out_proj"}
+
+
+def test_recurrentgemma_remainder_layers_carry_across():
+    """26 = 8 x 3 + 2: at 5 layers (one period, then an (rglru, rglru)
+    remainder) the converter unrolls the stacked period and the
+    remainder list in order, leaf for leaf, and the model matches the
+    reference."""
+    jc, tc = decoder_pair("recurrentgemma_2b")
+    jc, tc = (dataclasses.replace(c, n_layers=5) for c in (jc, tc))
+    assert tt.layer_kinds(tc) == ["rglru", "rglru", "local", "rglru",
+                                  "rglru"]
+    jp, tp = decoder_params(jc, tc)
+    np.testing.assert_array_equal(
+        np_of(tp["layers"][1]["mixer"]["lam"]),
+        np.asarray(jp["blocks"]["layer1"]["mixer"]["lam"][0]))
+    np.testing.assert_array_equal(
+        np_of(tp["layers"][4]["mixer"]["w_a"]),
+        np.asarray(jp["remainder"][1]["mixer"]["w_a"]))
+    tokens = np.random.default_rng(52).integers(
+        0, tc.vocab_size, (2, 70)).astype(np.int32)
+    jl_, jcache = jm.prefill(jp, jc, {"tokens": jnp.asarray(tokens)})
+    tl_, tcache = tm.prefill(tp, tc, {"tokens": t_of(tokens)}, kernels="ref")
+    np.testing.assert_allclose(np_of(tl_), np.asarray(jl_), **LOGIT_TOL)
+    check_layer_caches(tcache, jcache, jc)
+
+
+def test_head_is_upcast_in_blocks(monkeypatch):
+    """A head wider than ``HEAD_BLOCK`` elements gives the logits of the
+    whole head's float32 GEMM, tied or not (each logit is its own
+    column's sum; ``atol = rtol = 1e-6`` allows the GEMM another
+    blocking)."""
+    for arch in ("gemma2_27b", "nemotron_4_340b"):
+        _, tc = decoder_pair(arch)
+        params = tm.init_params(tc, seed=0, device="cpu")
+        x = torch.randn((2, 3, tc.d_model),
+                        generator=torch.Generator().manual_seed(9))
+        whole = tt._logits(params, tc, x)
+        monkeypatch.setattr(tt, "HEAD_BLOCK", 100 * tc.d_model + 7)
+        blocks = tt._logits(params, tc, x)
+        monkeypatch.undo()
+        assert blocks.shape == whole.shape == (2, 3, tc.vocab_size)
+        torch.testing.assert_close(blocks, whole, atol=1e-6, rtol=1e-6)
+
+
+def test_large_weights_are_drawn_in_row_blocks(monkeypatch):
+    """A weight above ``Init.DRAW_BLOCK`` elements, bf16 or float32, is
+    drawn a block of rows at a time: seeded (the same seed, the same
+    bits), Normal(0, std^2), and its first block is the first float32
+    draw, scaled and cast. A weight within ``DRAW_BLOCK`` is one draw."""
+    monkeypatch.setattr(tl.Init, "DRAW_BLOCK", 64 * 48 + 5)
+    for dtype in (torch.bfloat16, torch.float32):
+        w = tl.Init(3, "cpu").normal((1000, 64), 0.5, dtype)
+        again = tl.Init(3, "cpu").normal((1000, 64), 0.5, dtype)
+        assert w.shape == (1000, 64) and w.dtype == dtype
+        assert torch.equal(w, again)
+        assert abs(w.float().std().item() - 0.5) < 0.02
+        first = torch.randn((48, 64),
+                            generator=torch.Generator().manual_seed(3),
+                            dtype=torch.float32).mul_(0.5).to(dtype)
+        assert torch.equal(w[:48], first)
+    whole = tl.Init(3, "cpu").normal((40, 64), 0.5, torch.float32)
+    direct = torch.randn((40, 64), generator=torch.Generator()
+                         .manual_seed(3)).mul_(0.5)
+    assert torch.equal(whole, direct)

@@ -12,10 +12,20 @@ The reference's own engine tests (``tests/test_serving.py``) are ported
 as well: manual decode, slot management, positions, the partial-batch
 merge and idle-slot invariance.
 
+The expert-free decoders of slice 6 (reduced ``recurrentgemma_2b``,
+``gemma2_27b`` and its ``@sw`` variant, ``phi3_medium_14b``,
+``chameleon_34b``, ``nemotron_4_340b``; ``TestDecoderEngines``) are served
+on both paths at a 72-token prompt against their 64-token window, so
+every local ring wraps; RecurrentGemma's gates are redrawn in the
+reference's weights first (``test_torch_models.random_gates``), and its
+RG-LRU states ride both paths beside the KV rings.
+
 The reduced Mamba2-370m is served the same way (``TestMamba2Engine``):
 both paths carry its conv buffers and SSM states instead of KV rings, at
 a prompt length no chunk of 64 divides.
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +42,7 @@ from repro_torch.models import model as tm
 from repro_torch.serving import ServingEngine
 from repro_torch.serving.engine import (GenerationResult, _merge_batch,
                                         make_decode_fn, make_prefill_fn)
+from test_torch_models import random_gates
 
 CPU = dict(device="cpu", kernels="ref")
 
@@ -253,3 +264,81 @@ class TestMamba2Engine:
 
 def test_param_count_of_the_served_model():
     assert tm.param_count(get_config("stablelm_3b")) == 2_795_443_200
+
+
+DECODERS = ["recurrentgemma_2b", "gemma2_27b", "gemma2_27b@sw",
+            "phi3_medium_14b", "chameleon_34b", "nemotron_4_340b"]
+
+
+@pytest.fixture(scope="module")
+def decoder_setup():
+    """arch -> (reference cfg, reference params, port cfg, port params)
+    of the reduced ``arch`` ("@sw": Gemma2's CONFIG_SW), each made once
+    per module."""
+    made = {}
+
+    def get(arch: str):
+        if arch not in made:
+            name = arch.removesuffix("@sw")
+            if arch.endswith("@sw"):
+                jc = importlib.import_module(
+                    f"repro.configs.{name}").CONFIG_SW
+                tc = importlib.import_module(
+                    f"repro_torch.configs.{name}").CONFIG_SW
+            else:
+                jc, tc = j_get_config(name), get_config(name)
+            jc, tc = j_reduced(jc), reduced(tc)
+            tree = random_gates(jax.tree.map(np.asarray, jm.init_params(
+                jax.random.PRNGKey(0), jc)))
+            made[arch] = (jc, jax.tree.map(jnp.asarray, tree), tc,
+                          model_params_from_numpy(tree, tc, device="cpu"))
+        return made[arch]
+    return get
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+class TestDecoderEngines:
+    @pytest.mark.parametrize("b,s,steps,slots,max_len", [
+        (3, 72, 5, 3, 16),      # b == slots: adopts the 72-deep prefill ring
+        (2, 72, 5, 4, 96),      # b < slots: merged into the leading slots
+    ], ids=["b_eq_slots", "b_lt_slots"])
+    def test_greedy_tokens_match(self, decoder_setup, arch, b, s, steps,
+                                 slots, max_len):
+        jc, jp, tc, tp = decoder_setup(arch)
+        p = prompts(b * 100 + s, b, s, tc.vocab_size)
+        want = JaxEngine(jc, jp, slots=slots, max_len=max_len) \
+            .generate(jnp.asarray(p), steps=steps)
+        got = ServingEngine(tc, tp, slots=slots, max_len=max_len, **CPU) \
+            .generate(p, steps=steps)
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+
+    def test_cuda_kernels_refuse_a_cpu_engine(self, decoder_setup, arch):
+        _, _, cfg, params = decoder_setup(arch)
+        eng = ServingEngine(cfg, params, slots=2, max_len=16,
+                            device="cpu", kernels="cuda")
+        with pytest.raises(ValueError, match="cuda"):
+            eng.generate(np.ones((2, 4), np.int32), steps=1)
+
+
+def test_recurrentgemma_states_ride_both_paths(decoder_setup):
+    """b < slots: the prefill's RG-LRU states land in the leading slots
+    beside the KV rings, and after three steps every slot's state is the
+    reference's."""
+    jc, jp, tc, tp = decoder_setup("recurrentgemma_2b")
+    p = prompts(8, 2, 72, tc.vocab_size)
+    je = JaxEngine(jc, jp, slots=4, max_len=96)
+    te = ServingEngine(tc, tp, slots=4, max_len=96, **CPU)
+    je.generate(jnp.asarray(p), steps=3)
+    te.generate(p, steps=3)
+    np.testing.assert_array_equal(te.current.numpy(), np.asarray(je.current))
+    jcache = je.cache["blocks"]
+    for i, layer in enumerate(te.cache["layers"]):
+        want = {k: np.asarray(v[0]) for k, v in
+                jcache[f"layer{i}"].items()}
+        assert set(layer) == set(want)
+        for key in want:
+            if key == "pos":
+                np.testing.assert_array_equal(layer[key].numpy(), want[key])
+            else:
+                np.testing.assert_allclose(layer[key].numpy(), want[key],
+                                           atol=2e-5, rtol=2e-5)
