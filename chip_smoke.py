@@ -46,9 +46,12 @@ Each phase prints one JSON object per line:
    row, the model's shapes, and the served heads of phase 16 (h 10 / hkv
    1 / d 256 with a binding 2048 window, decode on a wrapped ring; h 32 /
    hkv 16 / d 128 with softcap 50 and scale 144^-0.5, windowed and
-   global; h 96 / hkv 8 / d 192), within ``2e-5`` in float32 (the
-   reference's own bound) and ``MODEL_BF16_TOL`` in bfloat16 (inside the
-   reference's ``5e-2``);
+   global; h 96 / hkv 8 / d 192) and of phases 16 and 17 at the served
+   batch of 8 (DBRX's rep 6 and Arctic's rep 7 at d 128; Whisper's
+   non-causal encoder over 1500 frames, its non-causal cross-attention
+   at Sq 4 and Sq 1 against 1500 keys, its 448-slot self ring), within
+   ``2e-5`` in float32 (the reference's own bound) and
+   ``MODEL_BF16_TOL`` in bfloat16 (inside the reference's ``5e-2``);
 8. StableLM-3B at full width in float32 (weights from generator seed
    0): prefill of 8 x 512 prompts and 16 decode steps with
    ``kernels="cuda"`` against ``kernels="ref"`` on the latter's tokens,
@@ -106,9 +109,11 @@ Each phase prints one JSON object per line:
    process of its own (device ops per bucket, kernel time against the
    replays' span), the same trace eager on the card and with graphs of
    1 and 16 buckets, and the 1M trace with graphs of 1 and 16;
-16. the expert-free decoders at full width (``DECODERS``), weights from
-   generator seed 0: RecurrentGemma-2B whole (26 layers, 8 of them local
-   attention) in float32 parity as phase 8 with 8 x 2048 prompts, then
+16. the other decoders at full width (``DECODERS``), weights from
+   generator seed 0, after ``phase_moe_gemm`` (the bf16 experts'
+   float32-output gate GEMM against per-expert upcast GEMMs):
+   RecurrentGemma-2B whole (26 layers, 8 of them local attention) in
+   float32 parity as phase 8 with 8 x 2048 prompts, then
    in bf16 ``phase_prefill_logits`` and serving as phase 9 with 8 x 2048
    prompts and 64 steps, every decode step wrapping the local layers'
    2048-slot ring (8 ``flash_attention`` per prefill, 8
@@ -117,12 +122,24 @@ Each phase prints one JSON object per line:
    period (Gemma2's ``@sw`` variant too), then in bf16 at the most
    layers whose weights and caches fit the card (``served_depth``, from
    the meta-device ``param_count``): ``phase_prefill_logits`` and serving
-   with 8 x 512 prompts and 32 steps. Every depth run is printed against
-   the published one (``phase: depth``).
+   with 8 x 512 prompts and 32 steps; DBRX-132B and Arctic-480B the same
+   way, their float32 parity also holding every layer's expert choices
+   under both routes (a flip only at a near-tie, ``MOE_NEAR_TIE``, which
+   excuses that step's logits) and the bf16 runs printing each layer's
+   routing and dropped tokens at a prefill and a decode step. Every depth
+   run is printed against the published one (``phase: depth``);
+17. Whisper-small whole (12 + 12 layers, ``phase_whisper``): float32
+   parity of 8 x 1500 frames, a 4-token prompt and 16 decode steps as
+   phase 8, then in bf16 ``phase_prefill_logits`` and a prefill plus 64
+   greedy decode steps through ``model.prefill`` / ``model.decode_step``
+   (36 ``flash_attention`` per prefill; 12 ``decode_attention`` and 12
+   ``flash_attention`` at Sq 1 per decode step), prefill ms, decode ms
+   per step and a profiled prefill and decode step.
 
 Launch counters are set to 0 just before each policy's run in phases
 3-5, each ``generate`` of phases 9, 13 and 16 and one more decode step
-after it, and phase 15, and read just after; a kernel that the path runs and that did not
+after it, phase 17's prefill and decode steps and one more step, and
+phase 15, and read just after; a kernel that the path runs and that did not
 launch exactly as often as it should fails the run (``hybrid`` must
 launch both of its constituents' kernels on the flash stream). The line
 before the last is the kernel table, the last line the device.
@@ -1243,6 +1260,16 @@ FLASH_CASES = [
                                       scale=GEMMA2_SCALE)),
     (2, 512, 512, 32, 16, 128, dict(softcap=50.0, scale=GEMMA2_SCALE)),
     (2, 512, 512, 96, 8, 192, {}),
+    # the served heads of slice 7, at the served batch of 8 where it
+    # serves: Whisper's encoder (non-causal, S 1500, no multiple of a
+    # key tile) and its cross-attention (non-causal, Sq 4 at prefill and
+    # Sq 1 at a decode step, against 1500 keys); DBRX (rep 6) and Arctic
+    # (rep 7: 56 query heads over 8)
+    (8, 1500, 1500, 12, 12, 64, dict(causal=False)),
+    (8, 4, 1500, 12, 12, 64, dict(causal=False)),
+    (8, 1, 1500, 12, 12, 64, dict(causal=False)),
+    (2, 512, 512, 48, 8, 128, {}),
+    (2, 512, 512, 56, 8, 128, {}),
 ]
 # (b, h, hkv, d, c, kwargs, mask): the reference's decode sweep and
 # extras; mask as in decode_inputs
@@ -1265,6 +1292,10 @@ DECODE_CASES = [
                                scale=GEMMA2_SCALE), "sweep"),
     (2, 32, 16, 128, 2048, dict(softcap=50.0, scale=GEMMA2_SCALE), "full"),
     (2, 96, 8, 192, 2048, {}, "full"),
+    # slice 7 at the served batch: DBRX and Arctic full; Whisper's
+    # 448-slot self ring with the sweep's draws
+    (8, 48, 8, 128, 2048, {}, "full"), (8, 56, 8, 128, 2048, {}, "full"),
+    (8, 12, 12, 64, 448, {}, "sweep"),
 ]
 
 
@@ -1405,26 +1436,122 @@ def prompts(seed: int, b: int, s: int, vocab: int, dev):
                          dtype=torch.int32)
 
 
-def greedy_logits(params, cfg, tokens, steps: int, kernels: str,
+def moe_recorded(cfg, fn):
+    """(fn(), the MoE layers' routing records of the call: one per layer,
+    ``layers.MOE_RECORD``'s; [] without experts)."""
+    from repro_torch.models import layers
+    layers.MOE_RECORD = [] if cfg.n_experts else None
+    try:
+        out = fn()
+    finally:
+        records, layers.MOE_RECORD = layers.MOE_RECORD, None
+    return out, records or []
+
+
+def greedy_logits(params, cfg, batch: dict, steps: int, kernels: str,
                   feed=None):
-    """Prefill + ``steps`` decode steps; each step feeds ``feed[i]`` (or
-    this run's own argmax). Returns (logits per step, tokens fed)."""
+    """Prefill of ``batch`` ({"tokens"}, with "frames" for the
+    encoder-decoder) + ``steps`` decode steps; each step feeds ``feed[i]``
+    (or this run's own argmax). Returns (logits per step, tokens fed, MoE
+    routing records per step)."""
     import torch
     from repro_torch.models import model
-    logits, cache = model.prefill(params, cfg, {"tokens": tokens},
-                                  kernels=kernels)
-    out, fed = [logits], []
+    (logits, cache), recs = moe_recorded(
+        cfg, lambda: model.prefill(params, cfg, batch, kernels=kernels))
+    out, fed, records = [logits], [], [recs]
+    tokens = batch["tokens"]
     pos = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,
                      device=tokens.device)
     for i in range(steps):
         tok = feed[i] if feed is not None else \
             torch.argmax(logits, -1).to(torch.int32)
         fed.append(tok)
-        logits, cache = model.decode_step(params, cfg, tok, cache, pos,
-                                          kernels=kernels)
+        (logits, cache), recs = moe_recorded(
+            cfg, lambda: model.decode_step(params, cfg, tok, cache, pos,
+                                           kernels=kernels))
         out.append(logits)
+        records.append(recs)
         pos = pos + 1
-    return out, fed
+    return out, fed, records
+
+
+# A float32 router's top-k choice may differ between the kernel route and
+# the plain one only at a near-tie: the routes' attention outputs differ
+# by ~1e-6 of themselves (the float32 attention cases hold them within
+# 2e-5), so their router probabilities by ~1e-6. An expert choice that
+# differs where the plain route's k-th and (k+1)-th probabilities are more
+# than MOE_NEAR_TIE apart fails the run; one within it is printed, and
+# only that step's logits are excused from LOGIT_BOUND (a flipped choice
+# moves its token's output, and through the capacity another token's
+# drop).
+MOE_NEAR_TIE = 1e-4
+
+
+def moe_routes(got: list, want: list) -> dict:
+    """Per MoE layer of one call under two routes (records in layer
+    order): the plain route's smallest k-th minus (k+1)-th probability
+    gap; whether each token's set of experts and the kept masks are
+    equal (an order swap inside the top k routes the same); the tokens
+    whose sets differ, and among those whose sets agreed in every earlier
+    layer (a token flipped once has a changed state from then on) the
+    largest plain-route gap (None where there is none); each route's
+    dropped (token, choice) count. "flipped" is the (T,) mask of tokens
+    whose set differed in some layer."""
+    import torch
+    out = {"min_gap": [], "assign_equal": [], "keep_equal": [],
+           "flipped_tokens": [], "first_flip_gap": [], "dropped": [],
+           "dropped_plain": []}
+    flipped = None
+    for g, w in zip(got, want):
+        gap = w["top"][:, -2] - w["top"][:, -1]
+        diff = (g["gate_idx"].sort(dim=1).values
+                != w["gate_idx"].sort(dim=1).values).any(dim=1)
+        first = diff if flipped is None else diff & ~flipped
+        flipped = diff if flipped is None else flipped | diff
+        out["min_gap"].append(gap.min().item())
+        out["assign_equal"].append(not bool(diff.any()))
+        out["keep_equal"].append(bool(torch.equal(g["keep"], w["keep"])))
+        out["flipped_tokens"].append(int(diff.sum()))
+        out["first_flip_gap"].append(gap[first].max().item() if first.any()
+                                     else None)
+        out["dropped"].append(int((~g["keep"]).sum()))
+        out["dropped_plain"].append(int((~w["keep"]).sum()))
+    out["flipped"] = flipped
+    return out
+
+
+def hold_logits(cfg, got, want, got_recs, want_recs) -> tuple[float, set]:
+    """Every step's logits within LOGIT_BOUND x max |logit| of the plain
+    run's, except a step where an expert choice flipped at a near-tie
+    (``MOE_NEAR_TIE``); a flip above it fails. Returns (worst relative
+    error over the held steps, the excused steps)."""
+    worst, excused = 0.0, set()
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        row = {"phase": "model_parity", "arch": cfg.name,
+               "dtype": cfg.dtype, "step": i, "max_abs_err": err,
+               "max_abs_logit": scale, "bound": LOGIT_BOUND * scale}
+        if cfg.n_experts:
+            routes = moe_routes(got_recs[i], want_recs[i])
+            del routes["flipped"]
+            flips = [x for x in routes["first_flip_gap"] if x is not None]
+            row["moe"] = routes
+            if flips and max(flips) > MOE_NEAR_TIE:
+                emit(row)
+                fail(f"{cfg.name} step {i}: an expert choice differs at a "
+                     f"probability gap {max(flips)} above {MOE_NEAR_TIE}")
+            if flips:
+                excused.add(i)
+        row["excused"] = i in excused
+        emit(row)
+        if i in excused:
+            continue
+        worst = max(worst, err / scale)
+        if not err <= LOGIT_BOUND * scale:
+            fail(f"model parity step {i}: logits differ by {err}, bound "
+                 f"{LOGIT_BOUND * scale}")
+    return worst, excused
 
 
 def phase_model_parity(dev, cfg, batch: int, prompt: int, steps: int,
@@ -1432,28 +1559,22 @@ def phase_model_parity(dev, cfg, batch: int, prompt: int, steps: int,
     """The model at ``cfg``'s widths, weights from generator seed 0:
     prefill and ``steps`` decode steps under ``kernels[0]`` against
     ``kernels[1]`` on the latter's tokens, every step's logits within
-    LOGIT_BOUND x max |logit|; then ``ServingEngine.generate`` under both,
-    greedy tokens equal except at a near-tie of the plain run."""
+    LOGIT_BOUND x max |logit| (``hold_logits``: with experts, each step's
+    routing under both routes printed per layer, a step with an expert
+    flip at a near-tie excused); then ``ServingEngine.generate`` under
+    both, greedy tokens equal except at a near-tie of the plain run or at
+    an excused step."""
     import torch
     from repro_torch.models import model
     from repro_torch.serving import ServingEngine
     params = model.init_params(cfg, seed=0, device=dev)
     tokens = prompts(1, batch, prompt, cfg.vocab_size, dev)
     kern, plain = kernels
-    want, fed = greedy_logits(params, cfg, tokens, steps, plain)
-    got, _ = greedy_logits(params, cfg, tokens, steps, kern, feed=fed)
-    worst = 0.0
-    for i, (g, w) in enumerate(zip(got, want)):
-        scale = w.abs().max().item()
-        err = (g - w).abs().max().item()
-        worst = max(worst, err / scale)
-        emit({"phase": "model_parity", "arch": cfg.name,
-              "dtype": cfg.dtype, "step": i,
-              "max_abs_err": err, "max_abs_logit": scale,
-              "bound": LOGIT_BOUND * scale})
-        if not err <= LOGIT_BOUND * scale:
-            fail(f"model parity step {i}: logits differ by {err}, bound "
-                 f"{LOGIT_BOUND * scale}")
+    want, fed, want_recs = greedy_logits(params, cfg, {"tokens": tokens},
+                                         steps, plain)
+    got, _, got_recs = greedy_logits(params, cfg, {"tokens": tokens}, steps,
+                                     kern, feed=fed)
+    worst, excused = hold_logits(cfg, got, want, got_recs, want_recs)
     plain_tokens = torch.stack(
         [torch.argmax(w, -1) for w in want], 1).cpu().numpy()
     runs = {}
@@ -1474,15 +1595,16 @@ def phase_model_parity(dev, cfg, batch: int, prompt: int, steps: int,
             gap = (top2[0] - top2[1]).item()
             bound = 2 * LOGIT_BOUND * want[step].abs().max().item()
             flips.append({"row": row, "step": step, "top2_gap": gap,
-                          "bound": bound})
-            if gap > bound:
+                          "bound": bound, "expert_flip": step in excused})
+            if gap > bound and step not in excused:
                 fail(f"engine token flip at row {row} step {step}: top-2 "
                      f"gap {gap} above {bound}")
     emit({"phase": "model_parity_engine", "arch": cfg.name,
           "dtype": cfg.dtype,
           "steps": steps + 1, "tokens_equal": not flips, "flips": flips,
-          "max_rel_logit_err": worst})
-    return {"max_rel_logit_err": worst, "flips": flips}
+          "max_rel_logit_err": worst, "excused_steps": sorted(excused)})
+    return {"max_rel_logit_err": worst, "flips": flips,
+            "excused_steps": sorted(excused)}
 
 
 # The bf16 8 x 2048 prefill's last-position logits under kernels="cuda"
@@ -1497,23 +1619,46 @@ NEAR_TIE = 0.01
 
 
 def phase_prefill_logits(dev, cfg, batch: int, prompt: int,
-                         params=None) -> dict:
-    """One prefill of ``batch`` x ``prompt`` tokens at ``cfg``'s widths
-    (``params``, or weights from generator seed 0) under
-    ``kernels="cuda"`` and ``"ref"``: the last position's logits finite,
-    within ``PREFILL_REL`` x max |logit| of the plain run, and the greedy
-    first tokens equal except at a near-tie (``NEAR_TIE``)."""
+                         params=None, inputs=None) -> dict:
+    """One prefill of ``batch`` x ``prompt`` tokens (or of ``inputs``, a
+    model batch) at ``cfg``'s widths (``params``, or weights from
+    generator seed 0) under ``kernels="cuda"`` and ``"ref"``: the last
+    position's logits finite, within ``PREFILL_REL`` x max |logit| of the
+    plain run, and the greedy first tokens equal except at a near-tie
+    (``NEAR_TIE``). With experts, each layer's routing under both routes
+    is printed (``moe_routes``), and a row whose last token's set of
+    experts differs between the routes in some layer is printed and left
+    out of the bound: in bf16 the routes' router probabilities differ by
+    far more than in float32, so near-ties flip choices, and a flipped
+    choice moves that token's output by a whole expert's share."""
     import torch
     from repro_torch.models import model
     if params is None:
         params = model.init_params(cfg, seed=0, device=dev)
-    tokens = prompts(5, batch, prompt, cfg.vocab_size, dev)
-    got, _ = model.prefill(params, cfg, {"tokens": tokens}, kernels="cuda")
-    want, _ = model.prefill(params, cfg, {"tokens": tokens}, kernels="ref")
+    if inputs is None:
+        inputs = {"tokens": prompts(5, batch, prompt, cfg.vocab_size, dev)}
+    (got, _), got_recs = moe_recorded(
+        cfg, lambda: model.prefill(params, cfg, inputs, kernels="cuda"))
+    (want, _), want_recs = moe_recorded(
+        cfg, lambda: model.prefill(params, cfg, inputs, kernels="ref"))
+    excused = []
+    if cfg.n_experts:
+        routes = moe_routes(got_recs, want_recs)
+        flipped = routes.pop("flipped").view(batch, -1)[:, -1]
+        excused = [r for r in range(batch) if bool(flipped[r])]
+        emit({"phase": "moe_routing", "arch": cfg.name, "dtype": cfg.dtype,
+              "call": f"prefill_{batch}x{prompt}", **routes,
+              "excused_rows": excused})
     got, want = got.float(), want.float()
     if got.shape != want.shape or not torch.isfinite(got).all():
         fail(f"prefill logits {cfg.name}: shape {tuple(got.shape)} or not "
              "finite")
+    held = [r for r in range(got.shape[0]) if r not in excused]
+    if not held:
+        fail(f"prefill logits {cfg.name}: every row's last token changed "
+             "its experts between the routes")
+    got_all, want_all = got, want
+    got, want = got[held], want[held]
     scale = want.abs().max().item()
     delta = (got - want).abs()
     rel = delta.max().item() / scale
@@ -1523,7 +1668,8 @@ def phase_prefill_logits(dev, cfg, batch: int, prompt: int,
     near = NEAR_TIE * scale
     flips = []
     for row in torch.nonzero(got.argmax(-1) != want.argmax(-1)).flatten():
-        top2 = torch.topk(want[row], 2).values
+        row = held[int(row)]
+        top2 = torch.topk(want_all[row], 2).values
         gap = (top2[0] - top2[1]).item()
         flips.append({"row": int(row), "top2_gap": gap, "bound": near})
         if gap > near:
@@ -1533,7 +1679,10 @@ def phase_prefill_logits(dev, cfg, batch: int, prompt: int,
            "n_layers": cfg.n_layers, "batch": batch, "prompt": prompt,
            "max_abs_delta": delta.max().item(), "max_abs_logit": scale,
            "rel": rel, "rel_bound": PREFILL_REL,
-           "first_tokens_equal": not flips, "flips": flips}
+           "first_tokens_equal": not flips, "flips": flips,
+           "excused_rows": excused, "rel_all_rows": (
+               got_all - want_all).abs().max().item()
+           / want_all.abs().max().item()}
     emit(row)
     return row
 
@@ -1583,8 +1732,11 @@ def profile_call(fn, dev, label: str) -> dict:
 
 def path_kernels(cfg) -> tuple:
     """The kernels ``cfg``'s layers launch: the attention pair for
-    attention layers, ``ssd_scan`` for Mamba-2 layers."""
+    attention layers (and the encoder-decoder), ``ssd_scan`` for Mamba-2
+    layers."""
     from repro_torch.models.transformer import layer_kinds
+    if cfg.is_encoder_decoder:
+        return attention_kernels()
     kinds = set(layer_kinds(cfg))
     out = attention_kernels() if kinds & {"attn", "local"} else ()
     return out + ((ssd_kernel(),) if "mamba2" in kinds else ())
@@ -1594,8 +1746,17 @@ def expected_launches(cfg, steps: int) -> tuple[dict, dict]:
     """(launches of one ``generate`` of ``steps`` tokens, launches of one
     decode step): one flash_attention per attention layer and prefill,
     one decode_attention per attention layer and decode step, one
-    ssd_scan per Mamba-2 layer and prefill and none in a decode step."""
+    ssd_scan per Mamba-2 layer and prefill and none in a decode step.
+    The encoder-decoder's prefill runs flash_attention in every encoder
+    layer and twice in every decoder layer (self, cross), each decode
+    step decode_attention (self) and flash_attention at Sq 1 (cross) in
+    every decoder layer."""
     from repro_torch.models.transformer import layer_kinds
+    if cfg.is_encoder_decoder:
+        n = cfg.n_layers
+        return ({"flash_attention": cfg.n_encoder_layers + 2 * n
+                 + n * (steps - 1), "decode_attention": n * (steps - 1)},
+                {"flash_attention": n, "decode_attention": n})
     kinds = layer_kinds(cfg)
     n_attn = sum(k in ("attn", "local") for k in kinds)
     n_ssm = kinds.count("mamba2")
@@ -1648,8 +1809,21 @@ def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
                  f"expected {want_step}")
         for k, c in counts.items():
             out["launches"][k] += c
-        # the same work split: prefill alone, then decode steps
         batch = {"tokens": tokens}
+        if cfg.n_experts:
+            # tokens dropped per layer at the cap: a prefill of these
+            # prompts, and a decode step of every slot (idle ones too)
+            _, pre = moe_recorded(cfg, lambda: eng._prefill(params, batch))
+            _, dec = moe_recorded(cfg, eng.step)
+            emit({"phase": "moe_drops", "arch": cfg.name, "cell": label,
+                  "live": b, "slots": slots,
+                  "prefill_cap": pre[0]["cap"],
+                  "prefill_dropped": [int((~r["keep"]).sum()) for r in pre],
+                  "step_cap": dec[0]["cap"],
+                  "step_dropped": [int((~r["keep"]).sum()) for r in dec],
+                  "choices": [pre[0]["keep"].numel(),
+                              dec[0]["keep"].numel()]})
+        # the same work split: prefill alone, then decode steps
         prefill_ms = []
         for _ in range(3):
             sync(dev)
@@ -1716,6 +1890,14 @@ DECODERS = {
     "nemotron_4_340b": dict(
         parity=dict(batch=8, prompt=512, steps=16),
         serve=dict(slots=8, max_len=2048, prompt=512, steps=32, partial=4)),
+    # the MoE decoders of slice 7: parity one layer (DBRX's float32
+    # weights ~18 GB, Arctic's ~56 GB), serving the depth that fits
+    "dbrx_132b": dict(
+        parity=dict(batch=8, prompt=512, steps=16),
+        serve=dict(slots=8, max_len=2048, prompt=512, steps=32, partial=4)),
+    "arctic_480b": dict(
+        parity=dict(batch=8, prompt=512, steps=16),
+        serve=dict(slots=8, max_len=2048, prompt=512, steps=32, partial=4)),
 }
 # Memory kept free beside a bf16 engine's weights and caches: the
 # prefill's activations (Nemotron's 8 x 512 x 73728 MLP intermediate and
@@ -1772,8 +1954,48 @@ def emit_depth(arch: str, phase: str, cfg, published: int, why: str) -> None:
           "cut": cfg.n_layers != published, "why": why})
 
 
+# The bf16 experts' gate GEMM keeps a float32 result (``layers._bmm_f32``):
+# on the card one batched GEMM with a float32 output, on the CPU each
+# expert's operands upcast. Both accumulate exact bf16 products in
+# float32, so they agree to float32 summation order: within
+# MOE_GEMM_REL x max |out|.
+MOE_GEMM_REL = 1e-5
+# (experts, rows, d, d_ff): DBRX's prefill (cap 1280 of 8 x 512 tokens)
+# and decode (cap 2), Arctic's prefill (cap 80)
+MOE_GEMM_SHAPES = [(16, 1280, 6144, 10752), (16, 2, 6144, 10752),
+                   (128, 80, 7168, 4864)]
+
+
+def phase_moe_gemm(dev) -> float:
+    """``layers._bmm_f32`` on bf16 operands on the card against each
+    expert's float32 GEMM of upcast operands (the CPU's form), at the
+    served experts' shapes; returns the worst relative difference."""
+    import torch
+    from repro_torch.models import layers
+    worst = 0.0
+    with layers.float32_gemms():
+        for n, (e, c, d, f) in enumerate(MOE_GEMM_SHAPES):
+            gen = torch.Generator(device=dev).manual_seed(40 + n)
+            a = randn(gen, (e, c, d), dev, torch.bfloat16)
+            w = randn(gen, (e, d, f), dev, torch.bfloat16)
+            got = layers._bmm_f32(a, w)
+            want = torch.stack([a[i].float() @ w[i].float()
+                                for i in range(e)])
+            rel = (got - want).abs().max().item() / want.abs().max().item()
+            worst = max(worst, rel)
+            ok = got.dtype == torch.float32 and rel <= MOE_GEMM_REL
+            emit({"phase": "moe_gemm", "shape": [e, c, d, f],
+                  "dtype": str(got.dtype), "rel": rel,
+                  "bound": MOE_GEMM_REL, "ok": ok})
+            if not ok:
+                fail(f"moe gate GEMM {(e, c, d, f)}: {got.dtype}, relative "
+                     f"difference {rel} above {MOE_GEMM_REL}")
+            del a, w, got, want
+    return worst
+
+
 def phase_decoders(dev) -> dict:
-    """Every expert-free decoder of ``DECODERS`` at full width: float32
+    """Every decoder of ``DECODERS`` at full width: float32
     parity, then (where it has a ``serve`` entry) a bf16 prefill under
     both kernel routes and ``phase_engine``. Each depth run against the
     published one is printed (``phase: depth``). Returns arch -> {
@@ -1802,6 +2024,7 @@ def phase_decoders(dev) -> dict:
                        "whole" if cfg.n_layers == published else
                        "the most layers whose weights and caches fit")
             params = model.init_params(cfg, seed=0, device=dev)
+            torch.cuda.empty_cache()
             row["prefill"] = phase_prefill_logits(
                 dev, cfg, batch=serve["slots"], prompt=serve["prompt"],
                 params=params)
@@ -1814,18 +2037,143 @@ def phase_decoders(dev) -> dict:
     return out
 
 
-def flash_bytes_ops(b, s, h, d, elem=2, hkv=None, window=0
-                    ) -> tuple[int, int]:
-    """q and out (``h`` heads), k and v (``hkv``, default ``h``) read or
-    written once; causal QK^T and PV, 2 FLOP per multiply-add over the
-    visible pairs: s(s+1)/2, or with a window w each query's last
-    min(i + 1, w) keys."""
+# ------------------------------------------- the encoder-decoder: phase --
+# Whisper-small whole (12 + 12 layers): 8 sequences of 1500 frames (the
+# stubbed frontend's output, drawn from a seeded generator) and a 4-token
+# decoder prompt. Float32 parity over 16 decode steps; bf16 serving
+# through model.prefill and 64 greedy model.decode_steps (the engine's
+# generate cannot take the encoder-decoder, in the reference as here).
+WHISPER = dict(batch=8, frames=1500, prompt=4, parity_steps=16,
+               serve_steps=64)
+
+
+def whisper_inputs(dev, cfg, batch: int, frames: int, prompt: int) -> dict:
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(6)
+    return {"frames": torch.randn((batch, frames, cfg.d_model),
+                                  generator=gen, device=dev),
+            "tokens": prompts(7, batch, prompt, cfg.vocab_size, dev)}
+
+
+def phase_whisper(dev, spec=WHISPER) -> dict:
+    """Whisper-small at full width, weights from generator seed 0: float32
+    ``greedy_logits`` under ``kernels="cuda"`` against ``"ref"`` on the
+    latter's tokens, every step within ``LOGIT_BOUND`` x max |logit|;
+    then in bf16 ``phase_prefill_logits`` and a counted prefill plus
+    ``serve_steps`` greedy decode steps (exactly ``expected_launches``),
+    one more counted decode step, prefill ms, decode ms per step and a
+    profiled prefill and decode step. Returns {"launches", "parity",
+    "serve"}."""
+    import torch
+    from repro_torch.models import model
+    cfg = full_width("whisper_small", "float32")
+    emit_depth("whisper_small", "parity_float32", cfg, cfg.n_layers,
+               "whole")
+    params = model.init_params(cfg, seed=0, device=dev)
+    inputs = whisper_inputs(dev, cfg, spec["batch"], spec["frames"],
+                            spec["prompt"])
+    want, fed, _ = greedy_logits(params, cfg, inputs, spec["parity_steps"],
+                                 "ref")
+    got, _, _ = greedy_logits(params, cfg, inputs, spec["parity_steps"],
+                              "cuda", feed=fed)
+    worst, _ = hold_logits(cfg, got, want, [], [])
+    emit({"phase": "model_parity_summary", "arch": "whisper_small",
+          "n_layers": cfg.n_layers, "max_rel_logit_err": worst})
+    del params, want, got
+    torch.cuda.empty_cache()
+
+    cfg = full_width("whisper_small", "bfloat16")
+    emit_depth("whisper_small", "serve_bfloat16", cfg, cfg.n_layers,
+               "whole")
+    params = model.init_params(cfg, seed=0, device=dev)
+    inputs = whisper_inputs(dev, cfg, spec["batch"], spec["frames"],
+                            spec["prompt"])
+    prefill = phase_prefill_logits(dev, cfg, spec["batch"], spec["prompt"],
+                                   params=params, inputs=inputs)
+    counters = path_kernels(cfg)
+    steps = spec["serve_steps"]
+    b, t = inputs["tokens"].shape
+
+    def serve():
+        logits, cache = model.prefill(params, cfg, inputs)
+        pos = torch.full((b,), t, dtype=torch.int32, device=dev)
+        out = [torch.argmax(logits, -1).to(torch.int32)]
+        for _ in range(steps):
+            logits, cache = model.decode_step(params, cfg, out[-1], cache,
+                                              pos)
+            out.append(torch.argmax(logits, -1).to(torch.int32))
+            pos = pos + 1
+        return torch.stack(out, 1).cpu().numpy(), cache, pos, logits
+    serve()                                              # warm
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    (tokens, cache, pos, logits), seconds, counts = counted(serve, counters,
+                                                            dev)
+    want_gen, want_step = expected_launches(cfg, steps + 1)
+    if tokens.shape != (b, steps + 1) or (tokens < 0).any() \
+            or (tokens >= cfg.vocab_size).any() \
+            or not torch.isfinite(logits).all():
+        fail(f"whisper serving: tokens {tokens.shape} out of range or "
+             "logits not finite")
+    if counts != want_gen:
+        fail(f"whisper serving: launches {counts}, expected {want_gen}")
+    nxt = torch.argmax(logits, -1).to(torch.int32)
+
+    def step():
+        return model.decode_step(params, cfg, nxt, cache, pos)
+    _, _, step_counts = counted(step, counters, dev)
+    if step_counts != want_step:
+        fail(f"whisper decode step launched {step_counts}, expected "
+             f"{want_step}")
+    prefill_ms, step_ms = [], []
+    for _ in range(3):
+        sync(dev)
+        t0 = time.perf_counter()
+        model.prefill(params, cfg, inputs)
+        sync(dev)
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(16):
+        t0 = time.perf_counter()
+        logits, _ = step()
+        torch.argmax(logits, -1).cpu()        # the host reads each token
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    prof_prefill = profile_call(lambda: model.prefill(params, cfg, inputs),
+                                dev, f"prefill/whisper/S{spec['frames']}")
+    prof = profile_call(lambda: torch.argmax(step()[0], -1).cpu(), dev,
+                        "decode/whisper/T448")
+    row = {"phase": "whisper_serve", "arch": cfg.name, "dtype": cfg.dtype,
+           "batch": b, "frames": spec["frames"], "prompt": t,
+           "steps": steps, "serve_s": seconds, "launches": counts,
+           "step_launches": step_counts,
+           "prefill_ms": statistics.median(prefill_ms),
+           "decode_ms_per_step": statistics.median(step_ms),
+           "decode_tokens_per_s": b * 1e3 / statistics.median(step_ms),
+           "idle_share": prof["idle_share"],
+           "prefill_idle_share": prof_prefill["idle_share"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+           if dev.type == "cuda" else None}
+    emit(row)
+    return {"launches": counts, "parity": {"max_rel_logit_err": worst},
+            "prefill": prefill, "serve": row}
+
+
+def flash_bytes_ops(b, s, h, d, elem=2, hkv=None, window=0, sq=None,
+                    causal=True) -> tuple[int, int]:
+    """q and out (``sq`` queries, default ``s``, ``h`` heads), k and v
+    (``s`` keys, ``hkv`` heads, default ``h``) read or written once; QK^T
+    and PV, 2 FLOP per multiply-add over the visible pairs: causal
+    self-attention s(s+1)/2, or with a window w each query's last
+    min(i + 1, w) keys; without a causal mask or window every (query,
+    key) pair, sq s."""
     hkv = h if hkv is None else hkv
-    if window and window < s:
+    sq = s if sq is None else sq
+    if not causal and not window:
+        pairs = sq * s
+    elif window and window < s:
         pairs = window * (window + 1) // 2 + (s - window) * window
     else:
         pairs = s * (s + 1) // 2
-    return (2 * b * s * h * d + 2 * b * s * hkv * d) * elem, \
+    return (2 * b * sq * h * d + 2 * b * s * hkv * d) * elem, \
         4 * b * h * d * pairs
 
 
@@ -1845,23 +2193,31 @@ def bf16_bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# Shapes the attention kernels are timed at, bf16: label -> (b, s or c, h,
-# hkv, d, kwargs, decode mask). The first of each kernel is its main-path
-# shape (StableLM-3B served); then its second (B 4 prefill, C 512
-# decode); then the served heads of RecurrentGemma-2B (8 x 2048 prompts,
-# the 2048 window; decode on the wrapped ring), Gemma2-27B (8 x 512
-# prompts, softcap 50, its local layers' 4096 window; decode on a wrapped
-# 2048-slot ring) and Nemotron-4-340B (head_dim 192).
+# Shapes the attention kernels are timed at, bf16: label -> flash (b, sq,
+# skv, h, hkv, d, kwargs), decode (b, c, h, hkv, d, kwargs, mask). The
+# first of each kernel is its main-path shape (StableLM-3B served); then
+# its second (B 4 prefill, C 512 decode); then the served heads of
+# RecurrentGemma-2B (8 x 2048 prompts, the 2048 window; decode on the
+# wrapped ring), Gemma2-27B (8 x 512 prompts, softcap 50, its local
+# layers' 4096 window; decode on a wrapped 2048-slot ring),
+# Nemotron-4-340B (head_dim 192), Arctic-480B (rep 7) and Whisper-small
+# (its encoder over 1500 frames and a decode step's cross-attention, both
+# non-causal; its self-attention decode on the full 448-slot ring).
 ATTN_TIME_SHAPES = {
     "flash_attention": {
-        "b8_s512_h32_d80_bf16_causal": (8, 512, 32, 32, 80, {}, None),
-        "b4_s512_h32_d80_bf16_causal": (4, 512, 32, 32, 80, {}, None),
+        "b8_s512_h32_d80_bf16_causal": (8, 512, 512, 32, 32, 80, {}),
+        "b4_s512_h32_d80_bf16_causal": (4, 512, 512, 32, 32, 80, {}),
         "rg_b8_s2048_h10_hkv1_d256_w2048": (
-            8, 2048, 10, 1, 256, dict(window=2048), None),
+            8, 2048, 2048, 10, 1, 256, dict(window=2048)),
         "gemma2_b8_s512_h32_hkv16_d128_w4096_cap50": (
-            8, 512, 32, 16, 128, dict(window=4096, softcap=50.0,
-                                      scale=GEMMA2_SCALE), None),
-        "nemotron_b8_s512_h96_hkv8_d192": (8, 512, 96, 8, 192, {}, None),
+            8, 512, 512, 32, 16, 128, dict(window=4096, softcap=50.0,
+                                           scale=GEMMA2_SCALE)),
+        "nemotron_b8_s512_h96_hkv8_d192": (8, 512, 512, 96, 8, 192, {}),
+        "arctic_b8_s512_h56_hkv8_d128": (8, 512, 512, 56, 8, 128, {}),
+        "whisper_enc_b8_s1500_h12_d64_noncausal": (
+            8, 1500, 1500, 12, 12, 64, dict(causal=False)),
+        "whisper_cross_b8_sq1_skv1500_h12_d64": (
+            8, 1, 1500, 12, 12, 64, dict(causal=False)),
     },
     "decode_attention": {
         "b8_c2048_h32_d80_bf16": (8, 2048, 32, 32, 80, {}, "full"),
@@ -1873,6 +2229,8 @@ ATTN_TIME_SHAPES = {
                                        scale=GEMMA2_SCALE), "ring"),
         "nemotron_b8_c2048_h96_hkv8_d192": (
             8, 2048, 96, 8, 192, {}, "full"),
+        "arctic_b8_c2048_h56_hkv8_d128": (8, 2048, 56, 8, 128, {}, "full"),
+        "whisper_b8_c448_h12_d64": (8, 448, 12, 12, 64, {}, "full"),
     },
 }
 
@@ -1908,10 +2266,11 @@ def phase_attention_times(dev) -> dict:
             want = plain()
         return compare_attention(kernel, f"timed_{label}", got, want,
                                  "bfloat16")
-    for label, (b, s, h, hkv, d, kw, _) in \
+    for label, (b, sq, s, h, hkv, d, kw) in \
             ATTN_TIME_SHAPES["flash_attention"].items():
-        q, k, v = flash_inputs(910, b, s, s, h, hkv, d, torch.bfloat16, dev)
+        q, k, v = flash_inputs(910, b, sq, s, h, hkv, d, torch.bfloat16, dev)
         window = kw.get("window", 0)
+        causal = kw.get("causal", True)
         library = None
         if not kw.get("softcap"):
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -1921,10 +2280,11 @@ def phase_attention_times(dev) -> dict:
                     & (i[:, None] - i[None, :] < window)
                 library = sdpa(qt, kt, vt, attn_mask=mask)
             else:
-                library = sdpa(qt, kt, vt, is_causal=True)
+                library = sdpa(qt, kt, vt, is_causal=causal)
         err = held("flash_attention", label, flash(q, k, v, **kw),
                    lambda: ref.flash_attention_ref(q, k, v, **kw))
-        nbytes, ops = flash_bytes_ops(b, s, h, d, hkv=hkv, window=window)
+        nbytes, ops = flash_bytes_ops(b, s, h, d, hkv=hkv, window=window,
+                                      sq=sq, causal=causal)
         bms, by = bf16_bound_ms(nbytes, ops)
         out["flash_attention"][label] = dict(
             max_abs_err=err,
@@ -2656,10 +3016,14 @@ def main() -> int:
     ssd_times = phase_ssd_times(dev)
     torch.cuda.empty_cache()
 
-    # the expert-free decoders: RecurrentGemma-2B whole, the dense
-    # configs at full width (parity one period, serving the depth that
-    # fits)
+    # the decoders of slices 6 and 7: RecurrentGemma-2B whole, the dense
+    # and MoE configs at full width (parity one period, serving the depth
+    # that fits); then Whisper-small whole
+    phase_moe_gemm(dev)
+    torch.cuda.empty_cache()
     decoders = phase_decoders(dev)
+    torch.cuda.empty_cache()
+    decoders["whisper_small"] = phase_whisper(dev)
     torch.cuda.empty_cache()
 
     # the bucketed twin: no hand-written kernel on its path (it routes
@@ -2711,7 +3075,7 @@ def main() -> int:
             "shape": shape,
             "shape2": shape2, "ms2": tm2["ms"],
             "library_ms2": tm2["library_ms"], "bound_ms2": tm2["bound_ms"],
-            # the expert-free decoders' launches and served heads, beside
+            # the other decoders' launches and served heads, beside
             # StableLM-3B's above
             "launches_by_arch": {a: row["launches"][k.__name__]
                                  for a, row in decoders.items()

@@ -2,11 +2,10 @@
 
 The port's own copy of the reference's ``repro.configs.base`` (plain
 dataclasses, no framework): :class:`ArchConfig`, :data:`SHAPES` and
-:func:`reduced` are the same, field for field. Every ported architecture
-is a module ``repro_torch/configs/<id>.py`` exposing ``CONFIG``;
-:func:`get_config` of an architecture whose layers are not ported yet
-raises ``NotImplementedError`` naming the ``ROADMAP.md`` item where it
-waits.
+:func:`reduced` are the same, field for field. Every architecture of the
+reference is ported: each is a module ``repro_torch/configs/<id>.py``
+exposing ``CONFIG``, and ``WAITING`` (architectures not ported yet) is
+empty.
 """
 from __future__ import annotations
 
@@ -21,13 +20,10 @@ ARCH_IDS = [
 ]
 #: architectures the port runs
 PORTED = ("stablelm_3b", "mamba2_370m", "recurrentgemma_2b", "gemma2_27b",
-          "phi3_medium_14b", "chameleon_34b", "nemotron_4_340b")
-#: the others -> where they wait in ROADMAP.md
-WAITING = {
-    "dbrx_132b": "queue 1 item b (MoE layers)",
-    "arctic_480b": "queue 1 item b (MoE layers)",
-    "whisper_small": "queue 1 item d (the encoder-decoder)",
-}
+          "phi3_medium_14b", "chameleon_34b", "nemotron_4_340b",
+          "dbrx_132b", "arctic_480b", "whisper_small")
+#: architectures not ported yet -> where they wait in ROADMAP.md (none)
+WAITING: dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,10 +123,6 @@ SHAPES = {
 
 def get_config(arch_id: str) -> ArchConfig:
     arch_id = arch_id.replace("-", "_")
-    if arch_id in WAITING:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet: it waits in ROADMAP.md "
-            f"{WAITING[arch_id]}")
     if arch_id not in PORTED:
         raise KeyError(f"unknown architecture {arch_id!r}; known: "
                        f"{ARCH_IDS}")

@@ -91,49 +91,74 @@ def _to_torch(arr, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+def _unstack(tree, n: int, where: str) -> list[dict]:
+    """Leaves of ``tree`` stacked over ``n`` layers -> ``n`` flat dicts,
+    {"a/b": leaf[i]}; a leaf not stacked so raises ``ValueError``."""
+    flat = _leaves(tree)
+    for path, arr in flat.items():
+        if np.ndim(arr) < 1 or np.shape(arr)[0] != n:
+            raise ValueError(f"params: {where}/{path} shape "
+                             f"{np.shape(arr)}: not stacked over {n}")
+    return [{path: np.asarray(arr)[i] for path, arr in flat.items()}
+            for i in range(n)]
+
+
+def _decoder_layers(tree: dict, cfg) -> list[dict]:
+    """A decoder-only tree's layers in order: the ``blocks`` periods
+    unrolled, then the ``remainder`` list."""
+    blocks = tree.get("blocks", {})
+    extra = set(blocks) - {f"layer{j}" for j in range(cfg.period)}
+    if extra:
+        raise ValueError(f"params: unexpected blocks {sorted(extra)}")
+    per_kind = []
+    for j in range(cfg.period):
+        if f"layer{j}" not in blocks:
+            raise ValueError(f"params: blocks/layer{j} missing")
+        per_kind.append(_unstack(blocks[f"layer{j}"], cfg.n_periods,
+                                 f"blocks/layer{j}"))
+    return [per_kind[j][p] for p in range(cfg.n_periods)
+            for j in range(cfg.period)] \
+        + [_leaves(rem) for rem in tree.get("remainder", [])]
+
+
 def model_params_from_numpy(tree: dict, cfg, device="cuda") -> dict:
     """The port's parameters from a reference ``init_params`` pytree.
 
-    ``tree`` has numpy leaves (``jax.tree.map(np.asarray, params)``):
-    ``embed``, ``blocks`` (``layer{j}`` dicts stacked over the
-    ``cfg.n_periods`` pattern periods), ``remainder`` (a list, when
-    ``cfg.n_layers`` is not a multiple of the period), ``final_norm``
-    and ``lm_head`` unless tied. Returns the layout of
-    ``repro_torch.models.model.init_params(cfg)``: the per-period stacks
-    unrolled into one dict per layer, in order, each leaf a copy on
-    ``device`` in the port's dtype. A leaf that is missing, extra or of
-    the wrong shape raises ``ValueError``.
+    ``tree`` has numpy leaves (``jax.tree.map(np.asarray, params)``). A
+    decoder-only tree holds ``embed``, ``blocks`` (``layer{j}`` dicts
+    stacked over the ``cfg.n_periods`` pattern periods), ``remainder`` (a
+    list, when ``cfg.n_layers`` is not a multiple of the period),
+    ``final_norm`` and ``lm_head`` unless tied; an encoder-decoder tree
+    ``embed``, ``enc_blocks`` and ``dec_blocks`` (stacked over
+    ``cfg.n_encoder_layers`` and ``cfg.n_layers``), ``enc_norm``,
+    ``final_norm`` and ``lm_head``. Returns the layout of
+    ``repro_torch.models.model.init_params(cfg)``: the stacks unrolled
+    into one dict per layer, in order, each leaf a copy on ``device`` in
+    the dtype of the port's init (a MoE router stays float32 in a bf16
+    model, as in the reference). A leaf that is missing, extra or of the
+    wrong shape raises ``ValueError``.
     """
     from repro_torch.models import model
     shapes = model.init_params(cfg, device="meta")
     want = _leaves(shapes)
-    layers = []
-    blocks = tree.get("blocks", {})
-    for p in range(cfg.n_periods):
-        for j in range(cfg.period):
-            block = blocks.get(f"layer{j}")
-            if block is None:
-                raise ValueError(f"params: blocks/layer{j} missing")
-            stacked = _leaves(block)
-            for path, arr in stacked.items():
-                if np.ndim(arr) < 1 or np.shape(arr)[0] != cfg.n_periods:
-                    raise ValueError(
-                        f"params: blocks/layer{j}/{path} shape "
-                        f"{np.shape(arr)}: not stacked over "
-                        f"{cfg.n_periods} periods")
-            layers.append({path: np.asarray(arr)[p]
-                           for path, arr in stacked.items()})
-    extra_blocks = set(blocks) - {f"layer{j}" for j in range(cfg.period)}
-    if extra_blocks:
-        raise ValueError(f"params: unexpected blocks {sorted(extra_blocks)}")
-    for rem in tree.get("remainder", []):
-        layers.append(_leaves(rem))
+    if cfg.is_encoder_decoder:
+        stacked = ("enc_blocks", "dec_blocks")
+        unrolled = {
+            "enc_layers": _unstack(tree.get("enc_blocks", {}),
+                                   cfg.n_encoder_layers, "enc_blocks"),
+            "dec_layers": _unstack(tree.get("dec_blocks", {}), cfg.n_layers,
+                                   "dec_blocks")}
+    else:
+        stacked = ("blocks", "remainder")
+        unrolled = {"layers": _decoder_layers(tree, cfg)}
     got = {}
     for key, sub in tree.items():
-        if key not in ("blocks", "remainder"):
+        if key not in stacked:
             got.update(_leaves(sub, key))
-    for i, layer in enumerate(layers):
-        got.update({f"layers/{i}/{path}": arr for path, arr in layer.items()})
+    for name, layer_list in unrolled.items():
+        for i, layer in enumerate(layer_list):
+            got.update({f"{name}/{i}/{path}": arr
+                        for path, arr in layer.items()})
     missing = sorted(set(want) - set(got))
     extra = sorted(set(got) - set(want))
     if missing or extra:

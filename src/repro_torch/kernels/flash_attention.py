@@ -47,8 +47,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The kernel puts query i at position ``Skv - Sq + i`` (suffix
     alignment), as the TPU kernel does; ``segment_pos`` is accepted for
-    parity with the plain version and must hold those positions, the only
-    ones the models pass.
+    parity with the plain version and is not read. With ``causal`` or a
+    ``window`` it must hold those positions, as every self-attention
+    caller passes them. Without either no mask depends on a position, so
+    any ``segment_pos`` gives the same result: the encoder-decoder's
+    cross-attention passes ``enc_len - 1`` for every query.
     """
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,

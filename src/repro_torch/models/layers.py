@@ -19,6 +19,12 @@ carries across leaf for leaf (``repro_torch.convert``).
 * ``self_attention_decode`` writes the new token into the cache tensors
   in place (the reference returns updated copies): a decode step then
   moves no cache bytes besides the one row per sequence.
+* ``moe`` is the reference's top-k mixture of experts with its capacity
+  drop, one token group (the reference's ``moe_num_groups()`` on one
+  device). The router stays float32 in a bf16 model; the expert products
+  are batched GEMMs over every expert's ``cap`` rows, as the reference's
+  einsums (no Pallas kernel backs them). Every shape follows from the
+  input's: no host sync, no data-dependent size.
 """
 from __future__ import annotations
 
@@ -147,6 +153,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def sinusoidal_positions(length: int, d: int, device="cpu"
+                         ) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal position embeddings (length, d),
+    float32: sines of the first d/2 columns, cosines of the rest."""
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=device) / (half - 1))
+    pos = torch.arange(length, dtype=torch.float32,
+                       device=device)[:, None] * freq[None, :]
+    return torch.cat([torch.sin(pos), torch.cos(pos)], dim=1)
+
+
 # -------------------------------------------------------------- attention
 @dataclasses.dataclass(frozen=True)
 class AttnSpec:
@@ -267,6 +285,32 @@ def self_attention_decode(params: dict, spec: AttnSpec, x: torch.Tensor,
     return _proj_out(out, params["wo"])[:, None, :], cache
 
 
+def cross_attention_init(init: Init, spec: AttnSpec, dtype) -> dict:
+    return attention_init(init, spec, dtype)
+
+
+def cross_attention(params: dict, spec: AttnSpec, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor,
+                    kernels: str = "cuda") -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V: no causal
+    mask and no window, so no mask depends on a position. The query
+    positions are the reference's, every one at ``enc_len - 1``."""
+    b, s, _ = x.shape
+    q = _proj_heads(x, params["wq"])
+    pos = torch.full((b, s), enc_k.shape[1] - 1, dtype=torch.int32,
+                     device=x.device)
+    out = ops.attention(q, enc_k, enc_v, causal=False, window=0,
+                        softcap=spec.softcap, scale=spec.scale,
+                        segment_pos=pos, impl=kernels)
+    return _proj_out(out, params["wo"])
+
+
+def cross_kv(params: dict, spec: AttnSpec, enc_out: torch.Tensor):
+    """The encoder states' keys and values, (B, S_enc, Hkv, hd) each."""
+    return _proj_heads(enc_out, params["wk"]), \
+        _proj_heads(enc_out, params["wv"])
+
+
 # ------------------------------------------------------------------- MLPs
 MLP_KINDS = ("swiglu", "geglu", "relu2", "gelu")
 
@@ -295,3 +339,116 @@ def mlp(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     else:
         raise ValueError(f"unknown mlp kind {kind}")
     return matmul(h, params["wo"])
+
+
+# -------------------------------------------------------------------- MoE
+#: when a list, every ``moe`` call appends its routing record: "gate_idx",
+#: "keep" and "slot" (T, k) per token and choice, in the router's order;
+#: "top" (T, min(k + 1, E)), each token's largest probabilities in
+#: descending order; "cap". None (the default) records nothing.
+MOE_RECORD: Optional[list] = None
+
+
+def moe_init(init: Init, d: int, d_ff: int, n_experts: int, kind: str,
+             dtype) -> dict:
+    """Router (d, E) in float32 whatever ``dtype``; experts ``wi``, ``wg``
+    (gated kinds) (E, d, d_ff) and ``wo`` (E, d_ff, d) in ``dtype``."""
+    p = {"router": init.dense((d, n_experts), d, torch.float32),
+         "wi": init.dense((n_experts, d, d_ff), d, dtype)}
+    if kind in ("swiglu", "geglu"):
+        p["wg"] = init.dense((n_experts, d, d_ff), d, dtype)
+    p["wo"] = init.dense((n_experts, d_ff, d), d_ff, dtype)
+    return p
+
+
+def moe_capacity(tokens: int, top_k: int, n_experts: int,
+                 capacity_factor: float) -> int:
+    """Rows per expert: the reference's expression, Python's
+    round-half-even included (8 tokens, top-4 of 16 experts: cap 2)."""
+    return int(max(1, round(tokens * top_k / n_experts * capacity_factor)))
+
+
+def _bmm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, C, d) @ (E, d, f) with a float32 result, products accumulated
+    in float32 (the reference's einsum with ``preferred_element_type``
+    and no cast). bf16 x bf16 products are exact in float32: on the card
+    one batched GEMM with a float32 output; on the CPU (no such kernel
+    there) each expert's operands upcast in turn, never all experts at
+    once."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, w)
+    if a.device.type == "cuda":
+        return torch.bmm(a, w, out_dtype=torch.float32)
+    return torch.stack([a[i].float() @ w[i].float()
+                        for i in range(a.shape[0])])
+
+
+def moe(params: dict, x: torch.Tensor, *, top_k: int, kind: str,
+        capacity_factor: float = 1.25) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k mixture of experts with the reference's capacity drop.
+
+    x: (B, S, d). Returns (output in x's dtype, the Switch load-balance
+    aux loss, float32). The router's float32 softmax picks each token's
+    k experts in order of probability (ties to the lower index, as
+    ``lax.top_k``), gates normalised by max(sum, 1e-9). A token's rank
+    within an expert is the number of earlier tokens that chose it (the
+    reference's stable sort); ranks from ``cap`` up are dropped. Each
+    expert runs its ``cap`` rows, empty or not; a token sums its gated
+    outputs in ascending expert order, the reference's scatter order.
+    """
+    b, s, d = x.shape
+    t = b * s
+    e = params["router"].shape[1]
+    xf = x.reshape(t, d)
+    probs = torch.softmax(torch.matmul(xf.to(torch.float32),
+                                       params["router"]), dim=-1)
+    ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_idx = order[:, :top_k]
+    gates = ranked[:, :top_k]
+    gates = gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
+
+    chosen = torch.zeros((t, e), dtype=torch.float32, device=x.device) \
+        .scatter_(1, gate_idx, 1.0)                     # k ones per token
+    aux = e * torch.sum(probs.mean(dim=0) * chosen.mean(dim=0))
+
+    cap = moe_capacity(t, top_k, e, capacity_factor)
+    hits = chosen.to(torch.int64)
+    rank = (torch.cumsum(hits, dim=0) - hits).gather(1, gate_idx)  # (t, k)
+    keep = rank < cap
+    slot = gate_idx * cap + torch.clamp_max(rank, cap - 1)
+    if MOE_RECORD is not None:
+        MOE_RECORD.append({"gate_idx": gate_idx, "keep": keep, "slot": slot,
+                           "top": ranked[:, :top_k + 1], "cap": cap})
+
+    # dispatch: kept (expert, rank) slots are distinct; a dropped choice
+    # adds zeros into the last slot, which leaves it unchanged
+    src = torch.where(keep[..., None], xf[:, None, :],
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    buf = torch.zeros((e * cap, d), dtype=x.dtype, device=x.device) \
+        .index_add_(0, torch.where(keep, slot, e * cap - 1).reshape(-1),
+                    src.reshape(-1, d)).view(e, cap, d)
+
+    h = torch.bmm(buf, params["wi"])
+    if kind == "swiglu":
+        h = (F.silu(_bmm_f32(buf, params["wg"]))
+             * h.to(torch.float32)).to(x.dtype)
+    elif kind == "geglu":
+        h = (F.gelu(_bmm_f32(buf, params["wg"]), approximate="tanh")
+             * h.to(torch.float32)).to(x.dtype)
+    elif kind == "relu2":
+        h = F.relu(h.to(torch.float32)).square().to(x.dtype)
+    elif kind == "gelu":
+        h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+    else:
+        raise ValueError(f"unknown mlp kind {kind}")
+    out = torch.bmm(h, params["wo"]).view(e * cap, d)
+
+    # combine: each token gathers its k gated rows and adds them in
+    # ascending expert order (no float atomics: a fixed order of adds)
+    part = out[slot] * (gates * keep).to(x.dtype)[..., None]  # (t, k, d)
+    part = part.gather(1, torch.argsort(gate_idx, dim=1)[..., None]
+                       .expand(-1, -1, d))
+    y = part[:, 0]
+    for j in range(1, top_k):
+        y = y + part[:, j]
+    return y.reshape(b, s, d), aux

@@ -13,11 +13,13 @@ run under ``layers.float32_gemms``.
 Every layer kind of the reference is ported: ``"attn"`` and ``"local"``
 (attention with a KV cache), ``"mamba2"`` (``models/ssm.py``, with a conv
 buffer and an SSM state) and ``"rglru"`` (``models/rglru.py``, with a
-conv buffer and a hidden state); ``NOT_PORTED`` is empty. Mixture-of-
-experts layers raise ``NotImplementedError`` naming the ``ROADMAP.md``
-item where they wait. As in the reference, a ``"mamba2"`` layer is the
-whole layer: it never carries an MLP, whatever ``d_ff`` is; an
-``"rglru"`` layer carries one, as an attention layer does.
+conv buffer and a hidden state). As in the reference, a ``"mamba2"``
+layer is the whole layer: it never carries an MLP, whatever ``d_ff`` is;
+an ``"rglru"`` layer carries one, as an attention layer does. With
+``n_experts > 0`` that MLP is a mixture of experts (``layers.moe``),
+beside a dense MLP under ``dense_residual``; ``forward`` returns the sum
+of the layers' load-balance losses, ``prefill`` and ``decode_step`` drop
+them, as the reference does.
 """
 from __future__ import annotations
 
@@ -32,8 +34,6 @@ ATTN_KINDS = ("attn", "local")
 #: recurrent layer kind -> its module: init, forward (with state,
 #: return_state and kernels), init_state and an in-place decode_step
 MIXERS = {"mamba2": ssm, "rglru": rglru}
-#: layer kind -> the ROADMAP.md item where it waits (none left)
-NOT_PORTED: dict[str, str] = {}
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
@@ -41,18 +41,10 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise unless every layer of ``cfg`` is one the port runs."""
+    """Raise unless every layer of ``cfg`` is of a kind the port runs."""
     for kind in cfg.layer_pattern:
-        if kind in NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: {kind!r} layers are not ported yet: "
-                f"{NOT_PORTED[kind]}")
         if kind not in ATTN_KINDS + tuple(MIXERS):
             raise ValueError(f"unknown layer kind {kind}")
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers are not ported yet: "
-            "ROADMAP.md queue 1 item b (MoE)")
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
@@ -95,8 +87,15 @@ def layer_init(init: layers.Init, cfg: ArchConfig, kind: str) -> dict:
         p["mixer"] = MIXERS[kind].init(init, cfg, dt)
     if _has_mlp(cfg, kind):
         p["norm2"] = layers.norm_init(init, cfg.norm, cfg.d_model)
-        p["mlp"] = layers.mlp_init(init, cfg.d_model, cfg.d_ff,
-                                   cfg.mlp_kind, dt)
+        if cfg.n_experts > 0:
+            p["moe"] = layers.moe_init(init, cfg.d_model, cfg.d_ff,
+                                       cfg.n_experts, cfg.mlp_kind, dt)
+            if cfg.dense_residual:
+                p["dense_mlp"] = layers.mlp_init(init, cfg.d_model,
+                                                 cfg.d_ff, cfg.mlp_kind, dt)
+        else:
+            p["mlp"] = layers.mlp_init(init, cfg.d_model, cfg.d_ff,
+                                       cfg.mlp_kind, dt)
     return p
 
 
@@ -120,12 +119,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
 
 
 # --------------------------------------------------------------- forward
-def _mlp_block(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor
-               ) -> torch.Tensor:
+def _mlp_block(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor):
+    """The layer's MLP residual: (x, the MoE aux loss or None). The
+    reference's order of adds: the experts' output, plus the dense
+    residual's, then onto x."""
     if not _has_mlp(cfg, kind):
-        return x
+        return x, None
     h = layers.apply_norm(cfg.norm, p["norm2"], x)
-    return x + layers.mlp(p["mlp"], h, cfg.mlp_kind)
+    if cfg.n_experts == 0:
+        return x + layers.mlp(p["mlp"], h, cfg.mlp_kind), None
+    y, aux = layers.moe(p["moe"], h, top_k=cfg.top_k, kind=cfg.mlp_kind,
+                        capacity_factor=cfg.capacity_factor)
+    if cfg.dense_residual:
+        y = y + layers.mlp(p["dense_mlp"], h, cfg.mlp_kind)
+    return x + y, aux
 
 
 def _embed(params: dict, cfg: ArchConfig, inp: torch.Tensor) -> torch.Tensor:
@@ -166,11 +173,13 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, kernels: str = "cuda"
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, S) tokens -> ((B, S, V) float32 logits, aux loss 0)."""
+    """(B, S) tokens -> ((B, S, V) float32 logits, the sum of the MoE
+    layers' aux losses, 0 without experts)."""
     x = _embed(params, cfg, tokens)
     b, s = x.shape[:2]
     if positions is None:
         positions = _positions(b, s, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
         h = layers.apply_norm(cfg.norm, p["norm1"], x)
         if kind in ATTN_KINDS:
@@ -178,9 +187,10 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                                           positions, kernels)
         else:
             x = x + MIXERS[kind].forward(p["mixer"], cfg, h, kernels=kernels)
-        x = _mlp_block(p, cfg, kind, x)
-    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32,
-                                                device=x.device)
+        x, a = _mlp_block(p, cfg, kind, x)
+        if a is not None:
+            aux = aux + a
+    return _logits(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------- caches
@@ -232,7 +242,7 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         else:
             y, c = MIXERS[kind].forward(p["mixer"], cfg, h,
                                         return_state=True, kernels=kernels)
-        x = _mlp_block(p, cfg, kind, x + y)
+        x, _ = _mlp_block(p, cfg, kind, x + y)
         caches.append(c)
     return _logits(params, cfg, x[:, -1:, :])[:, 0, :], {"layers": caches}
 
@@ -257,5 +267,5 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                 p["attn"], attn_spec(cfg, kind), h, c, pos, kernels)
         else:
             y, _ = MIXERS[kind].decode_step(p["mixer"], cfg, h, c)
-        x = _mlp_block(p, cfg, kind, x + y)
+        x, _ = _mlp_block(p, cfg, kind, x + y)
     return _logits(params, cfg, x)[:, 0, :], cache

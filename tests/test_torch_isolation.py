@@ -64,7 +64,9 @@ def test_port_has_the_slice_modules():
             "core/jaxsim.py", "models/rglru.py",
             "configs/recurrentgemma_2b.py", "configs/gemma2_27b.py",
             "configs/phi3_medium_14b.py", "configs/chameleon_34b.py",
-            "configs/nemotron_4_340b.py"]
+            "configs/nemotron_4_340b.py", "configs/dbrx_132b.py",
+            "configs/arctic_480b.py", "configs/whisper_small.py",
+            "models/encdec.py"]
     missing = [m for m in want if not (PORT / m).is_file()]
     assert not missing, missing
 
