@@ -134,11 +134,27 @@ Each phase prints one JSON object per line:
    greedy decode steps through ``model.prefill`` / ``model.decode_step``
    (36 ``flash_attention`` per prefill; 12 ``decode_attention`` and 12
    ``flash_attention`` at Sq 1 per decode step), prefill ms, decode ms
-   per step and a profiled prefill and decode step.
+   per step and a profiled prefill and decode step;
+18. the trainer (``phase_train``, before phase 15): float32 loss and
+   gradients under ``kernels="fused"`` against ``"ref"`` at full width
+   (StableLM-3B at 2 of 32 layers, B 2 x S 1024; Mamba2-370m at 2 of 48,
+   B 2 x L 512), the loss within ``TRAIN_LOSS_REL``, every gradient leaf
+   within ``TRAIN_GRAD_REL`` x its largest |gradient|, no hand-written
+   kernel launched; ``examples/train_small.py``'s 100M model for 300
+   steps on ``SyntheticText``, whose last-20 mean loss must fall more
+   than 0.2 below its first-20; its params saved with the port's
+   ``checkpoint``, restored bit for bit and served in float32 through
+   ``ServingEngine`` under ``"cuda"`` and ``"ref"`` on both slot paths
+   (greedy tokens equal, exact launches); StableLM-3B whole (bf16,
+   float32 AdamW state, remat) at B 2 x S 4096 and Mamba2-370m whole at
+   B 4 x L 2048, a few steps each with loss, step ms, tokens/s, peak
+   memory and a profiled step, params moving, ``kernels="cuda"``
+   refused.
 
 Launch counters are set to 0 just before each policy's run in phases
 3-5, each ``generate`` of phases 9, 13 and 16 and one more decode step
-after it, phase 17's prefill and decode steps and one more step, and
+after it, phase 17's prefill and decode steps and one more step, phase
+18's parity runs and each ``generate`` of its served checkpoint, and
 phase 15, and read just after; a kernel that the path runs and that did not
 launch exactly as often as it should fails the run (``hybrid`` must
 launch both of its constituents' kernels on the flash stream). The line
@@ -1700,16 +1716,21 @@ def counted(fn, kernels, dev):
     return out, seconds, {k.__name__: k.launches for k in kernels}
 
 
-def profile_call(fn, dev, label: str) -> dict:
+def profile_call(fn, dev, label: str, warm: bool = True,
+                 host_ops: bool = True) -> dict:
     """``torch.profiler`` over one call of ``fn`` (after one unprofiled
-    call): device busy and idle share against its wall time, top device
-    ops."""
+    call unless ``warm`` is False): device busy and idle share against
+    its wall time, top device ops. ``host_ops=False`` traces the device
+    alone (a call of ~10^5 host ops takes minutes to summarise)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops or dev.type != "cuda":
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         sync(dev)
@@ -2530,6 +2551,307 @@ def phase_ssd_times(dev) -> dict:
     return out
 
 
+# ----------------------------------------------------- training: phase --
+# The trainer (``repro_torch.training``) on the card, through the fused
+# path (``kernels="fused"``: blocked attention with its hand-written
+# backward, the chunked SSD scan), the only path with a backward besides
+# the plain versions; the checkpoint it writes is then served through the
+# hand-written kernels. Sizes:
+# * parity: StableLM-3B at 2 of 32 layers, B 2 x S 1024, and Mamba2-370m
+#   at 2 of 48, B 2 x L 512, float32 (remat as configured): loss and
+#   every gradient leaf under "fused" against "ref";
+# * example: ``examples/train_small.py``'s model (StableLM family at 8 x
+#   512, vocab 32768, float32, no remat), B 8 x S 128, 300 steps, seed
+#   0, lr 3e-4, warmup 100, cosine to 300;
+# * serve: the example's trained params saved, restored and served in
+#   float32 through ``ServingEngine`` under "cuda" and "ref", both slot
+#   paths;
+# * whole: StableLM-3B (32 layers, bf16, float32 AdamW state, remat) at
+#   B 2 x S 4096 (``train_4k``'s sequence, the global batch of 256 cut to
+#   2 for one card) and Mamba2-370m (48 layers, bf16) at B 4 x L 2048.
+TRAIN = dict(
+    parity={"stablelm_3b": dict(layers=2, batch=2, seq=1024),
+            "mamba2_370m": dict(layers=2, batch=2, seq=512)},
+    example=dict(steps=300, batch=8, seq=128, lr=3e-4, seed=0),
+    serve=dict(slots=8, partial=4, prompt=64, steps=32, max_len=256),
+    whole={"stablelm_3b": dict(batch=2, seq=4096, steps=4),
+           "mamba2_370m": dict(batch=4, seq=2048, steps=4)})
+#: float32 parity bounds of "fused" against "ref": the loss relative,
+#: each gradient leaf against its own largest |gradient| (the CPU tests
+#: measure at most 3.7e-5 of it on reduced Mamba2-370m)
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+#: where the example's checkpoint is written (gitignored), and removed
+TRAIN_CKPT = Path(__file__).resolve().parent / "build" / "train_ckpt"
+
+
+def all_kernels() -> tuple:
+    """Every hand-written kernel's wrapper (each counts its launches)."""
+    from repro_torch.kernels.routing_decide import (routing_attain,
+                                                    routing_guard,
+                                                    routing_topk)
+    from repro_torch.kernels.routing_score import routing_score
+    return attention_kernels() + (ssd_kernel(), routing_score,
+                                  routing_guard, routing_topk,
+                                  routing_attain)
+
+
+def example_config():
+    """``examples/train_small.py``'s ~100M-parameter model."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config("stablelm_3b"), n_layers=8, d_model=512, n_heads=8,
+        n_kv_heads=8, head_dim=64, d_ff=1536, vocab_size=32768,
+        dtype="float32", remat=False)
+
+
+def train_batches(cfg, batch: int, seq: int, seed: int = 0):
+    from repro_torch.training.data import DataConfig, SyntheticText
+    return iter(SyntheticText(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=seq, batch_size=batch,
+                                         seed=seed)))
+
+
+def train_parity(dev, arch: str, layers: int, batch: int, seq: int) -> dict:
+    """Loss and gradients of ``arch`` at full width, ``layers`` deep, in
+    float32 under kernels="fused" against "ref" on one SyntheticText
+    batch; no hand-written kernel may launch in either run."""
+    from repro_torch.models import model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train
+    cfg = dataclasses.replace(full_width(arch, "float32"), n_layers=layers)
+    params = model.init_params(cfg, seed=0, device=dev)
+    data = next(train_batches(cfg, batch, seq))
+    out, seconds = {}, {}
+    for kernels in ("fused", "ref"):
+        (loss, extras, grads), secs, counts = counted(
+            lambda: train.value_and_grad(params, cfg, data, kernels),
+            all_kernels(), dev)
+        if any(counts.values()):
+            fail(f"train parity {arch}/{kernels}: a hand-written kernel "
+                 f"launched {counts}")
+        out[kernels], seconds[kernels] = (loss, grads), secs
+    (loss_f, grads_f), (loss_r, grads_r) = out["fused"], out["ref"]
+    loss_rel = abs(float(loss_f) / float(loss_r) - 1)
+    worst, worst_leaf = 0.0, None
+    for i, (a, b) in enumerate(zip(opt.leaves(grads_f),
+                                   opt.leaves(grads_r))):
+        if not bool(a.isfinite().all()):
+            fail(f"train parity {arch}: gradient leaf {i} not finite")
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_leaf = rel, i
+    row = {"phase": "train_parity", "arch": cfg.name, "layers": layers,
+           "batch": batch, "seq": seq, "loss_fused": float(loss_f),
+           "loss_ref": float(loss_r), "loss_rel": loss_rel,
+           "loss_bound": TRAIN_LOSS_REL, "grad_worst_rel_to_max": worst,
+           "grad_worst_leaf": worst_leaf, "grad_bound": TRAIN_GRAD_REL,
+           "leaves": len(opt.leaves(grads_f)),
+           "seconds_fused": seconds["fused"], "seconds_ref": seconds["ref"],
+           "hand_kernel_launches": 0}
+    emit(row)
+    if loss_rel > TRAIN_LOSS_REL or worst > TRAIN_GRAD_REL:
+        fail(f"train parity {arch}: loss rel {loss_rel}, gradient "
+             f"{worst} of its leaf's max (bounds {TRAIN_LOSS_REL}, "
+             f"{TRAIN_GRAD_REL})")
+    return row
+
+
+def train_example(dev, steps: int, batch: int, seq: int, lr: float,
+                  seed: int) -> tuple:
+    """``examples/train_small.py`` on the card under kernels="fused":
+    ``steps`` AdamW steps, the first-20 and last-20 mean loss, which must
+    fall by more than 0.2 (the example's "LEARNING"). Returns (cfg,
+    trained params, the data stream)."""
+    from repro_torch.models import model
+    from repro_torch.training import train
+    cfg = example_config()
+    state = train.make_train_state(cfg, seed=seed, lr=lr,
+                                   total_steps=steps, device=dev)
+    step = train.make_functional_step(cfg, state.opt_cfg, kernels="fused")
+    data = train_batches(cfg, batch, seq, seed)
+    params, opt_state = state.params, state.opt_state
+    losses, step_ms = [], []
+    start = time.perf_counter()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, next(data))
+        losses.append(float(metrics["loss"]))          # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    first, last = statistics.fmean(losses[:20]), statistics.fmean(losses[-20:])
+    emit({"phase": "train_example", "arch": cfg.name,
+          "params": model.param_count(cfg), "steps": steps, "batch": batch,
+          "seq": seq, "kernels": "fused", "first20_loss": first,
+          "last20_loss": last, "learning": last < first - 0.2,
+          "step_ms_median": statistics.median(step_ms[1:]),
+          "first_step_ms": step_ms[0],
+          "tokens_per_s": batch * seq * 1e3 / statistics.median(step_ms[1:]),
+          "loss_every_25": losses[::25] + [losses[-1]],
+          "seconds": time.perf_counter() - start})
+    if not last < first - 0.2:
+        fail(f"train example: last-20 loss {last} not below first-20 "
+             f"{first} - 0.2")
+    return cfg, params, data
+
+
+def train_serve(dev, cfg, params, data, slots: int, partial: int,
+                prompt: int, steps: int, max_len: int) -> dict:
+    """The trained params through the port's checkpoint (saved, restored
+    into a fresh tree, equal bit for bit), then served in float32 by
+    ``ServingEngine`` under kernels="cuda" and "ref" on both slot paths:
+    greedy tokens equal, the hand-written kernels launched exactly as
+    ``expected_launches`` says."""
+    import shutil
+
+    import torch
+    from repro_torch.models import model
+    from repro_torch.serving import ServingEngine
+    from repro_torch.training import checkpoint
+    from repro_torch.training import optimizer as opt
+    start = time.perf_counter()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        path = checkpoint.save(params, str(TRAIN_CKPT), step=300)
+        save_s = time.perf_counter() - t0
+        restored = checkpoint.restore(model.init_params(cfg, seed=1,
+                                                        device=dev),
+                                      str(TRAIN_CKPT))
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    finally:
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+               zip(opt.leaves(params), opt.leaves(restored)))
+    if not same:
+        fail("train serve: the restored checkpoint differs from the "
+             "trained params")
+    counters = path_kernels(cfg)
+    want, _ = expected_launches(cfg, steps)
+    tokens = torch.as_tensor(next(data)["tokens"][:, :prompt], device=dev)
+    out = {"launches": {k.__name__: 0 for k in counters}}
+    for label, b in (("b_eq_slots", slots), ("b_lt_slots", partial)):
+        runs, launched = {}, {}
+        for kernels in ("cuda", "ref"):
+            eng = ServingEngine(cfg, restored, slots=slots, max_len=max_len,
+                                device=dev, kernels=kernels)
+            res, secs, counts = counted(
+                lambda: eng.generate(tokens[:b], steps=steps), counters,
+                dev)
+            if kernels == "cuda":
+                if counts != want:
+                    fail(f"train serve {label}: launches {counts}, "
+                         f"expected {want}")
+                launched = counts
+                for k, c in counts.items():
+                    out["launches"][k] += c
+            runs[kernels] = res.tokens
+        equal = bool((runs["cuda"] == runs["ref"]).all())
+        emit({"phase": "train_serve", "cell": label, "batch": b,
+              "prompt": prompt, "steps": steps, "tokens_equal": equal,
+              "launches": launched, "expected": want,
+              "checkpoint_bytes": nbytes, "save_s": save_s,
+              "restored_bit_equal": same,
+              "seconds": time.perf_counter() - start})
+        if not equal:
+            rows = np.nonzero((runs["cuda"] != runs["ref"]).any(1))[0]
+            fail(f"train serve {label}: greedy tokens differ in rows "
+                 f"{rows.tolist()}")
+    return out
+
+
+def train_whole(dev, arch: str, batch: int, seq: int, steps: int) -> dict:
+    """``arch`` whole at its published width and dtype (remat as
+    configured), AdamW state in ``opt_state_dtype``: ``steps`` steps
+    under kernels="fused", the first a warm step, the last profiled on
+    the device. Loss per step, step wall ms (the steps between),
+    tokens/s, peak memory; loss finite and params moved; kernels="cuda"
+    refused."""
+    import torch
+    from repro_torch.models import model
+    from repro_torch.training import train
+    from repro_torch.configs import get_config
+    cfg = full_width(arch, get_config(arch).dtype)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    state = train.make_train_state(cfg, seed=0, device=dev)
+    probe = [state.params["layers"][0]["norm1"]["scale"],
+             state.params["layers"][-1]["norm1"]["scale"],
+             state.params["final_norm"]["scale"]]
+    probe = [p.clone() for p in probe]
+    step = train.make_functional_step(cfg, state.opt_cfg, kernels="fused")
+    data = train_batches(cfg, batch, seq)
+    params, opt_state, ocfg = state.params, state.opt_state, state.opt_cfg
+    del state
+    losses, step_ms = [], []
+
+    def one():
+        nonlocal params, opt_state
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, next(data))
+        losses.append(float(metrics["loss"]))          # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        one()
+    prof = profile_call(one, dev, f"train/{arch}/B{batch}xS{seq}",
+                        warm=False, host_ops=False)
+    after = [params["layers"][0]["norm1"]["scale"],
+             params["layers"][-1]["norm1"]["scale"],
+             params["final_norm"]["scale"]]
+    moved = [not torch.equal(a, b) for a, b in zip(probe, after)]
+    refused = False
+    try:
+        train.train_step(train.TrainState(params, opt_state, ocfg), cfg,
+                         next(data), kernels="cuda")
+    except ValueError:
+        refused = True
+    timed = step_ms[1:steps - 1]
+    row = {"phase": "train_whole", "arch": cfg.name, "dtype": cfg.dtype,
+           "opt_state_dtype": cfg.opt_state_dtype, "remat": cfg.remat,
+           "n_layers": cfg.n_layers, "params": model.param_count(cfg),
+           "batch": batch, "seq": seq, "losses": losses,
+           "step_ms": statistics.median(timed), "step_ms_all": step_ms,
+           "tokens_per_s": batch * seq * 1e3 / statistics.median(timed),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+           if dev.type == "cuda" else None,
+           "profiled_wall_ms": prof["wall_ms"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "idle_share": prof["idle_share"], "params_moved": moved,
+           "cuda_refused": refused, "seconds": time.perf_counter() - t0}
+    emit(row)
+    if not all(np.isfinite(losses)):
+        fail(f"train whole {arch}: loss not finite {losses}")
+    if not any(moved):
+        fail(f"train whole {arch}: params did not move")
+    if not refused:
+        fail(f"train whole {arch}: kernels='cuda' was not refused")
+    return row
+
+
+def phase_train(dev, spec=TRAIN) -> dict:
+    """(a) float32 parity of the fused path against the plain one at full
+    width; (b) the reference's training example on the card; (c) its
+    checkpoint restored and served through the hand-written kernels; (d)
+    StableLM-3B and Mamba2-370m trained whole. Returns the serve
+    launches and the rows of (a) and (d)."""
+    import torch
+    out = {"parity": [train_parity(dev, arch, **kw)
+                      for arch, kw in spec["parity"].items()]}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg, params, data = train_example(dev, **spec["example"])
+    out["serve"] = train_serve(dev, cfg, params, data, **spec["serve"])
+    del params
+    out["whole"] = []
+    for arch, kw in spec["whole"].items():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["whole"].append(train_whole(dev, arch, **kw))
+    return out
+
+
+
 # ------------------------------------------------ checkouts in turns --
 # ----------------------------------------------------------- phase 15 ----
 # tests/test_jaxsim.py SMOKE_CELLS: (scenario, admission window, policy,
@@ -3026,6 +3348,12 @@ def main() -> int:
     decoders["whisper_small"] = phase_whisper(dev)
     torch.cuda.empty_cache()
 
+    # the trainer: fused-path parity at full width, the reference's
+    # training example, its checkpoint served through the hand-written
+    # kernels, StableLM-3B and Mamba2-370m trained whole
+    trained = phase_train(dev)
+    torch.cuda.empty_cache()
+
     # the bucketed twin: no hand-written kernel on its path (it routes
     # through the plain torch select/guard), counted all the same
     for k in kernels:
@@ -3080,6 +3408,9 @@ def main() -> int:
             "launches_by_arch": {a: row["launches"][k.__name__]
                                  for a, row in decoders.items()
                                  if "launches" in row},
+            # serving the trained checkpoint (phase_train)
+            "launches_train_serve":
+                trained["serve"]["launches"][k.__name__],
             "shapes": {label: {key: row[key] for key in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "max_abs_err")} for label, row in others}})

@@ -8,7 +8,8 @@ e.g. the columns of a reference ``CandidateTable`` and a
 columns, ready for ``repro_torch.kernels.ops``. The model stack's state
 is its weights: :func:`model_params_from_numpy` takes a reference
 ``init_params`` pytree with numpy leaves and returns the port's
-parameters. Only numpy crosses the boundary, so this module imports
+parameters, and :func:`opt_state_from_numpy` its AdamW state. Only
+numpy crosses the boundary, so this module imports
 neither framework's package.
 """
 from __future__ import annotations
@@ -121,7 +122,8 @@ def _decoder_layers(tree: dict, cfg) -> list[dict]:
         + [_leaves(rem) for rem in tree.get("remainder", [])]
 
 
-def model_params_from_numpy(tree: dict, cfg, device="cuda") -> dict:
+def model_params_from_numpy(tree: dict, cfg, device="cuda",
+                            dtype: torch.dtype | None = None) -> dict:
     """The port's parameters from a reference ``init_params`` pytree.
 
     ``tree`` has numpy leaves (``jax.tree.map(np.asarray, params)``). A
@@ -135,8 +137,8 @@ def model_params_from_numpy(tree: dict, cfg, device="cuda") -> dict:
     ``repro_torch.models.model.init_params(cfg)``: the stacks unrolled
     into one dict per layer, in order, each leaf a copy on ``device`` in
     the dtype of the port's init (a MoE router stays float32 in a bf16
-    model, as in the reference). A leaf that is missing, extra or of the
-    wrong shape raises ``ValueError``.
+    model, as in the reference), or in ``dtype`` when given. A leaf that
+    is missing, extra or of the wrong shape raises ``ValueError``.
     """
     from repro_torch.models import model
     shapes = model.init_params(cfg, device="meta")
@@ -168,5 +170,17 @@ def model_params_from_numpy(tree: dict, cfg, device="cuda") -> dict:
         if tuple(np.shape(got[path])) != tuple(like.shape):
             raise ValueError(f"params: {path} shape {np.shape(got[path])}, "
                              f"expected {tuple(like.shape)}")
-        flat[path] = _to_torch(got[path], like.dtype, device)
+        flat[path] = _to_torch(got[path], dtype or like.dtype, device)
     return _unflatten_like(shapes, flat)
+
+
+def opt_state_from_numpy(opt_state: dict, cfg, device="cuda") -> dict:
+    """The port's AdamW state from a reference ``init_opt_state`` /
+    ``apply_updates`` state with numpy leaves: ``m`` and ``v`` through
+    the layer mapping of :func:`model_params_from_numpy`, in
+    ``cfg.opt_state_dtype``, and ``step`` as a 0-d int32 tensor."""
+    dt = getattr(torch, cfg.opt_state_dtype)
+    return {"m": model_params_from_numpy(opt_state["m"], cfg, device, dt),
+            "v": model_params_from_numpy(opt_state["v"], cfg, device, dt),
+            "step": torch.tensor(int(np.asarray(opt_state["step"])),
+                                 dtype=torch.int32, device=device)}

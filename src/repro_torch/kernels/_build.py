@@ -175,3 +175,17 @@ def library(name: str = "routing") -> KernelLibrary:
     """The kernels of ``csrc/<name>.cu``, built and loaded on first
     call."""
     return KernelLibrary(name, *build(name))
+
+
+def refuse_grad(op: str, *inputs) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and a tensor among
+    ``inputs`` requires a gradient. The hand-written kernels have no
+    backward, and a result built by a ``ctypes`` launch has no
+    ``grad_fn``: returning it would cut the graph silently. Every kernel
+    wrapper calls this first, whatever the device, so the refusal is the
+    same on the CPU (where the wrapper runs the plain version)."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in inputs):
+        raise RuntimeError(f"{op}: the hand-written kernel has no backward; "
+                           "train with kernels='fused' or 'ref'")

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels._build import refuse_grad
 from repro_torch.kernels.flash_attention import DTYPE_CODE, check_heads
 from repro_torch.kernels.routing_score import check_input, stream_ptr
 
@@ -76,6 +77,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q: (B, H, D); k_cache, v_cache: (B, C, Hkv, D), float32 or
     bfloat16; kv_pos: (B, C) int32; q_pos: (B,) int32. Returns (B, H, D)
     in q's dtype."""
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k_cache, v_cache, kv_pos, q_pos,
                                         window=window, softcap=softcap,

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels._build import refuse_grad
 from repro_torch.kernels.routing_score import check_input, stream_ptr
 
 #: torch dtype -> the launchers' dtype code
@@ -53,6 +54,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     any ``segment_pos`` gives the same result: the encoder-decoder's
     cross-attention passes ``enc_len - 1`` for every query.
     """
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, scale=scale,

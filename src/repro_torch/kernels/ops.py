@@ -1,20 +1,27 @@
 """Dispatch facade for the port's kernels (routing, attention, SSD).
 
-Each op has two execution paths, chosen per call with ``impl=``:
+Each op has three execution paths, chosen per call with ``impl=``:
 
-* ``"ref"``  — the plain PyTorch version (``repro_torch.kernels.ref``),
+* ``"ref"``   — the plain PyTorch version (``repro_torch.kernels.ref``),
   on whatever device the inputs live on;
-* ``"cuda"`` — the hand-written CUDA kernel. Its inputs must lie on a
+* ``"cuda"``  — the hand-written CUDA kernel. Its inputs must lie on a
   CUDA device: a CPU tensor raises here instead of silently running the
-  plain version.
+  plain version. The kernels have no backward: their wrappers refuse
+  inputs that need a gradient;
+* ``"fused"`` — the attention and SSD ops through
+  ``repro_torch.kernels.fused`` (plain torch on any device, blocked
+  attention with a hand-written backward: the path training takes); the
+  routing ops, which have no fused form, run their plain versions, as
+  the reference's facade does.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import fused
 from repro_torch.kernels import ref as _ref
 
-IMPLS = ("ref", "cuda")
+IMPLS = ("ref", "cuda", "fused")
 
 
 def _require_cuda(op: str, x: torch.Tensor, impl: str) -> None:
@@ -30,7 +37,7 @@ def routing_score(lam, alpha, beta, gamma, mu, n, rtt, slo, cost,
                   erlang_c_table, impl: str = "ref"):
     """Batched LA-IMR routing decisions. See ``ref.routing_score_ref``."""
     _require_cuda("routing_score", lam, impl)
-    if impl == "ref":
+    if impl in ("ref", "fused"):
         return _ref.routing_score_ref(lam, alpha, beta, gamma, mu, n, rtt,
                                       slo, cost, erlang_c_table)
     from repro_torch.kernels import routing_score as rs
@@ -42,7 +49,7 @@ def routing_guard(lam, alpha, beta, gamma, mu, n, rtt, tau, home, up,
                   erlang_c_table, impl: str = "ref"):
     """Fused Algorithm-1 guarded routing. See ``ref.routing_guard_ref``."""
     _require_cuda("routing_guard", lam, impl)
-    if impl == "ref":
+    if impl in ("ref", "fused"):
         return _ref.routing_guard_ref(lam, alpha, beta, gamma, mu, n, rtt,
                                       tau, home, up, erlang_c_table)
     from repro_torch.kernels import routing_decide as rd
@@ -55,7 +62,7 @@ def routing_topk(lam, alpha, beta, gamma, mu, n, rtt, slo, cost,
                  impl: str = "ref"):
     """Fused top-k feasible select. See ``ref.routing_topk_ref``."""
     _require_cuda("routing_topk", lam, impl)
-    if impl == "ref":
+    if impl in ("ref", "fused"):
         return _ref.routing_topk_ref(lam, alpha, beta, gamma, mu, n, rtt,
                                      slo, cost, erlang_c_table, k=k,
                                      margin=margin)
@@ -69,7 +76,7 @@ def routing_attain(lam, alpha, beta, gamma, mu, n, rtt, slo, sigma, avail,
                    impl: str = "ref"):
     """Fused attainment-argmax select. See ``ref.routing_attain_ref``."""
     _require_cuda("routing_attain", lam, impl)
-    if impl == "ref":
+    if impl in ("ref", "fused"):
         return _ref.routing_attain_ref(lam, alpha, beta, gamma, mu, n, rtt,
                                        slo, sigma, avail, erlang_c_table,
                                        k=k, margin=margin)
@@ -84,6 +91,9 @@ def attention(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
     """Multi-head attention (GQA / window / softcap). See
     ``ref.flash_attention_ref``."""
     _require_cuda("attention", q, impl)
+    if impl == "fused":
+        return fused.fused_attention(q, k, v, causal, window, softcap, scale,
+                                     segment_pos)
     if impl == "ref":
         return _ref.flash_attention_ref(q, k, v, causal=causal,
                                         window=window, softcap=softcap,
@@ -99,6 +109,10 @@ def decode_attention(q, k_cache, v_cache, kv_pos, q_pos, *, window=0,
     """Single-token attention against a KV cache. See
     ``ref.decode_attention_ref``."""
     _require_cuda("decode_attention", q, impl)
+    if impl == "fused":
+        return fused.fused_decode_attention(q, k_cache, v_cache, kv_pos,
+                                            q_pos, window=window,
+                                            softcap=softcap, scale=scale)
     if impl == "ref":
         return _ref.decode_attention_ref(q, k_cache, v_cache, kv_pos, q_pos,
                                          window=window, softcap=softcap,
@@ -109,9 +123,15 @@ def decode_attention(q, k_cache, v_cache, kv_pos, q_pos, *, window=0,
 
 
 def ssd_scan(x, dt, a, b, c, d_skip, initial_state=None,
-             return_final_state=False, impl: str = "ref"):
-    """Mamba-2 SSD scan. See ``ref.ssd_scan_ref``."""
+             return_final_state=False, impl: str = "ref", chunk: int = 64):
+    """Mamba-2 SSD scan. See ``ref.ssd_scan_ref``. ``chunk`` is the
+    fused path's chunk length (the kernel's is fixed at 64)."""
     _require_cuda("ssd_scan", x, impl)
+    if impl == "fused":
+        return fused.fused_ssd_scan(x, dt, a, b, c, d_skip,
+                                    initial_state=initial_state,
+                                    return_final_state=return_final_state,
+                                    chunk=chunk)
     if impl == "ref":
         return _ref.ssd_scan_ref(x, dt, a, b, c, d_skip,
                                  initial_state=initial_state,

@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._build import refuse_grad
+
 UNSTABLE_G = 1e9    # router.BIG: the unstable-pool sentinel
 K_MAX = 8           # most columns routing_topk / routing_attain emit
 #: most candidates whose table and columns a routing_guard block stages in
@@ -67,6 +69,8 @@ def routing_guard(lam: torch.Tensor, alpha: torch.Tensor,
     column with the 1e9 unstable sentinel (R,) float32, offloaded (R,)
     bool).
     """
+    refuse_grad("routing_guard", lam, alpha, beta, gamma, mu, n, rtt, tau,
+                erlang_c_table)
     if lam.device.type == "cpu":
         from repro_torch.kernels import ref
         return ref.routing_guard_ref(lam, alpha, beta, gamma, mu, n, rtt,
@@ -166,6 +170,8 @@ def routing_topk(lam: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
     minimum of the sentinel-masked scores.
     """
     _check_k("routing_topk", k)
+    refuse_grad("routing_topk", lam, alpha, beta, gamma, mu, n, rtt, slo,
+                cost, erlang_c_table)
     if lam.device.type == "cpu":
         from repro_torch.kernels import ref
         return ref.routing_topk_ref(lam, alpha, beta, gamma, mu, n, rtt,
@@ -200,6 +206,8 @@ def routing_attain(lam: torch.Tensor, alpha: torch.Tensor,
     (I,) float32 dispersion and delivery probability.
     """
     _check_k("routing_attain", k)
+    refuse_grad("routing_attain", lam, alpha, beta, gamma, mu, n, rtt, slo,
+                sigma, avail, erlang_c_table)
     if lam.device.type == "cpu":
         from repro_torch.kernels import ref
         return ref.routing_attain_ref(lam, alpha, beta, gamma, mu, n, rtt,

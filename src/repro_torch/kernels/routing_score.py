@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.core import queueing
 from repro_torch.kernels import ref
+from repro_torch.kernels._build import refuse_grad
 
 #: threads per block of the three row kernels (routing_score_kernel,
 #: routing_topk_kernel, routing_attain_kernel): rows of at most 32
@@ -177,6 +178,8 @@ def routing_score(lam: torch.Tensor, alpha: torch.Tensor,
     float32. Returns (idx (R,) int32, g at idx (R,) float32, feasible
     (R,) bool); a row with nothing feasible reports idx 0.
     """
+    refuse_grad("routing_score", lam, alpha, beta, gamma, mu, n, rtt, slo,
+                cost, erlang_c_table)
     if lam.device.type == "cpu":
         return ref.routing_score_ref(lam, alpha, beta, gamma, mu, n, rtt,
                                      slo, cost, erlang_c_table)

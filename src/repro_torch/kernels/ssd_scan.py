@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels._build import refuse_grad
 from repro_torch.kernels.flash_attention import DTYPE_CODE
 from repro_torch.kernels.routing_score import check_input, stream_ptr
 
@@ -35,6 +36,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     or None, float32. Head h reads group h // (H / G). Returns y (B, L,
     H, P) in x's dtype, and with ``return_final_state`` also the final
     state (B, H, P, N) in float32."""
+    refuse_grad("ssd_scan", x, dt, a, b, c, d_skip, initial_state)
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, a, b, c, d_skip,
                                 initial_state=initial_state,

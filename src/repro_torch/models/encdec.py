@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers
-from repro_torch.models.transformer import _logits, _positions, dtype_of
+from repro_torch.models.transformer import (_logits, _positions, dtype_of,
+                                             remat)
 
 
 def _spec(cfg: ArchConfig, causal: bool) -> layers.AttnSpec:
@@ -110,12 +111,17 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor,
     x = frames.to(dt) + layers.sinusoidal_positions(
         s, d, frames.device)[None].to(dt)
     positions = _positions(b, s, x.device)
-    spec = _spec(cfg, False)
     for p in params["enc_layers"]:
-        h = layers.apply_norm(cfg.norm, p["norm1"], x)
-        x = x + layers.self_attention(p["attn"], spec, h, positions, kernels)
-        x = _mlp(p, cfg, x)
+        x = remat(cfg, _enc_layer, p, cfg, x, positions, kernels)
     return layers.apply_norm(cfg.norm, params["enc_norm"], x)
+
+
+def _enc_layer(p: dict, cfg: ArchConfig, x: torch.Tensor,
+               positions: torch.Tensor, kernels: str) -> torch.Tensor:
+    h = layers.apply_norm(cfg.norm, p["norm1"], x)
+    x = x + layers.self_attention(p["attn"], _spec(cfg, False), h, positions,
+                                  kernels)
+    return _mlp(p, cfg, x)
 
 
 # ---------------------------------------------------------------- decoder
@@ -128,15 +134,20 @@ def forward(params: dict, cfg: ArchConfig, frames: torch.Tensor,
     enc_out = encode(params, cfg, frames, kernels)
     x = _embed_tokens(params, cfg, tokens)
     positions = _positions(x.shape[0], x.shape[1], x.device)
-    spec = _spec(cfg, True)
     for p in params["dec_layers"]:
-        k, v = layers.cross_kv(p["cross_attn"], _spec(cfg, False), enc_out)
-        h = layers.apply_norm(cfg.norm, p["norm1"], x)
-        x = x + layers.self_attention(p["self_attn"], spec, h, positions,
-                                      kernels)
-        x = _mlp(p, cfg, _cross(p, cfg, x, k, v, kernels))
+        x = remat(cfg, _dec_layer, p, cfg, x, enc_out, positions, kernels)
     return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32,
                                                 device=x.device)
+
+
+def _dec_layer(p: dict, cfg: ArchConfig, x: torch.Tensor,
+               enc_out: torch.Tensor, positions: torch.Tensor,
+               kernels: str) -> torch.Tensor:
+    k, v = layers.cross_kv(p["cross_attn"], _spec(cfg, False), enc_out)
+    h = layers.apply_norm(cfg.norm, p["norm1"], x)
+    x = x + layers.self_attention(p["self_attn"], _spec(cfg, True), h,
+                                  positions, kernels)
+    return _mlp(p, cfg, _cross(p, cfg, x, k, v, kernels))
 
 
 # --------------------------------------------------------------- serving

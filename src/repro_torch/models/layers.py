@@ -96,6 +96,19 @@ def float32_gemms():
         cuda.allow_bf16_reduced_precision_reduction = saved[1]
 
 
+def records_grad(*trees) -> bool:
+    """Whether autograd records an op on these inputs: grad mode is on
+    and a tensor among them (nested dicts and lists searched too)
+    requires grad."""
+    def needs(tree) -> bool:
+        if isinstance(tree, torch.Tensor):
+            return tree.requires_grad
+        if isinstance(tree, dict):
+            tree = list(tree.values())
+        return isinstance(tree, (list, tuple)) and any(map(needs, tree))
+    return torch.is_grad_enabled() and needs(trees)
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w in x's dtype (float32 accumulation in the GEMM under
     ``float32_gemms``)."""

@@ -82,13 +82,26 @@ def _gates(params: dict, x: torch.Tensor):
 def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t along axis 1 from h_{-1} = 0, by doubling:
     after the round of offset k, (a_t, b_t) is the combine of steps
-    t-2k+1 .. t. Overwrites ``a`` and ``b``; returns ``b`` (all h_t)."""
+    t-2k+1 .. t. Returns all h_t. Without a graph to record it overwrites
+    ``a`` and ``b`` and returns ``b``; when autograd records (grad mode
+    on, an input that requires grad) it runs the same rounds out of
+    place, since a backward needs the operands each round saved. Both
+    forms round alike, so their outputs are equal bit for bit."""
     length = a.shape[1]
+    in_place = not layers.records_grad(a, b)
     k = 1
     while k < length:
-        b[:, k:] += a[:, k:] * b[:, :length - k]
+        if in_place:
+            b[:, k:] += a[:, k:] * b[:, :length - k]
+        else:
+            b = torch.cat([b[:, :k], b[:, k:] + a[:, k:] * b[:, :length - k]],
+                          dim=1)
         if 2 * k < length:
-            a[:, k:] = a[:, k:] * a[:, :length - k]
+            if in_place:
+                a[:, k:] = a[:, k:] * a[:, :length - k]
+            else:
+                a = torch.cat([a[:, :k], a[:, k:] * a[:, :length - k]],
+                              dim=1)
         k *= 2
     return b
 
@@ -116,7 +129,11 @@ def forward(params: dict, cfg: ArchConfig, u: torch.Tensor,
                                    silu=False)
     a, gx = _gates(params, x)                        # (B, L, w) float32
     if state is not None:
-        gx[:, 0] = gx[:, 0] + a[:, 0] * state["h"]
+        first = gx[:, :1] + a[:, :1] * state["h"][:, None]
+        if layers.records_grad(gx, a):
+            gx = torch.cat([first, gx[:, 1:]], dim=1)
+        else:
+            gx[:, :1] = first
     h = linear_scan(a, gx)
     out = _out(params, h, gate, u.dtype)
     if return_state:

@@ -9,7 +9,10 @@ counterpart and is dropped.
 
 Three entry points: ``forward`` (full logits), ``prefill`` (last-token
 logits plus the cache), ``decode_step`` (one token per sequence), each
-run under ``layers.float32_gemms``.
+run under ``layers.float32_gemms`` (whose settings end with the call: a
+training step enters it around its backward too,
+``repro_torch.training.train``). Under ``cfg.remat`` ``forward``
+recomputes each layer in the backward (:func:`remat`).
 Every layer kind of the reference is ported: ``"attn"`` and ``"local"``
 (attention with a KV cache), ``"mamba2"`` (``models/ssm.py``, with a conv
 buffer and an SSM state) and ``"rglru"`` (``models/rglru.py``, with a
@@ -26,6 +29,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers, rglru, ssm
@@ -169,25 +173,46 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
         .expand(b, s)
 
 
+def _layer(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor,
+           positions: torch.Tensor, kernels: str):
+    """One layer of the training forward: (x, its MoE aux loss or
+    None)."""
+    h = layers.apply_norm(cfg.norm, p["norm1"], x)
+    if kind in ATTN_KINDS:
+        x = x + layers.self_attention(p["attn"], attn_spec(cfg, kind), h,
+                                      positions, kernels)
+    else:
+        x = x + MIXERS[kind].forward(p["mixer"], cfg, h, kernels=kernels)
+    return _mlp_block(p, cfg, kind, x)
+
+
+def remat(cfg: ArchConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward instead of saving its
+    activations when ``cfg.remat`` and autograd records (grad mode on and
+    a tensor among ``args``, a layer's params included, requires grad):
+    the reference's ``jax.checkpoint`` with nothing saveable, a layer at
+    a time. The forward draws no random numbers, so no rng state is
+    kept."""
+    if cfg.remat and layers.records_grad(*args):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
 @layers.float32_gemms()
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, kernels: str = "cuda"
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, S) tokens -> ((B, S, V) float32 logits, the sum of the MoE
-    layers' aux losses, 0 without experts)."""
+    layers' aux losses, 0 without experts). Each layer is rematerialised
+    in the backward under ``cfg.remat`` (:func:`remat`)."""
     x = _embed(params, cfg, tokens)
     b, s = x.shape[:2]
     if positions is None:
         positions = _positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
-        h = layers.apply_norm(cfg.norm, p["norm1"], x)
-        if kind in ATTN_KINDS:
-            x = x + layers.self_attention(p["attn"], attn_spec(cfg, kind), h,
-                                          positions, kernels)
-        else:
-            x = x + MIXERS[kind].forward(p["mixer"], cfg, h, kernels=kernels)
-        x, a = _mlp_block(p, cfg, kind, x)
+        x, a = remat(cfg, _layer, p, cfg, kind, x, positions, kernels)
         if a is not None:
             aux = aux + a
     return _logits(params, cfg, x), aux

@@ -66,7 +66,9 @@ def test_port_has_the_slice_modules():
             "configs/phi3_medium_14b.py", "configs/chameleon_34b.py",
             "configs/nemotron_4_340b.py", "configs/dbrx_132b.py",
             "configs/arctic_480b.py", "configs/whisper_small.py",
-            "models/encdec.py"]
+            "models/encdec.py", "kernels/fused.py", "training/__init__.py",
+            "training/data.py", "training/optimizer.py",
+            "training/checkpoint.py", "training/train.py"]
     missing = [m for m in want if not (PORT / m).is_file()]
     assert not missing, missing
 
@@ -92,6 +94,10 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.models.model, repro_torch.configs\n"
             "import repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
             "import repro_torch.core.jaxsim, repro_torch.models.rglru\n"
+            "import repro_torch.kernels.fused, repro_torch.training.data\n"
+            "import repro_torch.training.optimizer\n"
+            "import repro_torch.training.checkpoint\n"
+            "import repro_torch.training.train\n"
             "from repro_torch.configs import get_config, PORTED\n"
             "[get_config(a) for a in PORTED]\n"
             "bad = sorted(m for m in sys.modules\n"
