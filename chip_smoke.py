@@ -149,15 +149,32 @@ Each phase prints one JSON object per line:
    float32 AdamW state, remat) at B 2 x S 4096 and Mamba2-370m whole at
    B 4 x L 2048, a few steps each with loss, step ms, tokens/s, peak
    memory and a profiled step, params moving, ``kernels="cuda"``
-   refused.
+   refused;
+19. the launch layer's dry run (``phase_dryrun``; started at the
+   beginning, a child process running CPU work on meta tensors beside
+   the card's phases, read after phase 17): every architecture's
+   decode_32k step on the fake 16 x 16 mesh and StableLM-3B's train_4k
+   step on the 2 x 16 x 16 one, each record ``ok`` with its per-device
+   FLOPs, HBM and collective bytes (accounting, not measured);
+20. the H100 fleet (``phase_fleet``): ``h100_catalogue`` from those
+   records, ``examples/route_h100_fleet.py``'s requests routed and its
+   burst trace simulated under all five policies through
+   ``backend="cuda"``, equal to the plain route (``backend="ref"``):
+   decisions, predicted latencies within ``G_RTOL``, P50 / P99,
+   offloads and scale events; one routing launch per admission window;
+21. the op analysis against the card (``phase_cost_check``): the bound
+   of StableLM-3B's and Mamba2-370m's served prefill and decode step
+   (``served_costs``, on meta tensors) no more than the device busy time
+   that phases 9 and 13 profiled.
 
 Launch counters are set to 0 just before each policy's run in phases
 3-5, each ``generate`` of phases 9, 13 and 16 and one more decode step
 after it, phase 17's prefill and decode steps and one more step, phase
-18's parity runs and each ``generate`` of its served checkpoint, and
-phase 15, and read just after; a kernel that the path runs and that did not
-launch exactly as often as it should fails the run (``hybrid`` must
-launch both of its constituents' kernels on the flash stream). The line
+18's parity runs and each ``generate`` of its served checkpoint, phase
+15 and each cuda run of phase 20, and read just after; a kernel that the
+path runs and that did not launch exactly as often as it should fails
+the run (``hybrid`` must launch both of its constituents' kernels on the
+flash stream). The line
 before the last is the kernel table, the last line the device.
 """
 from __future__ import annotations
@@ -1877,6 +1894,8 @@ def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
                "generate_tokens_per_s": b * steps / seconds,
                "idle_share": prof["idle_share"],
                "prefill_idle_share": prof_prefill["idle_share"],
+               "decode_busy_ms": prof["device_busy_ms"],
+               "prefill_busy_ms": prof_prefill["device_busy_ms"],
                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
                if dev.type == "cuda" else None}
         emit(row)
@@ -3190,6 +3209,298 @@ def phase_tree(dev) -> None:
     phase_serving(dev, "cuda")
 
 
+# ------------------------------------------ the launch layer: phases 19-21 --
+DRYRUN_DIR = Path(__file__).resolve().parent / "results" / "dryrun_torch"
+#: the dry run's combinations: every arch's served decode step on the
+#: single-pod mesh (the H100 catalogue reads these), and a multi-pod
+#: training step
+DRYRUN_RUNS = (("all", "decode_32k", "single"),
+               ("stablelm_3b", "train_4k", "multi"))
+DRYRUN_JOBS = 3            # child processes at a time (CPU work, meta)
+DRYRUN_DEVICE = "cuda"     # the meshes' device type
+DRYRUN_TIMEOUT = 600
+
+
+def start_dryrun(out: Path = DRYRUN_DIR):
+    """Start the port's dry run (``repro_torch.launch.dryrun``, one child
+    process; it runs each combination in a process of its own) over
+    ``DRYRUN_RUNS``, the meshes' device type ``DRYRUN_DEVICE``. It is
+    CPU work on meta tensors, so it runs beside the card's phases;
+    returns the ``Popen``."""
+    out.mkdir(parents=True, exist_ok=True)
+    argvs = [["--device", DRYRUN_DEVICE, "--arch", a, "--shape", s,
+              "--mesh", m, "--out", str(out), "--force",
+              "--jobs", str(DRYRUN_JOBS)] for a, s, m in DRYRUN_RUNS]
+    code = ("import json, sys\n"
+            "from repro_torch.launch import dryrun\n"
+            "for argv in json.loads(sys.argv[1]):\n"
+            "    dryrun.main(argv)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.Popen(
+        [sys.executable, "-c", code, json.dumps(argvs)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_dryrun(proc, out: Path = DRYRUN_DIR) -> dict:
+    """Wait for :func:`start_dryrun`'s child and read its records: every
+    one must be ``ok`` (10 decode_32k/single, StableLM-3B
+    train_4k/multi on 512 ranks). Per-device figures are accounting on
+    meta tensors, not measurements."""
+    from repro_torch.configs.base import ARCH_IDS
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"dry run: over {DRYRUN_TIMEOUT} s")
+    if proc.returncode:
+        fail(f"dry run: exit {proc.returncode}: {stderr[-2000:]}")
+    want = [(a, "decode_32k", "single") for a in ARCH_IDS] \
+        + [("stablelm_3b", "train_4k", "multi")]
+    recs = {}
+    for arch, shape, mesh_kind in want:
+        path = out / f"{arch}__{shape}__{mesh_kind}.json"
+        if not path.is_file():
+            fail(f"dry run: no record {path.name}")
+        rec = json.loads(path.read_text())
+        emit({"phase": "dryrun", "arch": arch, "shape": shape,
+              "mesh": mesh_kind, "status": rec["status"],
+              "n_devices": rec.get("n_devices"),
+              "gflops_per_device": rec.get("flops", 0) / 1e9,
+              "hbm_gb_per_device": rec.get("hlo_bytes", 0) / 1e9,
+              "collective_gb_per_device":
+                  rec.get("collective_bytes_total", 0) / 1e9,
+              "argument_gb_per_device":
+                  rec.get("memory", {}).get("argument_bytes", 0) / 1e9,
+              "wall_s": rec.get("wall_s"),
+              "error": rec.get("error", "")[:300]})
+        if rec["status"] != "ok":
+            fail(f"dry run {arch}/{shape}/{mesh_kind}: {rec['status']} "
+                 f"{rec.get('error', '')[:300]}")
+        recs[(arch, shape, mesh_kind)] = rec
+    train = recs[("stablelm_3b", "train_4k", "multi")]
+    if train["n_devices"] != 512 or train["collective_bytes_total"] <= 1e9:
+        fail(f"dry run train_4k/multi: {train['n_devices']} devices, "
+             f"{train['collective_bytes_total']} collective bytes")
+    return recs
+
+
+def fleet_route(cluster, policy: str, dev, backend: str):
+    """``examples/route_h100_fleet.py``'s 12 requests (4 per lane) in one
+    admission window: (decisions, flushes)."""
+    from repro_torch.core.router import RouterParams
+    from repro_torch.core.scheduler import QualityClass, Request
+    from repro_torch.serving import AdmissionConfig, BatchRouter
+    br = BatchRouter(cluster, params=RouterParams(x=3.0),
+                     config=AdmissionConfig(max_batch=12, backend=backend,
+                                            device=str(dev), policy=policy))
+    rng = np.random.default_rng(0)
+    reqs, t = [], 0.0
+    for q in QualityClass:
+        for _ in range(4):
+            t += float(rng.exponential(0.05))
+            reqs.append(Request(model="any", quality=q, arrival=t, slo=2.0))
+    out = []
+    for rq in reqs:
+        out.extend(br.submit(rq, rq.arrival) or [])
+    out.extend(br.flush(t))
+    br.check_conservation()
+    return [(d.req.quality.name, d.target_key, d.outcome,
+             float(d.predicted_latency)) for d in out], br.flushes
+
+
+def fleet_sim(cluster, policy: str, dev, backend: str):
+    """The example's burst trace through the simulator in 0.1 s windows:
+    (n, P50, P99, offloads, scale events, flushes)."""
+    from repro_torch.core import (ClusterSimulator, SimConfig,
+                                  bounded_pareto_bursts)
+    arr = bounded_pareto_bursts(8.0, 180.0, "stablelm_3b", seed=1)
+    sim = ClusterSimulator(cluster, SimConfig(
+        mode="laimr", seed=1, slo=2.0, admission_window=0.1, policy=policy,
+        admission_backend=backend, admission_device=str(dev)))
+    res = sim.run(arr)
+    if len(res.completed) + len(res.failed) != len(arr):
+        fail(f"fleet sim {policy}/{backend}: arrivals not conserved")
+    s = res.summary()
+    return (int(s["n"]), s["p50"], s["p99"], res.offload_fast,
+            len(res.scale_events)), sim.plane.flushes
+
+
+def fleet_equal(label: str, got, want) -> bool:
+    """Routes: every decision's lane, target and outcome equal, its
+    predicted latency within ``G_RTOL`` (the kernels' g bound). Simulated
+    runs: n, P50, P99, offloads and scale events equal."""
+    if label == "sim":
+        return got == want
+    return len(got) == len(want) and all(
+        g[:3] == w[:3] and abs(g[3] - w[3]) <= G_RTOL * abs(w[3])
+        for g, w in zip(got, want))
+
+
+def phase_fleet(dev, out: Path = DRYRUN_DIR) -> dict:
+    """``h100_catalogue`` from the dry run's records: every tier's lane,
+    L_m and mu; then the fleet's requests routed and its burst trace
+    simulated under every policy through ``backend="cuda"``, each held
+    to the plain route (``backend="ref"`` on the card): decisions, P50 /
+    P99 and offloads equal (:func:`fleet_equal`). Launch counters are
+    set to 0 just before each cuda run and read just after: one launch
+    per admission window, of the policy's kernel (``hybrid``: its guard,
+    or topk in a burst)."""
+    from repro_torch.core.catalogue import h100_catalogue
+    from repro_torch.kernels.routing_decide import (routing_attain,
+                                                    routing_guard,
+                                                    routing_topk)
+    from repro_torch.kernels.routing_score import routing_score
+    kernels = (routing_score, routing_guard, routing_topk, routing_attain)
+    cluster = h100_catalogue(str(out))
+    for d in cluster:
+        emit({"phase": "fleet_tier", "key": d.key,
+              "lane": d.quality.name, "l_m_ms": d.model.l_ref * 1e3,
+              "mu": d.mu})
+    launches = {k.__name__: 0 for k in kernels}
+    for policy in POLICIES:
+        row = {"phase": "fleet", "policy": policy}
+        for label, run in (("route", fleet_route), ("sim", fleet_sim)):
+            want, _ = run(cluster, policy, dev, "ref")
+            for k in kernels:
+                k.launches = 0
+            sync(dev)
+            got, flushes = run(cluster, policy, dev, "cuda")
+            sync(dev)
+            counts = {k.__name__: k.launches for k in kernels}
+            if not fleet_equal(label, got, want):
+                fail(f"fleet {label}/{policy}: cuda {got} against the "
+                     f"plain route {want}")
+            # one launch a window: hybrid's guard or, in a burst, topk
+            path = ("routing_guard", "routing_topk") \
+                if policy == "hybrid" else POLICY_KERNELS[policy]
+            if any(counts[k] == 0 for k in POLICY_KERNELS[policy]) \
+                    or sum(counts[k] for k in path) != flushes \
+                    or sum(counts.values()) != flushes:
+                fail(f"fleet {label}/{policy}: launches {counts} in "
+                     f"{flushes} windows")
+            for k, c in counts.items():
+                launches[k] += c
+            row[label] = {"launches": counts, "windows": flushes}
+            if label == "sim":
+                row[label].update(zip(("n", "p50", "p99", "offloads",
+                                       "scale_events"), got))
+            else:
+                row[label]["targets"] = sorted({d[1] for d in got
+                                                if d[1] is not None})
+        emit(row)
+    return launches
+
+
+#: the served shapes of phases 9 and 13 (``SERVE``, ``MAMBA_SERVE``)
+COST_CHECKS = (("stablelm_3b", "SERVE"), ("mamba2_370m", "MAMBA_SERVE"))
+
+
+def served_costs(cfg, batch: int, prompt: int):
+    """``op_analysis`` of the served prefill of ``batch`` x ``prompt``
+    tokens and of one decode step against that prefill's ``prompt``-deep
+    cache, on one device with meta tensors at the served widths. The
+    served path's hand-written kernels take no meta tensors, so each is
+    stood in for by an op that makes its outputs and adds its own bytes
+    and FLOPs (``flash_bytes_ops``, ``decode_bytes_ops``,
+    ``ssd_bytes_ops``, the kernel table's bounds); every other op is
+    counted by the analysis. Returns {"prefill", "decode"}: Costs."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import op_analysis, specs
+    from repro_torch.models import model
+    counter = op_analysis.OpCounter()
+    elem = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+
+    def charge(nbytes_ops):
+        counter.costs.bytes += nbytes_ops[0]
+        counter.costs.flops += nbytes_ops[1]
+
+    def attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                  scale=None, segment_pos=None, impl="cuda"):
+        b, sq, h, d = q.shape
+        charge(flash_bytes_ops(b, k.shape[1], h, d, elem, hkv=k.shape[2],
+                               window=window, sq=sq, causal=causal))
+        return torch.empty_like(q)
+
+    def decode_attention(q, k_cache, v_cache, kv_pos, q_pos, *, window=0,
+                         softcap=0.0, scale=None, impl="cuda"):
+        b, h, d = q.shape
+        charge(decode_bytes_ops(b, k_cache.shape[1], h, d, elem,
+                                hkv=k_cache.shape[2]))
+        return torch.empty_like(q)
+
+    def ssd_scan(x, dt, a, b, c, d_skip, initial_state=None,
+                 return_final_state=False, impl="cuda", chunk=64):
+        bs, length, h, p = x.shape
+        charge(ssd_bytes_ops(bs, length, h, p, b.shape[2], b.shape[3],
+                             elem))
+        y = torch.empty_like(x)
+        if not return_final_state:
+            return y
+        return y, torch.empty((bs, h, p, b.shape[3]), dtype=torch.float32,
+                              device=x.device)
+    params = model.init_params(cfg, device="meta")
+    saved = (ops.attention, ops.decode_attention, ops.ssd_scan)
+    ops.attention, ops.decode_attention, ops.ssd_scan = \
+        attention, decode_attention, ssd_scan
+    out = {}
+    try:
+        with counter:
+            model.prefill(params, cfg, {"tokens": specs.sds(
+                (batch, prompt), torch.int32)}, kernels="cuda")
+        out["prefill"], counter.costs = counter.costs, op_analysis.Costs()
+        cache = model.init_cache(cfg, batch, prompt, device="meta")
+        with counter:
+            model.decode_step(params, cfg, specs.sds((batch,), torch.int32),
+                              cache, specs.sds((batch,), torch.int32),
+                              kernels="cuda")
+        out["decode"] = counter.costs
+    finally:
+        ops.attention, ops.decode_attention, ops.ssd_scan = saved
+    return out
+
+
+def phase_cost_check(served: dict) -> dict:
+    """The op analysis against the card: the bound of each served step,
+    max(flops / PEAK_FLOPS_BF16, bytes / HBM_BW) from
+    :func:`served_costs`, must not exceed the device busy time that the
+    same run's ``phase_engine`` profile measured for that step
+    (``b_eq_slots``: the prefill of ``slots`` x ``prompt`` tokens and a
+    decode step against its ``prompt``-deep ring). A bound above the
+    measured time would mean the accounting overcounts."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    rows = {}
+    for arch, spec_name in COST_CHECKS:
+        spec = globals()[spec_name]
+        measured = served[arch]["b_eq_slots"]
+        costs = served_costs(full_width(arch, "bfloat16"), spec["slots"],
+                             spec["prompt"])
+        for step, key in (("prefill", "prefill_busy_ms"),
+                          ("decode", "decode_busy_ms")):
+            c = costs[step]
+            t_ops = c.flops / PEAK_FLOPS_BF16 * 1e3
+            t_bytes = c.bytes / HBM_BW * 1e3
+            bound = max(t_ops, t_bytes)
+            busy = measured[key]
+            row = {"phase": "cost_check", "arch": arch, "step": step,
+                   "batch": spec["slots"], "prompt": spec["prompt"],
+                   "gflops": c.flops / 1e9, "gbytes": c.bytes / 1e9,
+                   "bound_ms": bound,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "busy_ms": busy,
+                   "bound_over_busy": None if not busy else bound / busy}
+            emit(row)
+            if busy is None:
+                fail(f"cost check {arch}/{step}: no device busy time")
+            if bound > busy:
+                fail(f"cost check {arch}/{step}: bound {bound:.3f} ms above "
+                     f"the measured busy {busy:.3f} ms: the accounting "
+                     "overcounts")
+            rows[f"{arch}/{step}"] = row
+    return rows
+
+
 def main_turns(argv: list) -> int:
     """``--twin-profile N``: :func:`twin_profile_child`.
     ``--tree DIR``: :func:`phase_tree` on the checkout at DIR.
@@ -3264,6 +3575,10 @@ def main() -> int:
         if name == "routing":
             emit({"phase": "build", "library": name,
                   "bodies": routing_bodies(log)})
+
+    # the launch layer's dry run: CPU work on meta tensors in a child
+    # process, beside the card's phases; read before phase_fleet
+    dryrun_proc = start_dryrun()
 
     errs = phase_parity(dev)
 
@@ -3347,6 +3662,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     decoders["whisper_small"] = phase_whisper(dev)
     torch.cuda.empty_cache()
+
+    # the launch layer: the dry run's records, the H100 catalogue that
+    # feeds Algorithm 1 through the routing kernels, and the op analysis
+    # of the served steps against their measured device time
+    phase_dryrun(dryrun_proc)
+    fleet = phase_fleet(dev)
+    emit({"phase": "launches", "path": "fleet", **fleet})
+    phase_cost_check({"stablelm_3b": serving, "mamba2_370m": mamba})
 
     # the trainer: fused-path parity at full width, the reference's
     # training example, its checkpoint served through the hand-written

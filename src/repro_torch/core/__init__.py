@@ -16,7 +16,8 @@ Public surface:
 from repro_torch.core.autoscaler import (PMHPA, ReactiveAutoscaler,
                                          desired_replicas)
 from repro_torch.core.capacity import evaluate, plan_exhaustive, plan_greedy
-from repro_torch.core.catalogue import Cluster, Deployment, paper_cluster
+from repro_torch.core.catalogue import (Cluster, Deployment, h100_catalogue,
+                                         paper_cluster)
 from repro_torch.core.latency_model import (CLOUD, EFFICIENTDET, FASTER_RCNN,
                                             PI4_EDGE, YOLOV5M,
                                             CalibratedModel, InstanceClass,
@@ -44,7 +45,7 @@ from repro_torch.core.workload import (Arrival, bounded_pareto_bursts,
 
 __all__ = [
     "PMHPA", "ReactiveAutoscaler", "desired_replicas", "evaluate",
-    "plan_exhaustive", "plan_greedy", "Cluster",
+    "plan_exhaustive", "plan_greedy", "Cluster", "h100_catalogue",
     "Deployment", "paper_cluster", "CLOUD", "EFFICIENTDET", "FASTER_RCNN",
     "PI4_EDGE", "YOLOV5M", "CalibratedModel", "InstanceClass",
     "ModelProfile", "affine_power_law", "calibrate",

@@ -5,6 +5,15 @@ A *deployment* is the paper's (m, i) pair: model m served on instance
 class i with a replica pool N_mi (k8s Deployment). The catalogue binds
 each deployment to a quality lane (§IV-A) and carries the calibrated
 latency-law parameters used on the routing hot path.
+
+Two catalogues: :func:`paper_cluster`, the paper's three-tier edge/cloud
+deployment, and :func:`h100_catalogue`, the served architectures as
+256-GPU H100 replica groups, built from the port's dry-run records
+(``repro_torch.launch.dryrun``): of each ``*__decode_32k__single.json``
+with ``status`` ok it reads ``arch``, ``flops``, ``hlo_bytes`` and
+``collective_bytes_total`` (per device) and takes the step's roofline
+bound against ``repro_torch.launch.mesh``'s H100 figures as the model's
+L_m.
 """
 from __future__ import annotations
 
@@ -140,3 +149,67 @@ def paper_cluster(n_edge_max: int = 8, n_cloud_max: int = 16,
                    n_replicas=1, n_max=n_cloud_max, gamma=gamma),
     ])
 
+
+
+def h100_catalogue(dryrun_dir: str = "results/dryrun_torch",
+                   gamma: float = 1.18) -> Cluster:
+    """An LA-IMR deployment catalogue of the port's architectures served
+    on H100 replica groups, from the dry-run records: where the control
+    plane meets the data plane. The twin of the reference's
+    ``tpu_catalogue``.
+
+    Each architecture whose decode_32k step ran on the single-pod mesh
+    becomes an entry: L_m = its roofline step bound, max(flops /
+    PEAK_FLOPS_BF16, hlo_bytes / HBM_BW, collective_bytes_total /
+    NET_BW) per device (``repro_torch.launch.mesh``: the per-token
+    latency floor of one 256-GPU replica group), and R_m proportional to
+    active params. Quality lanes by active params in thirds: small ->
+    LOW_LATENCY, mid -> BALANCED, large -> PRECISE. Raises
+    ``FileNotFoundError`` when ``dryrun_dir`` holds no such record.
+    """
+    import glob
+    import json
+    import os
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import HBM_BW, NET_BW, PEAK_FLOPS_BF16
+    from repro_torch.models.model import active_param_count
+
+    entries = []
+    for path in sorted(glob.glob(os.path.join(dryrun_dir,
+                                              "*__decode_32k__single.json"))):
+        with open(path) as f:
+            rec = json.load(f)
+        if rec.get("status") != "ok":
+            continue
+        bound = max(rec["flops"] / PEAK_FLOPS_BF16,
+                    rec["hlo_bytes"] / HBM_BW,
+                    rec["collective_bytes_total"] / NET_BW)
+        n_active = active_param_count(get_config(rec["arch"]))
+        entries.append((rec["arch"], bound, n_active))
+    if not entries:
+        raise FileNotFoundError(f"no decode dry-run artifacts in {dryrun_dir}")
+
+    entries.sort(key=lambda e: e[2])
+    n = len(entries)
+    deps = []
+    for i, (arch, bound, n_active) in enumerate(entries):
+        if i < n // 3:
+            q = QualityClass.LOW_LATENCY
+        elif i < 2 * n // 3:
+            q = QualityClass.BALANCED
+        else:
+            q = QualityClass.PRECISE
+        profile = ModelProfile(name=arch, l_ref=max(bound, 1e-4),
+                               r_demand=max(n_active / 1e9, 0.1),
+                               accuracy=min(0.3 + 0.1 * np.log10(
+                                   max(n_active / 1e8, 1.0)), 0.95),
+                               kv_growth=arch not in ("mamba2_370m",
+                                                      "recurrentgemma_2b"))
+        # one 'instance class' = a 256-GPU H100 replica group
+        inst = InstanceClass(name="h100-pod-slice", speedup=1.0,
+                             r_max=max(n_active / 1e9, 0.1) / max(bound, 1e-4),
+                             background=0.0, net_rtt=0.004, cost=256.0)
+        deps.append(Deployment(profile, inst, q, n_replicas=1, n_max=8,
+                               gamma=gamma, startup_delay=30.0))
+    return Cluster(deps)

@@ -9,8 +9,10 @@ self-attention KV ring per decoder layer and precomputed cross K/V.
 
 The reference stacks its blocks over layers and scans them; here the
 layers are plain lists and every entry point a Python loop, as in
-``transformer.py``. Params: {"embed" (V, d), "enc_layers": [...],
-"enc_norm", "dec_layers": [...], "final_norm", "lm_head" (d, V)}. The
+``transformer.py``, with its ``constrain_batch`` points after the
+embedding, at every layer boundary and on each MLP's input. Params:
+{"embed" (V, d), "enc_layers": [...], "enc_norm", "dec_layers": [...],
+"final_norm", "lm_head" (d, V)}. The
 cache is {"layers": [one dict per decoder layer]} with "k", "v"
 (B, max_decoder_len, Hkv, hd), "pos" (B, max_decoder_len) and
 "cross_k", "cross_v" (B, enc_len, Hkv, hd); ``decode_step`` writes the
@@ -25,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain_batch, embed_lookup
 from repro_torch.models import layers
 from repro_torch.models.transformer import (_logits, _positions, dtype_of,
                                              remat)
@@ -81,6 +84,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
 
 
 def _mlp(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    x = constrain_batch(x)
     h = layers.apply_norm(cfg.norm, p["norm2"], x)
     return x + layers.mlp(p["mlp"], h, cfg.mlp_kind)
 
@@ -96,8 +100,9 @@ def _embed_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor
                   ) -> torch.Tensor:
     """Token embeddings plus the sinusoids of positions 0 .. T-1."""
     t = tokens.shape[1]
-    return params["embed"][tokens.long()] + layers.sinusoidal_positions(
-        t, cfg.d_model, tokens.device)[None].to(dtype_of(cfg))
+    return embed_lookup(params["embed"], tokens) \
+        + layers.sinusoidal_positions(t, cfg.d_model, tokens.device)[None] \
+        .to(dtype_of(cfg))
 
 
 # ---------------------------------------------------------------- encoder
@@ -108,11 +113,12 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor,
     (B, S, d)."""
     b, s, d = frames.shape
     dt = dtype_of(cfg)
-    x = frames.to(dt) + layers.sinusoidal_positions(
-        s, d, frames.device)[None].to(dt)
+    x = constrain_batch(frames.to(dt) + layers.sinusoidal_positions(
+        s, d, frames.device)[None].to(dt))
     positions = _positions(b, s, x.device)
     for p in params["enc_layers"]:
-        x = remat(cfg, _enc_layer, p, cfg, x, positions, kernels)
+        x = remat(cfg, _enc_layer, p, cfg, constrain_batch(x), positions,
+                  kernels)
     return layers.apply_norm(cfg.norm, params["enc_norm"], x)
 
 
@@ -132,10 +138,11 @@ def forward(params: dict, cfg: ArchConfig, frames: torch.Tensor,
     """(frames, decoder tokens (B, T)) -> ((B, T, V) float32 logits,
     aux 0)."""
     enc_out = encode(params, cfg, frames, kernels)
-    x = _embed_tokens(params, cfg, tokens)
+    x = constrain_batch(_embed_tokens(params, cfg, tokens))
     positions = _positions(x.shape[0], x.shape[1], x.device)
     for p in params["dec_layers"]:
-        x = remat(cfg, _dec_layer, p, cfg, x, enc_out, positions, kernels)
+        x = remat(cfg, _dec_layer, p, cfg, constrain_batch(x), enc_out,
+                  positions, kernels)
     return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32,
                                                 device=x.device)
 
@@ -180,11 +187,12 @@ def prefill(params: dict, cfg: ArchConfig, frames: torch.Tensor,
     the decoder's self-KV rings (``max_decoder_len`` deep). Returns
     ((B, V) float32 last-token logits, cache)."""
     enc_out = encode(params, cfg, frames, kernels)
-    x = _embed_tokens(params, cfg, tokens)
+    x = constrain_batch(_embed_tokens(params, cfg, tokens))
     positions = _positions(x.shape[0], x.shape[1], x.device)
     spec = _spec(cfg, True)
     caches = []
     for p in params["dec_layers"]:
+        x = constrain_batch(x)
         ck, cv = layers.cross_kv(p["cross_attn"], _spec(cfg, False), enc_out)
         h = layers.apply_norm(cfg.norm, p["norm1"], x)
         y, kv = layers.self_attention_prefill(
@@ -202,11 +210,12 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     cross K/V. tokens: (B,) ints; pos: (B,) absolute positions. Returns
     ((B, V) float32 logits, cache); the self K/V is written in place.
     Every token gets the sinusoid of position 0 (the reference's)."""
-    x = params["embed"][tokens.long()][:, None, :] + \
+    x = embed_lookup(params["embed"], tokens)[:, None, :] + \
         layers.sinusoidal_positions(1, cfg.d_model, tokens.device)[None] \
         .to(dtype_of(cfg))
     spec = _spec(cfg, True)
     for p, c in zip(params["dec_layers"], cache["layers"]):
+        x = constrain_batch(x)
         h = layers.apply_norm(cfg.norm, p["norm1"], x)
         y, _ = layers.self_attention_decode(p["self_attn"], spec, h, c, pos,
                                             kernels)

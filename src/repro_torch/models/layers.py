@@ -20,11 +20,11 @@ carries across leaf for leaf (``repro_torch.convert``).
   in place (the reference returns updated copies): a decode step then
   moves no cache bytes besides the one row per sequence.
 * ``moe`` is the reference's top-k mixture of experts with its capacity
-  drop, one token group (the reference's ``moe_num_groups()`` on one
-  device). The router stays float32 in a bf16 model; the expert products
-  are batched GEMMs over every expert's ``cap`` rows, as the reference's
-  einsums (no Pallas kernel backs them). Every shape follows from the
-  input's: no host sync, no data-dependent size.
+  drop, over ``sharding.moe_num_groups()`` token groups (1 unless the
+  dry run's hooks set more). The router stays float32 in a bf16 model;
+  the expert products are batched GEMMs over every expert's ``cap``
+  rows, as the reference's einsums (no Pallas kernel backs them). Every
+  shape follows from the input's: no host sync, no data-dependent size.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 
 
@@ -211,12 +212,15 @@ def attention_init(init: Init, spec: AttnSpec, dtype) -> dict:
 
 def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., d) @ (d, H, hd) -> (..., H, hd)."""
-    return matmul(x, w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    y = sharding.reduce_partial(
+        matmul(x, sharding.pin(w.reshape(w.shape[0], -1))))
+    return sharding.unflattenable(y, w.shape[1:]).unflatten(-1, w.shape[1:])
 
 
 def _proj_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., H, hd) @ (H, hd, d) -> (..., d)."""
-    return matmul(x.flatten(-2), w.reshape(-1, w.shape[-1]))
+    return matmul(sharding.pin(x.flatten(-2)),
+                  sharding.pin(w.reshape(-1, w.shape[-1])))
 
 
 def _project_qkv(params: dict, spec: AttnSpec, x: torch.Tensor,
@@ -238,10 +242,24 @@ def self_attention(params: dict, spec: AttnSpec, x: torch.Tensor,
                    ) -> torch.Tensor:
     """Training / prefill self-attention over a full sequence."""
     q, k, v = _project_qkv(params, spec, x, positions)
-    out = ops.attention(q, k, v, causal=spec.causal, window=spec.window,
-                        softcap=spec.softcap, scale=spec.scale,
-                        segment_pos=positions, impl=kernels)
+    out = _attend(spec, q, k, v, positions, kernels)
     return _proj_out(out, params["wo"])
+
+
+def _attend(spec: AttnSpec, q, k, v, positions, kernels: str,
+            causal: Optional[bool] = None, window: Optional[int] = None):
+    """``ops.attention`` under ``spec`` (``causal`` / ``window`` when
+    given), on each device's own rows and heads under DTensor."""
+    causal = spec.causal if causal is None else causal
+    window = spec.window if window is None else window
+
+    def attend(q_, k_, v_, pos):
+        return ops.attention(q_, k_, v_, causal=causal, window=window,
+                             softcap=spec.softcap, scale=spec.scale,
+                             segment_pos=pos, impl=kernels)
+    return sharding.local_attention(
+        attend, q, k, v, positions, mask_free=not causal and window == 0,
+        softcap=spec.softcap, scale=spec.scale)
 
 
 def self_attention_prefill(params: dict, spec: AttnSpec, x: torch.Tensor,
@@ -257,24 +275,33 @@ def self_attention_prefill(params: dict, spec: AttnSpec, x: torch.Tensor,
     a CUDA ``index_put_`` does not promise which duplicate write wins.)
     """
     q, k, v = _project_qkv(params, spec, x, positions)
-    out = ops.attention(q, k, v, causal=spec.causal, window=spec.window,
-                        softcap=spec.softcap, scale=spec.scale,
-                        segment_pos=positions, impl=kernels)
-    b, s = out.shape[:2]
+    out = _attend(spec, q, k, v, positions, kernels)
+    s = out.shape[1]
     y = _proj_out(out, params["wo"])
     n = min(s, cache_len)
-    shape = (b, cache_len, spec.n_kv_heads, spec.head_dim)
+    k_cache, v_cache, kv_pos = sharding.ring_fill(
+        lambda kn, vn, newest: _ring_fill(kn, vn, newest, cache_len),
+        k[:, s - n:], v[:, s - n:], positions[:, s - n:])
+    return y, {"k": k_cache, "v": v_cache, "pos": kv_pos}
+
+
+def _ring_fill(k: torch.Tensor, v: torch.Tensor, newest: torch.Tensor,
+               cache_len: int):
+    """Ring caches of ``cache_len`` slots holding the newest tokens' k, v
+    (b, n, Hkv, hd) at slot = position % cache_len, the rest zeros with
+    position -1."""
+    b = k.shape[0]
+    shape = (b, cache_len) + tuple(k.shape[2:])
     k_cache = torch.zeros(shape, dtype=k.dtype, device=k.device)
     v_cache = torch.zeros_like(k_cache)
     kv_pos = torch.full((b, cache_len), -1, dtype=torch.int32,
                         device=k.device)
-    newest = positions[:, s - n:]                              # (b, n)
     slots = (newest % cache_len).long()
     bidx = torch.arange(b, device=k.device)[:, None]
-    k_cache[bidx, slots] = k[:, s - n:]
-    v_cache[bidx, slots] = v[:, s - n:]
+    k_cache[bidx, slots] = k
+    v_cache[bidx, slots] = v
     kv_pos[bidx, slots] = newest.to(torch.int32)
-    return y, {"k": k_cache, "v": v_cache, "pos": kv_pos}
+    return k_cache, v_cache, kv_pos
 
 
 def self_attention_decode(params: dict, spec: AttnSpec, x: torch.Tensor,
@@ -283,18 +310,18 @@ def self_attention_decode(params: dict, spec: AttnSpec, x: torch.Tensor,
     """One-token decode. x: (B, 1, d); q_pos: (B,) absolute positions.
     Writes the token's K/V and position into ``cache`` in place and
     returns (y (B, 1, d), cache)."""
-    b = x.shape[0]
     q, k, v = _project_qkv(params, spec, x, q_pos[:, None])
     cache_len = cache["k"].shape[1]
     slot = (q_pos % cache_len).long()                          # (B,)
-    bidx = torch.arange(b, device=x.device)
-    cache["k"][bidx, slot] = k[:, 0]
-    cache["v"][bidx, slot] = v[:, 0]
-    cache["pos"][bidx, slot] = q_pos.to(torch.int32)
-    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
-                               cache["pos"], q_pos.to(torch.int32),
-                               window=spec.window, softcap=spec.softcap,
-                               scale=spec.scale, impl=kernels)
+    sharding.ring_write(cache["k"], slot, k[:, 0])
+    sharding.ring_write(cache["v"], slot, v[:, 0])
+    sharding.ring_write(cache["pos"], slot, q_pos.to(torch.int32))
+    out = sharding.local_decode_attention(
+        lambda *a: ops.decode_attention(
+            *a, window=spec.window, softcap=spec.softcap, scale=spec.scale,
+            impl=kernels),
+        q[:, 0], cache["k"], cache["v"], cache["pos"], q_pos.to(torch.int32),
+        window=spec.window, softcap=spec.softcap, scale=spec.scale)
     return _proj_out(out, params["wo"])[:, None, :], cache
 
 
@@ -312,9 +339,8 @@ def cross_attention(params: dict, spec: AttnSpec, x: torch.Tensor,
     q = _proj_heads(x, params["wq"])
     pos = torch.full((b, s), enc_k.shape[1] - 1, dtype=torch.int32,
                      device=x.device)
-    out = ops.attention(q, enc_k, enc_v, causal=False, window=0,
-                        softcap=spec.softcap, scale=spec.scale,
-                        segment_pos=pos, impl=kernels)
+    out = _attend(spec, q, enc_k, enc_v, pos, kernels, causal=False,
+                  window=0)
     return _proj_out(out, params["wo"])
 
 
@@ -396,72 +422,129 @@ def _bmm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                         for i in range(a.shape[0])])
 
 
+def _route(probs: torch.Tensor, top_k: int, cap: int):
+    """One group's routing per token (the group's tokens on dim 1):
+    gate_idx, gates (normalised), keep, slot (G, Tg, k) and the chosen
+    one-hots (G, Tg, E). A token's rank within an expert is the number of
+    earlier tokens of its group that chose it."""
+    e = probs.shape[-1]
+    ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_idx = order[..., :top_k]
+    gates = ranked[..., :top_k]
+    gates = gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
+    chosen = torch.zeros(probs.shape, dtype=torch.float32,
+                         device=probs.device) \
+        .scatter_(2, gate_idx, 1.0)                     # k ones per token
+    hits = chosen.to(torch.int64)
+    rank = (torch.cumsum(hits, dim=1) - hits).gather(2, gate_idx)
+    keep = rank < cap
+    slot = gate_idx * cap + torch.clamp_max(rank, cap - 1)
+    return gate_idx, gates, keep, slot, chosen, ranked[..., :top_k + 1]
+
+
+def _dispatch(xf: torch.Tensor, keep: torch.Tensor, slot: torch.Tensor,
+              e: int, cap: int) -> torch.Tensor:
+    """(G, Tg, d) tokens -> (G, E, cap, d) expert buffer. Kept (expert,
+    rank) slots are distinct; a dropped choice adds zeros into its
+    group's last slot, which leaves it unchanged."""
+    g, tg, d = xf.shape
+    src = torch.where(keep[..., None], xf[:, :, None, :],
+                      torch.zeros((), dtype=xf.dtype, device=xf.device))
+    base = (torch.arange(g, device=xf.device) * (e * cap))[:, None, None]
+    idx = torch.where(keep, slot, e * cap - 1) + base
+    return torch.zeros((g * e * cap, d), dtype=xf.dtype, device=xf.device) \
+        .index_add_(0, idx.reshape(-1), src.reshape(-1, d)) \
+        .view(g, e, cap, d)
+
+
+def _combine(out: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor,
+             keep: torch.Tensor, gate_idx: torch.Tensor) -> torch.Tensor:
+    """(G, E, cap, d) expert outputs -> (G, Tg, d): each token gathers its
+    k gated rows and adds them in ascending expert order (no float
+    atomics: a fixed order of adds)."""
+    g, e, cap, d = out.shape
+    top_k = slot.shape[-1]
+    rows = out.reshape(g, e * cap, d)
+    part = rows.gather(1, slot.reshape(g, -1, 1).expand(-1, -1, d)) \
+        .view(slot.shape + (d,)) * (gates * keep).to(out.dtype)[..., None]
+    part = part.gather(2, torch.argsort(gate_idx, dim=2)[..., None]
+                       .expand(-1, -1, -1, d))
+    y = part[:, :, 0]
+    for j in range(1, top_k):
+        y = y + part[:, :, j]
+    return y
+
+
+def _expert_bmm(buf: torch.Tensor, w: torch.Tensor, f32: bool = False
+                ) -> torch.Tensor:
+    """(G, E, C, d) @ (E, d, f) -> (G, E, C, f): one batched GEMM over
+    experts of every group's rows (``_bmm_f32`` for a float32 result)."""
+    g, e, c, d = buf.shape
+    a = buf.transpose(0, 1).reshape(e, g * c, d)
+    h = _bmm_f32(a, w) if f32 else torch.bmm(a, w)
+    return h.view(e, g, c, h.shape[-1]).transpose(0, 1)
+
+
 def moe(params: dict, x: torch.Tensor, *, top_k: int, kind: str,
         capacity_factor: float = 1.25) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k mixture of experts with the reference's capacity drop.
 
     x: (B, S, d). Returns (output in x's dtype, the Switch load-balance
-    aux loss, float32). The router's float32 softmax picks each token's
-    k experts in order of probability (ties to the lower index, as
-    ``lax.top_k``), gates normalised by max(sum, 1e-9). A token's rank
-    within an expert is the number of earlier tokens that chose it (the
-    reference's stable sort); ranks from ``cap`` up are dropped. Each
-    expert runs its ``cap`` rows, empty or not; a token sums its gated
-    outputs in ascending expert order, the reference's scatter order.
+    aux loss, float32). Tokens are split into
+    ``sharding.moe_num_groups()`` groups (1 unless the dry run's hooks
+    set more; 1 when it does not divide the tokens), each with its own
+    ``cap`` rows per expert, as the reference's data-local dispatch. The
+    router's float32 softmax picks each token's k experts in order of
+    probability (ties to the lower index, as ``lax.top_k``), gates
+    normalised by max(sum, 1e-9). A token's rank within an expert is the
+    number of earlier tokens of its group that chose it (the reference's
+    stable sort); ranks from ``cap`` up are dropped. Each expert runs
+    its ``cap`` rows, empty or not; a token sums its gated outputs in
+    ascending expert order, the reference's scatter order. The routing,
+    dispatch and combine run per device on its own groups under DTensor
+    (``sharding.local_groups``); the three ``constrain_moe_*`` hooks sit
+    at the reference's places.
     """
     b, s, d = x.shape
     t = b * s
     e = params["router"].shape[1]
-    xf = x.reshape(t, d)
+    groups = sharding.moe_num_groups()
+    if t % groups:
+        groups = 1
+    tg = t // groups
+    xf = sharding.constrain_moe_groups(x.reshape(groups, tg, d))
     probs = torch.softmax(torch.matmul(xf.to(torch.float32),
                                        params["router"]), dim=-1)
-    ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_idx = order[:, :top_k]
-    gates = ranked[:, :top_k]
-    gates = gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
-
-    chosen = torch.zeros((t, e), dtype=torch.float32, device=x.device) \
-        .scatter_(1, gate_idx, 1.0)                     # k ones per token
-    aux = e * torch.sum(probs.mean(dim=0) * chosen.mean(dim=0))
-
-    cap = moe_capacity(t, top_k, e, capacity_factor)
-    hits = chosen.to(torch.int64)
-    rank = (torch.cumsum(hits, dim=0) - hits).gather(1, gate_idx)  # (t, k)
-    keep = rank < cap
-    slot = gate_idx * cap + torch.clamp_max(rank, cap - 1)
+    cap = moe_capacity(tg, top_k, e, capacity_factor)
+    gate_idx, gates, keep, slot, chosen, top = sharding.local_groups(
+        lambda p: _route(p, top_k, cap), probs)
+    aux = e * torch.sum(probs.reshape(t, e).mean(dim=0)
+                        * chosen.reshape(t, e).mean(dim=0))
     if MOE_RECORD is not None:
-        MOE_RECORD.append({"gate_idx": gate_idx, "keep": keep, "slot": slot,
-                           "top": ranked[:, :top_k + 1], "cap": cap})
+        MOE_RECORD.append({"gate_idx": gate_idx.reshape(t, top_k),
+                           "keep": keep.reshape(t, top_k),
+                           "slot": slot.reshape(t, top_k),
+                           "top": top.reshape(t, -1), "cap": cap})
 
-    # dispatch: kept (expert, rank) slots are distinct; a dropped choice
-    # adds zeros into the last slot, which leaves it unchanged
-    src = torch.where(keep[..., None], xf[:, None, :],
-                      torch.zeros((), dtype=x.dtype, device=x.device))
-    buf = torch.zeros((e * cap, d), dtype=x.dtype, device=x.device) \
-        .index_add_(0, torch.where(keep, slot, e * cap - 1).reshape(-1),
-                    src.reshape(-1, d)).view(e, cap, d)
-
-    h = torch.bmm(buf, params["wi"])
+    buf = sharding.local_groups(
+        lambda xg, kg, sg: _dispatch(xg, kg, sg, e, cap), xf, keep, slot)
+    buf = sharding.constrain_moe_buffer(buf)     # (G, E, C, d)
+    weight = sharding.constrain_moe_weight
+    h = _expert_bmm(buf, weight(params["wi"]))
     if kind == "swiglu":
-        h = (F.silu(_bmm_f32(buf, params["wg"]))
+        h = (F.silu(_expert_bmm(buf, weight(params["wg"]), f32=True))
              * h.to(torch.float32)).to(x.dtype)
     elif kind == "geglu":
-        h = (F.gelu(_bmm_f32(buf, params["wg"]), approximate="tanh")
-             * h.to(torch.float32)).to(x.dtype)
+        h = (F.gelu(_expert_bmm(buf, weight(params["wg"]), f32=True),
+                    approximate="tanh") * h.to(torch.float32)).to(x.dtype)
     elif kind == "relu2":
         h = F.relu(h.to(torch.float32)).square().to(x.dtype)
     elif kind == "gelu":
         h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
     else:
         raise ValueError(f"unknown mlp kind {kind}")
-    out = torch.bmm(h, params["wo"]).view(e * cap, d)
-
-    # combine: each token gathers its k gated rows and adds them in
-    # ascending expert order (no float atomics: a fixed order of adds)
-    part = out[slot] * (gates * keep).to(x.dtype)[..., None]  # (t, k, d)
-    part = part.gather(1, torch.argsort(gate_idx, dim=1)[..., None]
-                       .expand(-1, -1, d))
-    y = part[:, 0]
-    for j in range(1, top_k):
-        y = y + part[:, j]
+    out = sharding.constrain_moe_buffer(
+        _expert_bmm(h, weight(params["wo"])))
+    y = sharding.local_groups(_combine, out, slot, gates, keep, gate_idx)
+    y = sharding.constrain_moe_groups(y)
     return y.reshape(b, s, d), aux

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -138,10 +139,10 @@ def forward(params: dict, cfg: ArchConfig, x: torch.Tensor,
     xh, bh, ch = _heads(cfg, conv_out)
     dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
     a = -torch.exp(params["a_log"])
-    y, final = ops.ssd_scan(xh, dt, a, bh, ch, params["d_skip"],
-                            initial_state=None if state is None
-                            else state["ssm"],
-                            return_final_state=True, impl=kernels)
+    y, final = sharding.local_scan(
+        lambda *args: ops.ssd_scan(*args, impl=kernels),
+        xh, dt, a, bh, ch, params["d_skip"],
+        None if state is None else state["ssm"], True)
     out = _gate_out(params, y.reshape(bsz, length, dd["d_in"]), z, x.dtype)
     if return_state:
         return out, {"conv": conv_buf, "ssm": final}
@@ -189,11 +190,17 @@ def decode_step(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
     dt1 = F.softplus(dt[:, 0].to(torch.float32) + params["dt_bias"])
     a = -torch.exp(params["a_log"])
+    yh = sharding.local_state_step(_state_step, state["ssm"], dt1, a, xs1,
+                                   b1, c1, params["d_skip"])
+    yh = yh.reshape(bsz, 1, dd["d_in"]).to(x.dtype)
+    return _gate_out(params, yh, z, x.dtype), state
+
+
+def _state_step(h, dt1, a, xs1, b1, c1, d_skip):
+    """One token's SSM recurrence: h (B, H, P, N) updated in place,
+    returns y (B, H, P) float32 (the skip term included)."""
     decay = torch.exp(dt1 * a)                            # (B, H)
-    h = state["ssm"]                                      # (B, H, P, N)
     h.mul_(decay[..., None, None]).add_(
         (dt1[..., None] * xs1)[..., None] * b1[:, :, None, :])
     yh = torch.einsum("bhpn,bhn->bhp", h, c1)             # (B, H, P)
-    yh = yh + xs1 * params["d_skip"][None, :, None]
-    yh = yh.reshape(bsz, 1, dd["d_in"]).to(x.dtype)
-    return _gate_out(params, yh, z, x.dtype), state
+    return yh + xs1 * d_skip[None, :, None]

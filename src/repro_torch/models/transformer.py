@@ -4,8 +4,13 @@ The reference (``repro.models.transformer``) stacks each pattern
 period's parameters and runs a ``lax.scan`` over periods; here the
 layers are a plain list, in order (period by period, then the
 remainder layers), and every entry point is a Python loop over them.
-The reference's ``constrain_batch`` sharding hint has no single-device
-counterpart and is dropped.
+The reference's ``constrain_batch`` sharding hint sits at the same
+places (after the embedding and at every layer boundary), and also on
+the MLP's input: on a DTensor under the dry run's hooks it redistributes
+the residual stream (without the MLP's, DTensor reduce-scatters the
+attention's row-parallel output over d_model and then gathers the MLP's
+column-parallel weights whole), on a plain tensor it returns its
+argument (``repro_torch.distributed``).
 
 Three entry points: ``forward`` (full logits), ``prefill`` (last-token
 logits plus the cache), ``decode_step`` (one token per sequence), each
@@ -32,6 +37,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain_batch, embed_lookup
 from repro_torch.models import layers, rglru, ssm
 
 ATTN_KINDS = ("attn", "local")
@@ -129,6 +135,7 @@ def _mlp_block(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor):
     residual's, then onto x."""
     if not _has_mlp(cfg, kind):
         return x, None
+    x = constrain_batch(x)
     h = layers.apply_norm(cfg.norm, p["norm2"], x)
     if cfg.n_experts == 0:
         return x + layers.mlp(p["mlp"], h, cfg.mlp_kind), None
@@ -142,7 +149,7 @@ def _mlp_block(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor):
 def _embed(params: dict, cfg: ArchConfig, inp: torch.Tensor) -> torch.Tensor:
     if cfg.frontend == "embeddings" or inp.ndim == 3:
         return inp.to(dtype_of(cfg))
-    return params["embed"][inp.long()]
+    return embed_lookup(params["embed"], inp)
 
 
 #: float32 elements of the head upcast at a time in ``_logits``
@@ -206,13 +213,14 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     """(B, S) tokens -> ((B, S, V) float32 logits, the sum of the MoE
     layers' aux losses, 0 without experts). Each layer is rematerialised
     in the backward under ``cfg.remat`` (:func:`remat`)."""
-    x = _embed(params, cfg, tokens)
+    x = constrain_batch(_embed(params, cfg, tokens))
     b, s = x.shape[:2]
     if positions is None:
         positions = _positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
-        x, a = remat(cfg, _layer, p, cfg, kind, x, positions, kernels)
+        x, a = remat(cfg, _layer, p, cfg, kind, constrain_batch(x),
+                     positions, kernels)
         if a is not None:
             aux = aux + a
     return _logits(params, cfg, x), aux
@@ -253,12 +261,13 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     attention layer's cache depth is ``max_len``, or the prompt length S
     when it is None (as in the reference); a Mamba-2 or RG-LRU layer's
     state has no depth."""
-    x = _embed(params, cfg, tokens)
+    x = constrain_batch(_embed(params, cfg, tokens))
     b, s = x.shape[:2]
     max_len = max_len or s
     positions = _positions(b, s, x.device)
     caches = []
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
+        x = constrain_batch(x)
         h = layers.apply_norm(cfg.norm, p["norm1"], x)
         if kind in ATTN_KINDS:
             y, c = layers.self_attention_prefill(
@@ -281,11 +290,12 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     (B,) absolute positions. Returns ((B, V) float32 logits, cache); the
     cache is updated in place."""
     if tokens.ndim == 1 and cfg.frontend == "tokens":
-        x = params["embed"][tokens.long()][:, None, :]
+        x = embed_lookup(params["embed"], tokens)[:, None, :]
     else:
         x = tokens.to(dtype_of(cfg))[:, None, :]
     for p, kind, c in zip(params["layers"], layer_kinds(cfg),
                           cache["layers"]):
+        x = constrain_batch(x)
         h = layers.apply_norm(cfg.norm, p["norm1"], x)
         if kind in ATTN_KINDS:
             y, _ = layers.self_attention_decode(

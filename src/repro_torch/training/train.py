@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import layers, model
 from repro_torch.training import optimizer as opt
 
@@ -41,7 +42,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
     """Mean token NLL. logits float32 (B, S, V); labels (B, S) ints."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = sharding.take_last(logits, labels)
     return torch.mean(logz - gold)
 
 

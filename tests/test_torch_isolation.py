@@ -68,7 +68,10 @@ def test_port_has_the_slice_modules():
             "configs/arctic_480b.py", "configs/whisper_small.py",
             "models/encdec.py", "kernels/fused.py", "training/__init__.py",
             "training/data.py", "training/optimizer.py",
-            "training/checkpoint.py", "training/train.py"]
+            "training/checkpoint.py", "training/train.py",
+            "distributed/__init__.py", "distributed/sharding.py",
+            "launch/__init__.py", "launch/mesh.py", "launch/specs.py",
+            "launch/op_analysis.py", "launch/dryrun.py"]
     missing = [m for m in want if not (PORT / m).is_file()]
     assert not missing, missing
 
@@ -98,6 +101,10 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.training.optimizer\n"
             "import repro_torch.training.checkpoint\n"
             "import repro_torch.training.train\n"
+            "import repro_torch.distributed.sharding\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.specs\n"
+            "import repro_torch.launch.op_analysis\n"
+            "import repro_torch.launch.dryrun\n"
             "from repro_torch.configs import get_config, PORTED\n"
             "[get_config(a) for a in PORTED]\n"
             "bad = sorted(m for m in sys.modules\n"
