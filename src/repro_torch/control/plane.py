@@ -42,6 +42,7 @@ from repro_torch.core.autoscaler import PMHPA
 from repro_torch.core.catalogue import Cluster, Deployment
 from repro_torch.core.router import Router, RouterParams
 from repro_torch.core.scheduler import Request
+from repro_torch.core.telemetry import TRACER
 
 
 def hpa_refresh(router: Router, pmhpa: PMHPA, t_now: float,
@@ -242,36 +243,44 @@ class ControlPlane:
         reqs = self.queue.drain()
         if not reqs:
             return []
-        pol = self.policy
-        dec = pol.decide(reqs, t_now)
-        self.flushes += 1
-        self.scored_pairs += dec.lam.shape[0] * dec.lam.shape[1]
-        self.decided += len(reqs)
+        sid = TRACER.open("admission.flush", rows=len(reqs)) \
+            if TRACER.on else -1
+        try:
+            pol = self.policy
+            dec = pol.decide(reqs, t_now)
+            self.flushes += 1
+            self.scored_pairs += dec.lam.shape[0] * dec.lam.shape[1]
+            self.decided += len(reqs)
 
-        deps = pol.deps
-        out: list[AdmissionDecision] = []
-        for r, req in enumerate(reqs):
-            pred = float(dec.predicted[r])
-            if bool(dec.feasible[r]):
-                d = self._place_feasible(req, r, int(dec.primary[r]),
-                                         dec.lam, dec.slo, dec.mask,
-                                         dec.g, pred, t_now)
-            else:
-                d = self._bind(req, deps[int(dec.primary[r])], t_now,
-                               pred, offload=bool(dec.offload[r]))
-            out.append(d)
-            self.outcomes[d.outcome] += 1
-            dups = dec.dup_row(r)
-            if dups and d.outcome != REJECTED:
-                placed = self._dispatch_duplicates(req, d, dups,
-                                                   dec.g, r, t_now)
-                # ledgered at EMISSION; _dispatch_duplicates counts at
-                # the slot grab — check_conservation compares the two
-                # independent tallies.
-                for d2 in placed:
-                    self.outcomes[d2.outcome] += 1
-                out.extend(placed)
-        return out
+            if sid >= 0:
+                TRACER.stage("admission.settle")
+            deps = pol.deps
+            out: list[AdmissionDecision] = []
+            for r, req in enumerate(reqs):
+                pred = float(dec.predicted[r])
+                if bool(dec.feasible[r]):
+                    d = self._place_feasible(req, r, int(dec.primary[r]),
+                                             dec.lam, dec.slo, dec.mask,
+                                             dec.g, pred, t_now)
+                else:
+                    d = self._bind(req, deps[int(dec.primary[r])], t_now,
+                                   pred, offload=bool(dec.offload[r]))
+                out.append(d)
+                self.outcomes[d.outcome] += 1
+                dups = dec.dup_row(r)
+                if dups and d.outcome != REJECTED:
+                    placed = self._dispatch_duplicates(req, d, dups,
+                                                       dec.g, r, t_now)
+                    # ledgered at EMISSION; _dispatch_duplicates counts at
+                    # the slot grab — check_conservation compares the two
+                    # independent tallies.
+                    for d2 in placed:
+                        self.outcomes[d2.outcome] += 1
+                    out.extend(placed)
+            return out
+        finally:
+            if sid >= 0:
+                TRACER.close(sid)
 
     def _place_feasible(self, req: Request, r: int, primary: int,
                         lam: np.ndarray, slo: np.ndarray, mask: np.ndarray,

@@ -66,6 +66,7 @@ from repro_torch.core.router import (BIG, Router, score_instance_scalar,
                                score_instances_batch, select_instance_batch,
                                select_instance_scalar)
 from repro_torch.core.scheduler import Request
+from repro_torch.core.telemetry import TRACER
 
 #: admission backends: the batched torch scorer with the exact Erlang-C
 #: recurrence (the semantics reference), the CUDA decision kernels, and
@@ -200,11 +201,9 @@ class RoutingPolicyBase:
         self._erlang_key: Optional[tuple] = None
         # device-resident candidate columns: the six static columns
         # upload ONCE per policy, n re-uploads only when a replica count
-        # moves. host_uploads counts column uploads so the churn
-        # regression test can pin the invariant.
+        # moves (the flush span's h2d counters show it)
         self._dev_cols: Optional[dict] = None
         self._n_key: Optional[tuple] = None
-        self.host_uploads: int = 0
 
     @property
     def deps(self) -> list[Deployment]:
@@ -220,8 +219,18 @@ class RoutingPolicyBase:
 
     def _upload(self, arr: np.ndarray, dtype=np.float32) -> torch.Tensor:
         """A host array as a contiguous tensor on this policy's device."""
-        return torch.as_tensor(np.ascontiguousarray(arr, dtype),
-                               device=self.device)
+        host = np.ascontiguousarray(arr, dtype)
+        if TRACER.on:
+            TRACER.h2d(host.nbytes)
+        return torch.as_tensor(host, device=self.device)
+
+    @staticmethod
+    def _download(t: torch.Tensor) -> np.ndarray:
+        """A decision tensor read back to the host (blocking)."""
+        host = t.cpu().numpy()
+        if TRACER.on:
+            TRACER.d2h(host.nbytes)
+        return host
 
     def _device_static(self) -> dict:
         """The candidate table's device residency (see __init__)."""
@@ -235,13 +244,11 @@ class RoutingPolicyBase:
                 "rtt": self._upload(tbl.rtt),
                 "cost": self._upload(tbl.cost),
             }
-            self.host_uploads += 6
         n = tbl.n()
         key = tuple(int(x) for x in n)
         if self._n_key != key:
             self._dev_cols["n"] = self._upload(n)
             self._n_key = key
-            self.host_uploads += 1
         return self._dev_cols
 
     def _erlang(self) -> torch.Tensor:
@@ -264,7 +271,10 @@ class RoutingPolicyBase:
         flush sizes."""
         p2 = 1 << max(3, (r - 1).bit_length())
         block = min(self.cfg.block_r, p2)
-        return block, ((r + block - 1) // block) * block
+        padded = ((r + block - 1) // block) * block
+        if TRACER.on:
+            TRACER.pad(padded)
+        return block, padded
 
     def _fused_rows(self, lam: np.ndarray, slo: np.ndarray,
                     mask: np.ndarray):
@@ -289,14 +299,21 @@ class RoutingPolicyBase:
         ascending by g (headroom-gated by ``margin``) after it, -1
         padding. Returns host (idx (R, k), g (R, k), ok (R,))."""
         from repro_torch.kernels import ops
+        if TRACER.on:
+            TRACER.stage("admission.upload")
         cols = self._device_static()
         lam_d, slo_d, r = self._fused_rows(lam, slo, mask)
+        erlang = self._erlang()
+        if TRACER.on:
+            TRACER.stage("admission.kernel")
         idx, g, ok = ops.routing_topk(
             lam_d, cols["alpha"], cols["beta"], cols["gamma"], cols["mu"],
-            cols["n"], cols["rtt"], slo_d, cols["cost"], self._erlang(),
+            cols["n"], cols["rtt"], slo_d, cols["cost"], erlang,
             k=k, margin=float(margin), impl=self.cfg.backend)
-        return (idx[:r].cpu().numpy(), g[:r].cpu().numpy(),
-                ok[:r].cpu().numpy())
+        if TRACER.on:
+            TRACER.stage("admission.download")
+        return (self._download(idx[:r]), self._download(g[:r]),
+                self._download(ok[:r]))
 
     # ---------------- strategy hook ----------------------------------- #
     def decide(self, reqs: list[Request], t_now: float) -> WindowDecision:
@@ -304,6 +321,14 @@ class RoutingPolicyBase:
         raise NotImplementedError
 
     # ---------------- decision-matrix construction -------------------- #
+    def decision_rows(self, reqs: list[Request], t_now: float):
+        """The window's (lam, slo, mask) rows, the flush's rates
+        stage."""
+        if TRACER.on:
+            TRACER.stage("admission.rates")
+        return (self.lam_matrix(reqs, t_now), self.slo_rows(reqs),
+                self.mask_rows(reqs))
+
     def lam_matrix(self, reqs: list[Request], t_now: float) -> np.ndarray:
         """(R, I) per-request, per-candidate rate estimates (module doc)."""
         tbl = self.table
@@ -338,10 +363,15 @@ class RoutingPolicyBase:
         if self.fused:
             idx, g_best, ok = self._fused_select(lam, slo, mask)
             return idx, ok, g_best, None
-        # the scores stay on the device between score and select
+        # the scores stay on the device between score and select (whose
+        # reads fall in the kernel stage)
+        if TRACER.on:
+            TRACER.stage("admission.kernel")
         g = self.score_tensor(lam)
         idx, ok = self.select_batch(g, slo, mask)
-        return idx, ok, None, g.cpu().numpy()
+        if TRACER.on:
+            TRACER.stage("admission.download")
+        return idx, ok, None, self._download(g)
 
     def select_batch(self, g, slo: np.ndarray,
                      mask: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -352,8 +382,8 @@ class RoutingPolicyBase:
         g_t = g if isinstance(g, torch.Tensor) else self._upload(g)
         idx, ok = select_instance_batch(
             g_t, self._upload(slo), self._device_static()["cost"],
-            torch.as_tensor(np.asarray(mask, bool), device=self.device))
-        return idx.cpu().numpy(), ok.cpu().numpy()
+            self._upload(mask, bool))
+        return self._download(idx), self._download(ok)
 
     def cheapest_lane_upstream(self, mask_row: np.ndarray
                                ) -> tuple[int, bool]:
@@ -380,7 +410,7 @@ class RoutingPolicyBase:
         """(R, I) predicted-latency matrix through the batched scorer —
         the semantics reference every strategy shares, and the path for
         strategies running without a fused backend."""
-        return self.score_tensor(lam).cpu().numpy()
+        return self._download(self.score_tensor(lam))
 
     def score_row(self, lam_row: np.ndarray) -> np.ndarray:
         """(I,) scores for one request — the engine-overflow re-score
@@ -394,14 +424,21 @@ class RoutingPolicyBase:
         the per-request SLO rows (lane restrictions folded in as slo =
         -1). Returns host (idx (R,), g_best (R,), ok (R,))."""
         from repro_torch.kernels import ops
+        if TRACER.on:
+            TRACER.stage("admission.upload")
         cols = self._device_static()
         lam_d, slo_d, r = self._fused_rows(lam, slo, mask)
+        erlang = self._erlang()
+        if TRACER.on:
+            TRACER.stage("admission.kernel")
         idx, g_best, ok = ops.routing_score(
             lam_d, cols["alpha"], cols["beta"], cols["gamma"], cols["mu"],
-            cols["n"], cols["rtt"], slo_d, cols["cost"], self._erlang(),
+            cols["n"], cols["rtt"], slo_d, cols["cost"], erlang,
             impl=self.cfg.backend)
-        return (idx[:r].cpu().numpy(), g_best[:r].cpu().numpy(),
-                ok[:r].cpu().numpy())
+        if TRACER.on:
+            TRACER.stage("admission.download")
+        return (self._download(idx[:r]), self._download(g_best[:r]),
+                self._download(ok[:r]))
 
     # ---------------- home-tier binding (guard strategies) ------------ #
     def home_index(self, req: Request) -> int:

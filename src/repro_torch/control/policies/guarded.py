@@ -31,6 +31,7 @@ import torch
 from repro_torch.control.policies.base import (RoutingPolicyBase,
                                                WindowDecision)
 from repro_torch.core.scheduler import Request
+from repro_torch.core.telemetry import TRACER
 from repro_torch.kernels.routing_decide import apply_guard
 
 
@@ -47,6 +48,8 @@ class GuardedAlgorithm1Policy(RoutingPolicyBase):
         guard holds them home; they are sliced off. Returns host
         (primary (R,) int64, g_sel (R,), offload (R,))."""
         from repro_torch.kernels import ops
+        if TRACER.on:
+            TRACER.stage("admission.upload")
         cols = self._device_static()
         r = lam.shape[0]
         _, padded = self._pad_block(r)
@@ -61,18 +64,24 @@ class GuardedAlgorithm1Policy(RoutingPolicyBase):
             tau32 = np.concatenate([tau32, np.zeros(pad, np.float32)])
             home32 = np.concatenate([home32, np.zeros(pad, np.int32)])
             up32 = np.concatenate([up32, np.full(pad, -1, np.int32)])
+        lam_d = self._upload(lam32)
+        tau_d = self._upload(tau32)
+        home_d = self._upload(home32, np.int32)
+        up_d = self._upload(up32, np.int32)
+        erlang = self._erlang()
+        if TRACER.on:
+            TRACER.stage("admission.kernel")
         idx, g_sel, off = ops.routing_guard(
-            self._upload(lam32), cols["alpha"], cols["beta"], cols["gamma"],
-            cols["mu"], cols["n"], cols["rtt"], self._upload(tau32),
-            self._upload(home32, np.int32), self._upload(up32, np.int32),
-            self._erlang(), impl=self.cfg.backend)
-        return (idx[:r].cpu().numpy().astype(np.int64),
-                g_sel[:r].cpu().numpy(), off[:r].cpu().numpy())
+            lam_d, cols["alpha"], cols["beta"], cols["gamma"], cols["mu"],
+            cols["n"], cols["rtt"], tau_d, home_d, up_d, erlang,
+            impl=self.cfg.backend)
+        if TRACER.on:
+            TRACER.stage("admission.download")
+        return (self._download(idx[:r]).astype(np.int64),
+                self._download(g_sel[:r]), self._download(off[:r]))
 
     def decide(self, reqs: list[Request], t_now: float) -> WindowDecision:
-        lam = self.lam_matrix(reqs, t_now)
-        slo = self.slo_rows(reqs)
-        mask = self.mask_rows(reqs)
+        lam, slo, mask = self.decision_rows(reqs, t_now)
 
         tbl = self.table
         rows = np.arange(len(reqs))
@@ -83,11 +92,15 @@ class GuardedAlgorithm1Policy(RoutingPolicyBase):
             # whole decision in one kernel launch; the plane re-scores
             # lazily through score_row on the rare engine-overflow path
             primary, g_sel, offload = self._fused_guard(lam, tau, home, up)
+            if TRACER.on:
+                TRACER.stage("admission.settle")
             g = None
             predicted = g_sel.astype(np.float64)
         else:
             # vmap path: full score matrix on the device, then the shared
             # guard (Alg. 1 line 10) over the home column
+            if TRACER.on:
+                TRACER.stage("admission.kernel")
             g_t = self.score_tensor(lam)
             home_t = self._upload(home, np.int64)
             up_t = self._upload(up, np.int64)
@@ -95,9 +108,13 @@ class GuardedAlgorithm1Policy(RoutingPolicyBase):
             target, off = apply_guard(
                 g_home, self._device_static()["rtt"][home_t],
                 self._upload(tau), up_t, up_t >= 0, home_t)
-            g = g_t.cpu().numpy()
-            offload = off.cpu().numpy()
-            primary = target.cpu().numpy()
+            if TRACER.on:
+                TRACER.stage("admission.download")
+            g = self._download(g_t)
+            offload = self._download(off)
+            primary = self._download(target)
+            if TRACER.on:
+                TRACER.stage("admission.settle")
             predicted = g[rows, primary].astype(np.float64)
         # Alg. 1 line 7: the request ARRIVES at its home instance before
         # the guard protects it, so the home tier's telemetry must see

@@ -46,6 +46,7 @@ from repro_torch.control.policies.base import RoutingPolicyBase, WindowDecision
 from repro_torch.control.policies.guarded import GuardedAlgorithm1Policy
 from repro_torch.control.policies.safetail import SafeTailRedundantPolicy
 from repro_torch.core.scheduler import Request
+from repro_torch.core.telemetry import TRACER
 
 
 class BurstAdaptiveHybridPolicy(RoutingPolicyBase):
@@ -121,6 +122,8 @@ class BurstAdaptiveHybridPolicy(RoutingPolicyBase):
 
     # ---- strategy delegation ------------------------------------------- #
     def decide(self, reqs: list[Request], t_now: float) -> WindowDecision:
+        if TRACER.on:
+            TRACER.stage("admission.rates")
         self.observe_window(len(reqs), t_now)
         if self.bursting:
             # per-deployment in-window rates feed the scale floor

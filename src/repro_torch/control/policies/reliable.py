@@ -42,6 +42,7 @@ import numpy as np
 from repro_torch.control.policies.base import RoutingPolicyBase, WindowDecision
 from repro_torch.core.latency_model import slo_attain_prob
 from repro_torch.core.scheduler import Request
+from repro_torch.core.telemetry import TRACER
 
 
 class ReliableSloPolicy(RoutingPolicyBase):
@@ -73,24 +74,28 @@ class ReliableSloPolicy(RoutingPolicyBase):
         headroom-gated, the (R, I) matrix device-only. Returns host
         (idx (R, k), g (R, k), ok (R,))."""
         from repro_torch.kernels import ops
+        if TRACER.on:
+            TRACER.stage("admission.upload")
         if self._dist_cols is None:
             self._dist_cols = (self._upload(self._sigma),
                                self._upload(self._avail))
-            self.host_uploads += 2
         sigma, avail = self._dist_cols
         cols = self._device_static()
         lam_d, slo_d, r = self._fused_rows(lam, slo, mask)
+        erlang = self._erlang()
+        if TRACER.on:
+            TRACER.stage("admission.kernel")
         idx, g, ok = ops.routing_attain(
             lam_d, cols["alpha"], cols["beta"], cols["gamma"], cols["mu"],
-            cols["n"], cols["rtt"], slo_d, sigma, avail, self._erlang(),
+            cols["n"], cols["rtt"], slo_d, sigma, avail, erlang,
             k=k, margin=float(margin), impl=self.cfg.backend)
-        return (idx[:r].cpu().numpy(), g[:r].cpu().numpy(),
-                ok[:r].cpu().numpy())
+        if TRACER.on:
+            TRACER.stage("admission.download")
+        return (self._download(idx[:r]), self._download(g[:r]),
+                self._download(ok[:r]))
 
     def decide(self, reqs: list[Request], t_now: float) -> WindowDecision:
-        lam = self.lam_matrix(reqs, t_now)
-        slo = self.slo_rows(reqs)
-        mask = self.mask_rows(reqs)
+        lam, slo, mask = self.decision_rows(reqs, t_now)
         k_extra = max(int(self.cfg.redundancy) - 1, 0)
         margin = float(self.cfg.headroom_margin)
         r_n = len(reqs)
@@ -98,6 +103,8 @@ class ReliableSloPolicy(RoutingPolicyBase):
         if self.fused:
             idx_k, g_k, ok = self._fused_attain(lam, slo, mask,
                                                 k=k_extra + 1, margin=margin)
+            if TRACER.on:
+                TRACER.stage("admission.settle")
             feasible = np.asarray(ok, bool).copy()
             primary = idx_k[:, 0].astype(np.int64)
             offload = np.zeros(r_n, bool)
@@ -113,7 +120,14 @@ class ReliableSloPolicy(RoutingPolicyBase):
                                   duplicates=duplicates)
 
         # vmap fallback: attainment over the full (R, I) matrix
-        g = self.score_matrix(lam)
+        if TRACER.on:
+            TRACER.stage("admission.kernel")
+        g_t = self.score_tensor(lam)
+        if TRACER.on:
+            TRACER.stage("admission.download")
+        g = self._download(g_t)
+        if TRACER.on:
+            TRACER.stage("admission.settle")
         p = self._avail[None, :] * slo_attain_prob(
             g, self._sigma[None, :], slo)
         primary = np.zeros(r_n, np.int64)

@@ -18,6 +18,7 @@ import numpy as np
 
 from repro_torch.control.policies.base import RoutingPolicyBase, WindowDecision
 from repro_torch.core.scheduler import Request
+from repro_torch.core.telemetry import TRACER
 
 
 class RouteBestPolicy(RoutingPolicyBase):
@@ -26,11 +27,10 @@ class RouteBestPolicy(RoutingPolicyBase):
     name = "route_best"
 
     def decide(self, reqs: list[Request], t_now: float) -> WindowDecision:
-        lam = self.lam_matrix(reqs, t_now)
-        slo = self.slo_rows(reqs)
-        mask = self.mask_rows(reqs)
+        lam, slo, mask = self.decision_rows(reqs, t_now)
         idx, ok, g_best, g = self.score_select(lam, slo, mask)
-
+        if TRACER.on:
+            TRACER.stage("admission.settle")
         r_n = len(reqs)
         primary = np.zeros(r_n, np.int64)
         offload = np.zeros(r_n, bool)

@@ -33,6 +33,7 @@ import numpy as np
 
 from repro_torch.control.policies.base import RoutingPolicyBase, WindowDecision
 from repro_torch.core.scheduler import Request
+from repro_torch.core.telemetry import TRACER
 
 
 class SafeTailRedundantPolicy(RoutingPolicyBase):
@@ -42,9 +43,7 @@ class SafeTailRedundantPolicy(RoutingPolicyBase):
     name = "safetail"
 
     def decide(self, reqs: list[Request], t_now: float) -> WindowDecision:
-        lam = self.lam_matrix(reqs, t_now)
-        slo = self.slo_rows(reqs)
-        mask = self.mask_rows(reqs)
+        lam, slo, mask = self.decision_rows(reqs, t_now)
         k_extra = max(int(self.cfg.redundancy) - 1, 0)
         r_n = len(reqs)
 
@@ -54,6 +53,8 @@ class SafeTailRedundantPolicy(RoutingPolicyBase):
             # (R, k) winners do.
             idx_k, g_k, ok = self._fused_topk(lam, slo, mask,
                                               k=k_extra + 1)
+            if TRACER.on:
+                TRACER.stage("admission.settle")
             feasible = np.asarray(ok, bool).copy()
             primary = idx_k[:, 0].astype(np.int64)
             offload = np.zeros(r_n, bool)
@@ -73,9 +74,15 @@ class SafeTailRedundantPolicy(RoutingPolicyBase):
                                   duplicates=duplicates)
 
         # vmap fallback: full (R, I) matrix, then the per-row top-k scan
+        if TRACER.on:
+            TRACER.stage("admission.kernel")
         g_t = self.score_tensor(lam)
         idx, ok = self.select_batch(g_t, slo, mask)
-        g = g_t.cpu().numpy()
+        if TRACER.on:
+            TRACER.stage("admission.download")
+        g = self._download(g_t)
+        if TRACER.on:
+            TRACER.stage("admission.settle")
 
         primary = np.zeros(r_n, np.int64)
         offload = np.zeros(r_n, bool)

@@ -360,7 +360,6 @@ class Router:
         if g_hat > tau:                                   # line 17
             if dep.n_replicas < dep.n_max:                # line 18
                 decision.scale_out.append(dep)            # line 19
-                tel.scale_outs += 1
             else:                                         # line 20
                 phi = min(1.0, (g_hat - tau) / max(g_hat, 1e-12))  # line 21
                 upstream = self.cluster.upstream_of(dep)
@@ -373,7 +372,6 @@ class Router:
             rho = dep.rho(lam_accum)
             if rho < p.rho_low and dep.n_replicas > 1:    # line 25
                 decision.scale_in.append(dep)             # line 26
-                tel.scale_ins += 1
 
     def on_request(self, req: Request, dep: Deployment, t_now: float) -> Decision:
         """Algorithm 1 for request r arriving at service instance (m, i)."""

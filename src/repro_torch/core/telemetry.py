@@ -14,10 +14,16 @@ Two estimators per model stream:
 * EWMA-accumulated rate (Algorithm 1, line 15):
   ``lam_accum <- alpha*lam_accum + (1-alpha)*lam``. Drives replica scaling
   and bulk offload (slow, stable signal).
+
+:data:`TRACER` records where the port's own host time goes: spans of
+the admission flush's stages and of the serving engine's launches and
+read-backs, with the flush's copy counters. It is off unless a caller
+enables it.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 
 
@@ -79,8 +85,6 @@ class ModelTelemetry:
     arrivals: int = 0
     offloaded_fast: int = 0     # per-request SLO-guard offloads (Alg.1 line 11)
     offloaded_bulk: float = 0.0  # fractional bulk offload mass (Alg.1 line 22)
-    scale_outs: int = 0
-    scale_ins: int = 0
 
     @classmethod
     def create(cls, ewma_alpha: float = 0.8, window: float = 1.0) -> "ModelTelemetry":
@@ -116,3 +120,146 @@ class MetricsRegistry:
 
     def desired_replicas_key(self, model: str, instance: str) -> str:
         return f"desired_replicas/{model}/{instance}"
+
+
+@dataclasses.dataclass
+class SpanRecords:
+    """Spans as flat parallel lists: a span's id is its index. Times are
+    ``time.perf_counter`` seconds (``end`` is NaN while a span is open);
+    ``parent`` is the enclosing span's id, -1 at the top. The integer
+    counters start at 0."""
+
+    name: list = dataclasses.field(default_factory=list)
+    start: list = dataclasses.field(default_factory=list)
+    end: list = dataclasses.field(default_factory=list)
+    parent: list = dataclasses.field(default_factory=list)
+    rows: list = dataclasses.field(default_factory=list)
+    padded_rows: list = dataclasses.field(default_factory=list)
+    h2d_copies: list = dataclasses.field(default_factory=list)
+    h2d_bytes: list = dataclasses.field(default_factory=list)
+    d2h_copies: list = dataclasses.field(default_factory=list)
+    d2h_bytes: list = dataclasses.field(default_factory=list)
+    steps: list = dataclasses.field(default_factory=list)
+
+    def __len__(self) -> int:
+        return len(self.name)
+
+
+class Tracer:
+    """In-memory spans and counters of the port's host work.
+
+    A *scope* (``open`` / ``close``) is a call such as one flush or one
+    decode step; a *stage* (``stage``) is one contiguous part of the
+    innermost open scope: it ends that scope's open stage and starts the
+    next, so consecutive stages never overlap and each is a child of the
+    scope. A stage named like the open one continues it. Counters add to
+    the innermost open scope. With no scope open, stages and counters
+    are dropped.
+
+    Every call site tests ``on`` first, so a tracer that is off costs one
+    attribute read per site. ``enable`` starts recording from an empty
+    stack; ``drain`` returns the records and starts new ones.
+    """
+
+    def __init__(self):
+        self.on = False
+        self.records = SpanRecords()
+        self._scopes: list = []     # [scope id, its open stage id or -1]
+
+    def enable(self) -> None:
+        self._scopes = []
+        self.on = True
+
+    def disable(self) -> None:
+        self.on = False
+
+    def drain(self) -> SpanRecords:
+        out, self.records = self.records, SpanRecords()
+        self._scopes = []
+        return out
+
+    def _new(self, name: str, parent: int, t: float, rows: int = 0,
+             steps: int = 0) -> int:
+        rec = self.records
+        sid = len(rec.name)
+        rec.name.append(name)
+        rec.start.append(t)
+        rec.end.append(float("nan"))
+        rec.parent.append(parent)
+        rec.rows.append(rows)
+        rec.padded_rows.append(0)
+        rec.h2d_copies.append(0)
+        rec.h2d_bytes.append(0)
+        rec.d2h_copies.append(0)
+        rec.d2h_bytes.append(0)
+        rec.steps.append(steps)
+        return sid
+
+    def open(self, name: str, rows: int = 0, steps: int = 0) -> int:
+        """Start a scope inside the innermost open stage or scope;
+        returns its id for ``close``."""
+        parent = -1
+        if self._scopes:
+            top = self._scopes[-1]
+            parent = top[1] if top[1] >= 0 else top[0]
+        sid = self._new(name, parent, time.perf_counter(), rows, steps)
+        self._scopes.append([sid, -1])
+        return sid
+
+    def close(self, sid: int) -> None:
+        """End scope ``sid`` with its open stage, and any scope still
+        open inside it."""
+        end = self.records.end
+        t = time.perf_counter()
+        while self._scopes:
+            scope, stage = self._scopes.pop()
+            if stage >= 0:
+                end[stage] = t
+            end[scope] = t
+            if scope == sid:
+                return
+
+    def stage(self, name: str) -> None:
+        """End the innermost scope's open stage and start stage
+        ``name``."""
+        if not self._scopes:
+            return
+        top = self._scopes[-1]
+        rec = self.records
+        if top[1] >= 0 and rec.name[top[1]] == name:
+            return
+        t = time.perf_counter()
+        if top[1] >= 0:
+            rec.end[top[1]] = t
+        top[1] = self._new(name, top[0], t)
+
+    def end_stage(self) -> None:
+        """End the innermost scope's open stage; the scope goes on."""
+        if self._scopes and self._scopes[-1][1] >= 0:
+            top = self._scopes[-1]
+            self.records.end[top[1]] = time.perf_counter()
+            top[1] = -1
+
+    def pad(self, rows: int) -> None:
+        """The innermost scope's rows as padded for a kernel launch."""
+        if self._scopes:
+            self.records.padded_rows[self._scopes[-1][0]] += rows
+
+    def h2d(self, nbytes: int) -> None:
+        """One host-to-device copy of ``nbytes``."""
+        if self._scopes:
+            rec, sid = self.records, self._scopes[-1][0]
+            rec.h2d_copies[sid] += 1
+            rec.h2d_bytes[sid] += nbytes
+
+    def d2h(self, nbytes: int) -> None:
+        """One device-to-host copy of ``nbytes``."""
+        if self._scopes:
+            rec, sid = self.records, self._scopes[-1][0]
+            rec.d2h_copies[sid] += 1
+            rec.d2h_bytes[sid] += nbytes
+
+
+#: the port's tracer: ``ControlPlane.flush``, the routing policies and
+#: ``ServingEngine`` record into it while ``TRACER.on`` is set
+TRACER = Tracer()

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.telemetry import TRACER
 from repro_torch.models import model
 
 
@@ -106,11 +107,20 @@ class ServingEngine:
 
     def step(self) -> np.ndarray:
         """One decode step for all slots; returns the new tokens (B,)."""
-        logits, self.cache = self._decode(self.params, self.current,
-                                          self.cache, self.pos)
-        self.current = torch.argmax(logits, dim=-1).to(torch.int32)
-        self.pos = self.pos + 1
-        return self.current.cpu().numpy()
+        sid = TRACER.open("engine.step") if TRACER.on else -1
+        try:
+            if sid >= 0:
+                TRACER.stage("engine.step.launch")
+            logits, self.cache = self._decode(self.params, self.current,
+                                              self.cache, self.pos)
+            self.current = torch.argmax(logits, dim=-1).to(torch.int32)
+            self.pos = self.pos + 1
+            if sid >= 0:
+                TRACER.stage("engine.step.readback")
+            return self.current.cpu().numpy()
+        finally:
+            if sid >= 0:
+                TRACER.close(sid)
 
     def generate(self, prompts, steps: int) -> GenerationResult:
         """Prefill ``prompts`` (B <= slots, S) then greedy-decode
@@ -125,28 +135,42 @@ class ServingEngine:
         if b > self.slots:
             raise ValueError(f"generate: {b} prompts for {self.slots} "
                              "slots")
-        batch = {"tokens": prompts} if self.cfg.frontend == "tokens" else \
-            {"embeddings": prompts}
-        logits, cache = self._prefill(self.params, batch)
-        if b == self.slots:
-            self.cache = cache
-        else:
-            for full_layer, new_layer in zip(self.cache["layers"],
-                                             cache["layers"]):
-                for key in full_layer:
-                    _merge_batch(full_layer[key], new_layer[key])
-        first = torch.argmax(logits, dim=-1).to(torch.int32)
-        self.current = torch.zeros(self.slots, dtype=torch.int32,
+        sid = TRACER.open("engine.generate", rows=b, steps=steps) \
+            if TRACER.on else -1
+        try:
+            if sid >= 0:
+                TRACER.stage("engine.prefill")
+            batch = {"tokens": prompts} if self.cfg.frontend == "tokens" else \
+                {"embeddings": prompts}
+            logits, cache = self._prefill(self.params, batch)
+            if b == self.slots:
+                self.cache = cache
+            else:
+                for full_layer, new_layer in zip(self.cache["layers"],
+                                                 cache["layers"]):
+                    for key in full_layer:
+                        _merge_batch(full_layer[key], new_layer[key])
+            first = torch.argmax(logits, dim=-1).to(torch.int32)
+            self.current = torch.zeros(self.slots, dtype=torch.int32,
+                                       device=self.device)
+            self.current[:b] = first
+            self.pos = torch.zeros(self.slots, dtype=torch.int32,
                                    device=self.device)
-        self.current[:b] = first
-        self.pos = torch.zeros(self.slots, dtype=torch.int32,
-                               device=self.device)
-        self.pos[:b] = s
-        self.active[:b] = True
-        out = [self.current[:b].cpu().numpy()]
-        for _ in range(steps - 1):
-            out.append(self.step()[:b])
-        return GenerationResult(tokens=np.stack(out, axis=1), steps=steps)
+            self.pos[:b] = s
+            self.active[:b] = True
+            if sid >= 0:
+                TRACER.stage("engine.readback")
+            out = [self.current[:b].cpu().numpy()]
+            if sid >= 0:
+                # the decode steps nest in generate as engine.step spans
+                TRACER.end_stage()
+            for _ in range(steps - 1):
+                out.append(self.step()[:b])
+            return GenerationResult(tokens=np.stack(out, axis=1),
+                                    steps=steps)
+        finally:
+            if sid >= 0:
+                TRACER.close(sid)
 
 
 def _merge_batch(full: torch.Tensor, new: torch.Tensor) -> None:

@@ -37,6 +37,7 @@ from repro.kernels.routing_score import build_erlang_table as j_table
 from repro_torch.control.fleet import FleetPlane as TFleet
 from repro_torch.convert import candidate_table_from_numpy
 from repro_torch.kernels import ops as t_ops
+from test_torch_telemetry import traced_decide
 
 POLICIES = ("route_best", "guarded_alg1")
 
@@ -168,23 +169,31 @@ class TestWindowDecisions:
 
 
 class TestDeviceColumnCache:
+    """Host-to-device copies of a window, counted by the flush span:
+    the columns ride the first window only."""
+
     @pytest.mark.parametrize("backend", ["vmap", "ref"])
     def test_static_columns_upload_once(self, backend):
         _, pol = policies("route_best", backend)
-        assert pol.host_uploads == 0
-        for _ in range(5):
-            pol.decide(mk_reqs(t_sched, 4), 0.1)
-        assert pol.host_uploads == 7     # 6 static columns + n
+        copies = [traced_decide(pol, mk_reqs(t_sched, 4), 0.1)[0]
+                  for _ in range(5)]
+        # the window's rows: lam, slo and mask (vmap), lam and slo (ref)
+        rows = {"vmap": 3, "ref": 2}[backend]
+        assert copies[1:] == [rows] * 4
+        # 6 static columns + n, and the fused path's Erlang table
+        assert copies[0] == rows + 7 + (backend == "ref")
 
     def test_replica_change_reuploads_only_n(self):
         _, pol = policies("guarded_alg1", "ref")
-        pol.decide(mk_reqs(t_sched, 4), 0.1)
-        assert pol.host_uploads == 7
+        traced_decide(pol, mk_reqs(t_sched, 4), 0.1)
+        steady = traced_decide(pol, mk_reqs(t_sched, 4), 0.1)
+        assert steady[0] == 4                # lam, tau, home, up
         pol.deps[0].n_replicas += 1
-        pol.decide(mk_reqs(t_sched, 4), 0.1)
-        assert pol.host_uploads == 8
-        pol.decide(mk_reqs(t_sched, 4), 0.1)
-        assert pol.host_uploads == 8
+        # n, and the Erlang table keyed on it
+        i, t = len(pol.deps), pol.cfg.erlang_table_size
+        assert traced_decide(pol, mk_reqs(t_sched, 4), 0.1) == \
+            (steady[0] + 2, steady[1] + 4 * i + 4 * i * t)
+        assert traced_decide(pol, mk_reqs(t_sched, 4), 0.1) == steady
 
     @pytest.mark.parametrize("r,want", [(1, 8), (8, 8), (9, 16), (300, 512)])
     def test_pad_block_buckets_like_reference(self, r, want):

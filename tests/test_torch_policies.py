@@ -33,6 +33,7 @@ import repro_torch.core.catalogue as t_cat
 import repro_torch.core.latency_model as t_lm
 import repro_torch.core.router as t_router
 import repro_torch.core.scheduler as t_sched
+from test_torch_telemetry import traced_decide
 
 JAX = dict(cat=j_cat, lm=j_lm, sched=j_sched, adm=j_adm, pol=j_pol,
            router=j_router, plane=j_plane)
@@ -164,16 +165,19 @@ class TestFusedPolicyParity:
 class TestDeviceColumnCache:
     """The twin of ``test_fused_guard_and_topk_share_the_cache``: the
     fused path uploads the seven table columns once (plus the two
-    distribution columns for ``reliable``)."""
+    distribution columns for ``reliable``), counted by the flush span's
+    host-to-device copies."""
 
     @pytest.mark.parametrize("name,want", [("guarded_alg1", 7),
                                            ("safetail", 7),
                                            ("reliable", 9)])
     def test_fused_guard_and_topk_share_the_cache(self, name, want):
         pol = make(PORT, name, backend="ref", redundancy=2)
-        for _ in range(3):
-            pol.decide(mk_reqs(PORT, 4), 0.1)
-        assert pol.host_uploads == want
+        copies = [traced_decide(pol, mk_reqs(PORT, 4), 0.1)[0]
+                  for _ in range(3)]
+        assert copies[1] == copies[2]
+        # the columns and the Erlang table come with the first window
+        assert copies[0] - copies[1] == want + 1
 
 
 def hybrid_pair(**cfg):

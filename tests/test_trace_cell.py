@@ -1,0 +1,202 @@
+"""``tools/trace_spans.py``: the readings of a traced window, on plain
+span records and device operations (no benchmark, no device).
+
+The host-time readers keep to spans that ended before the device trace
+began; the idle share inside program spans and the clock check read
+both placements of the device's operations; the span list names a gap
+by the innermost span holding it; the counters' summary. The tool's
+runs on the benchmark's tiny CPU cells are in
+``tools/tests/test_trace_cell_runs.py``.
+"""
+import dataclasses
+import math
+
+import pytest
+
+from repro_torch.core.telemetry import SpanRecords
+from tools import trace_spans as ts
+
+
+def op(name, s, e, launch=None, stream=7, corr=0):
+    return (name, s, e, launch, stream, corr)
+
+
+def window(rec, ops=(), t_start=10.0, t_stop=20.0, name="cell"):
+    return ts.Window(name=name, rec=rec, t_start=t_start, t_stop=t_stop,
+                     ops=list(ops))
+
+
+def span(rec: SpanRecords, name: str, parent: int, start: float,
+         end: float, **counters) -> int:
+    """Append a closed span to ``rec``; returns its id."""
+    for field in dataclasses.fields(rec):
+        getattr(rec, field.name).append(counters.get(field.name, 0))
+    sid = len(rec) - 1
+    rec.name[sid], rec.parent[sid] = name, parent
+    rec.start[sid], rec.end[sid] = start, end
+    return sid
+
+
+STAGES = ("admission.rates", "admission.upload", "admission.kernel",
+          "admission.download", "admission.settle")
+
+
+def fleet_records() -> SpanRecords:
+    """Three flushes of 3, 4 and 5 rows with all five stages, two before
+    the device trace starts at 10 and one after; 4 copies up and 3 down
+    each. Stage j lasts 10 (j + 1) ms."""
+    rec = SpanRecords()
+    for k, t0 in enumerate((1.0, 5.0, 12.0)):
+        sid = span(rec, "admission.flush", -1, t0, t0 + 1.0, rows=3 + k,
+                   padded_rows=8, h2d_copies=4,
+                   d2h_copies=3, h2d_bytes=400, d2h_bytes=90)
+        for j, name in enumerate(STAGES):
+            s = t0 + 0.1 * j
+            span(rec, name, sid, s, s + 0.01 * (j + 1))
+    return rec
+
+
+def served_records() -> SpanRecords:
+    """Waves of 2 and 4 rows before 10 and one of 4 after; a decode step
+    before 10 and one after."""
+    rec = SpanRecords()
+    for t0, rows, pre in ((1.0, 2, 0.5), (3.0, 4, 0.7), (12.0, 4, 0.9)):
+        g = span(rec, "engine.generate", -1, t0, t0 + 1.0, rows=rows,
+                 steps=1)
+        span(rec, "engine.prefill", g, t0, t0 + pre)
+        span(rec, "engine.readback", g, t0 + pre, t0 + 1.0)
+    for t0, launch in ((6.0, 0.04), (14.0, 0.08)):
+        s = span(rec, "engine.step", -1, t0, t0 + 0.1)
+        span(rec, "engine.step.launch", s, t0, t0 + launch)
+        span(rec, "engine.step.readback", s, t0 + launch, t0 + 0.1)
+    return rec
+
+
+@pytest.mark.parametrize("which", ["served", "fleet"])
+def test_host_readers_keep_to_spans_before_the_trace(which):
+    if which == "fleet":
+        w = window(fleet_records(), name="stablelm_3b.fleet_route")
+        # rates 0.01, copies 0.02 + 0.03 + 0.04, settle 0.05 a flush
+        assert ts.flush_rates_ms(w) == pytest.approx(10.0)
+        assert ts.flush_copy_ms(w) == pytest.approx(90.0)
+        assert ts.flush_settle_ms(w) == pytest.approx(50.0)
+        # the copy count reads the whole window
+        assert ts.route_copies_per_flush(w) == 7.0
+        assert set(ts.metrics(w)) == {
+            "flush_rates_ms", "flush_copy_ms", "flush_settle_ms",
+            "route_copies_per_flush"}
+    else:
+        w = window(served_records(), name="mamba2_370m.robot_chat",
+                   ops=[op("k", 12.0, 12.5)])
+        assert ts.prefill_launch_ms(w) == pytest.approx(600.0)
+        assert ts.decode_launch_ms(w) == pytest.approx(40.0)
+        assert set(ts.metrics(w)) == {
+            "prefill_launch_ms", "decode_launch_ms",
+            "program_idle_share.generate"}
+    # no span ended before the trace: nothing to read
+    late = window(w.rec, t_start=0.5, name=w.name)
+    got = ts.metrics(late)
+    assert "flush_rates_ms" not in got and "prefill_launch_ms" not in got
+
+
+def test_breakdown_names_a_gap_by_its_innermost_program_span():
+    rec = SpanRecords(name=["engine.step", "engine.step.launch",
+                            "engine.step.readback", "open"],
+                      start=[0.5, 0.6, 2.5, 0.0],
+                      end=[3.5, 2.5, 3.5, math.nan],
+                      parent=[-1, 0, 0, -1])
+    items = ts.program_items(rec)
+    # open spans are left out; parents come before their children
+    assert [n for n, *_ in items] == ["engine.step", "engine.step.launch",
+                                      "engine.step.readback"]
+
+    def innermost(t):
+        label = None
+        for n, s, e in items:
+            if s <= t <= e:
+                label = n
+        return label
+    assert innermost(1.5) == "engine.step.launch"
+    assert innermost(3.0) == "engine.step.readback"
+
+
+def test_idle_inside_program_spans():
+    rec = SpanRecords(name=["engine.step", "engine.step.launch", "x"],
+                      start=[0.5, 0.5, 3.5], end=[2.5, 2.0, 5.0],
+                      parent=[-1, 0, -1])
+    # stamped busy at [0, 1] and [2, 3]; launched at 0.6 and 2.0 on one
+    # stream, so placed at [0.6, 1.6] and [2.0, 3.0]
+    w = window(rec, [op("k", 0.0, 1.0, 0.6, corr=1),
+                     op("k", 2.0, 3.0, 2.0, corr=2)], 0.0, 4.0)
+    # inside: [0.5, 2.5] and [3.5, 4] (clipped)
+    assert ts.idle_inside_pct(w, ts.device_placed(w)) == \
+        pytest.approx(100 * (2.5 - 1.0) / 4.0)
+    assert ts.program_idle_share(w) == \
+        pytest.approx(100 * (2.5 - 1.5) / 4.0)
+    assert ts.program_idle_share(window(rec, [], 0.0, 4.0)) is None
+
+
+def test_launch_placement():
+    w = window(SpanRecords(), [
+        # launched at 1.0, stamped before its launch
+        op("a", 0.9, 1.1, 1.0, corr=1),
+        # launched at 1.05 behind a on its stream: starts when a ends
+        op("b", 1.3, 1.4, 1.05, corr=2),
+        # another stream, launched at 1.06
+        op("c", 1.2, 1.25, 1.06, stream=8, corr=3),
+        # no launch record: its own stamps
+        op("d", 5.0, 5.5)])
+    assert ts.launch_starts(w) == [1.0, pytest.approx(1.2), 1.06, None]
+    assert ts.launch_placed(w) == [
+        ("a", 1.0, pytest.approx(1.2)), ("c", 1.06, pytest.approx(1.11)),
+        ("b", pytest.approx(1.2), pytest.approx(1.3)), ("d", 5.0, 5.5)]
+    assert [n for n, *_ in ts.device_placed(w)] == ["a", "c", "b", "d"]
+    merged = ts.busy_intervals(ts.launch_placed(w))
+    assert merged == [[1.0, pytest.approx(1.3)], [5.0, 5.5]]
+
+
+def test_clock_check_on_a_synthetic_trace():
+    # a routing kernel after its flush's kernel stage began, one inside
+    # its flush but before that stage, one outside every flush; the
+    # launch calls: two inside their kernel stage, one before it
+    rec = SpanRecords(name=["admission.flush", "admission.kernel"] * 2,
+                      start=[1.0, 1.4, 3.0, 3.1], end=[2.0, 1.9, 4.0, 3.5],
+                      parent=[-1, 0, -1, 2])
+    w = window(rec, [op("routing_guard_kernel", 1.5, 1.6, 1.45, corr=1),
+                     op("copy", 1.7, 1.8, 1.65, corr=2),
+                     op("routing_topk_kernel", 3.05, 3.1, 3.04, corr=3),
+                     op("routing_guard_kernel", 5.0, 5.1, 3.2, corr=4)],
+               0.0, 6.0)
+    got = ts.clock_check(w)
+    dev, lau = got["device"], got["launch"]
+    assert dev["routing_kernels"] == lau["routing_kernels"] == 3
+    assert dev["routing_in_a_flush"] == pytest.approx(2 / 3)
+    assert dev["routing_in_their_flush"] == pytest.approx(1 / 3)
+    assert dev["busy_in_program_spans"] == pytest.approx(0.25 / 0.35)
+    # placed by launch: at 1.45, 3.04 and 3.2, each in its flush
+    assert lau["routing_in_a_flush"] == pytest.approx(1.0)
+    assert lau["routing_in_their_flush"] == pytest.approx(2 / 3)
+    assert lau["busy_in_program_spans"] == pytest.approx(1.0)
+    assert got["routing_launches_in_their_stage"] == pytest.approx(2 / 3)
+    lag = got["routing_start_after_launch_us"]
+    assert lag["p0"] == pytest.approx(1e4)
+    assert lag["p100"] == pytest.approx(1.8e6)
+    assert got["ops_without_launch"] == 0
+    moved = got["device_after_launch_placed_us"]
+    assert moved["p0"] == pytest.approx(1e4)
+    assert moved["p100"] == pytest.approx(1.8e6)
+    # idle inside the flushes: [1, 2] and [3, 4] less the busy time
+    assert dev["idle_inside_pct"] == pytest.approx(100 * (2 - 0.25) / 6)
+    assert lau["idle_inside_pct"] == pytest.approx(100 * (2 - 0.35) / 6)
+
+
+def test_counters():
+    w = window(fleet_records())
+    c = ts.counters(w)["flush"]
+    assert c == {"rows": 4.0, "padded_rows": 8.0, "h2d_bytes": 400.0,
+                 "d2h_bytes": 90.0}
+    waves = ts.counters(window(served_records()))["wave"]
+    assert waves == {"rows": 3.0, "steps": 1.0,
+                     "prefill_ms_by_rows": {2: pytest.approx(500.0),
+                                            4: pytest.approx(700.0)}}
+    assert ts.counters(window(SpanRecords())) == {}
