@@ -1734,11 +1734,13 @@ def counted(fn, kernels, dev):
 
 
 def profile_call(fn, dev, label: str, warm: bool = True,
-                 host_ops: bool = True) -> dict:
+                 host_ops: bool = True, kernels=()) -> dict:
     """``torch.profiler`` over one call of ``fn`` (after one unprofiled
     call unless ``warm`` is False): device busy and idle share against
-    its wall time, top device ops. ``host_ops=False`` traces the device
-    alone (a call of ~10^5 host ops takes minutes to summarise)."""
+    its wall time, top device ops, and in ``kernel_launches`` how many
+    device ops each wrapper of ``kernels`` ran (its ``<name>_kernel``,
+    inside a replayed CUDA graph too). ``host_ops=False`` traces the
+    device alone (a call of ~10^5 host ops takes minutes to summarise)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     if warm:
@@ -1763,7 +1765,10 @@ def profile_call(fn, dev, label: str, warm: bool = True,
            "device_busy_ms": busy if by_name else None,
            "idle_share": 1.0 - busy / wall_ms if by_name else None,
            "device_ms_by_name": {k: {"count": c, "ms": ms}
-                                 for k, (c, ms) in top}}
+                                 for k, (c, ms) in top},
+           "kernel_launches": {k.__name__: sum(
+               c for name, (c, _) in by_name.items()
+               if f"{k.__name__}_kernel" in name) for k in kernels}}
     emit(row)
     return row
 
@@ -1806,6 +1811,16 @@ def expected_launches(cfg, steps: int) -> tuple[dict, dict]:
     return ({k: gen[k] for k in names}, {k: step[k] for k in names})
 
 
+def engine_launch_calls(cfg, steps: int) -> dict:
+    """The kernel wrappers' calls in one ``generate`` of ``steps`` tokens
+    on a fresh CUDA engine: the prefill's launches, then the first decode
+    step's twice (run eagerly, then recorded into the engine's CUDA
+    graph); the later steps replay the graph and call no wrapper."""
+    gen, step = expected_launches(cfg, steps)
+    calls = min(steps - 1, 2)
+    return {k: gen[k] + (calls - (steps - 1)) * step[k] for k in gen}
+
+
 def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
                  steps: int, partial: int, kernels: str = "cuda",
                  params=None) -> dict:
@@ -1814,8 +1829,11 @@ def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
     an S-deep ring, or the recurrent states) and ``b = partial < slots``
     (merged into the engine's cache), ``steps`` greedy tokens each. The
     path's kernel counters, set to 0 just before each ``generate`` and
-    just before one more decode step and read just after, must show
-    exactly the launches of ``expected_launches``. Prefill and one decode step are profiled."""
+    read just after, must show exactly the wrapper calls of
+    ``engine_launch_calls``, with one graph captured and every later step
+    replayed; one more decode step calls no wrapper, and a profiled
+    replayed step runs exactly the kernels of ``expected_launches``.
+    Prefill and one decode step are profiled."""
     import torch
     from repro_torch.models import model
     from repro_torch.serving import ServingEngine
@@ -1837,14 +1855,21 @@ def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
         if res.tokens.shape != (b, steps) or (res.tokens < 0).any() \
                 or (res.tokens >= cfg.vocab_size).any():
             fail(f"engine {label}: tokens {res.tokens.shape} out of range")
-        want, want_step = expected_launches(cfg, steps)
+        want_step = expected_launches(cfg, steps)[1]
+        want = engine_launch_calls(cfg, steps)
         if counters and counts != want:
             fail(f"engine {label}: launches {counts}, expected {want} "
-                 "(one kernel launch per layer and pass)")
-        _, _, step_counts = counted(eng.step, counters, dev)
-        if counters and step_counts != want_step:
-            fail(f"engine {label}: one decode step launched {step_counts}, "
-                 f"expected {want_step}")
+                 "(one kernel launch per layer and pass; the first decode "
+                 "step's run and capture)")
+        graph = (eng.graph_captures, eng.graph_replays)
+        if dev.type == "cuda" and graph != (1, steps - 2):
+            fail(f"engine {label}: (captures, replays) {graph}, expected "
+                 f"(1, {steps - 2})")
+        _, _, step_calls = counted(eng.step, counters, dev)
+        if any(step_calls.values()) or dev.type == "cuda" \
+                and eng.graph_replays != steps - 1:
+            fail(f"engine {label}: a replayed step called {step_calls} "
+                 f"({eng.graph_replays} replays)")
         for k, c in counts.items():
             out["launches"][k] += c
         batch = {"tokens": tokens}
@@ -1852,7 +1877,10 @@ def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
             # tokens dropped per layer at the cap: a prefill of these
             # prompts, and a decode step of every slot (idle ones too)
             _, pre = moe_recorded(cfg, lambda: eng._prefill(params, batch))
-            _, dec = moe_recorded(cfg, eng.step)
+            # the step eagerly (a replayed graph runs no Python); it
+            # writes the cache where the next step writes it again
+            _, dec = moe_recorded(cfg, lambda: eng._decode(
+                params, eng.current, eng.cache, eng.pos))
             emit({"phase": "moe_drops", "arch": cfg.name, "cell": label,
                   "live": b, "slots": slots,
                   "prefill_cap": pre[0]["cap"],
@@ -1879,7 +1907,12 @@ def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
         depth = f"C{cache_len}" if cache_len else "state"
         prof_prefill = profile_call(lambda: eng._prefill(params, batch),
                                     dev, f"prefill/{label}/S{prompt}")
-        prof = profile_call(eng.step, dev, f"decode/{label}/{depth}")
+        prof = profile_call(eng.step, dev, f"decode/{label}/{depth}",
+                            kernels=counters)
+        step_counts = prof["kernel_launches"]
+        if step_counts != {k: want_step[k] for k in step_counts}:
+            fail(f"engine {label}: one decode step ran {step_counts}, "
+                 f"expected {want_step}")
         row = {"phase": "engine", "arch": cfg.name, "cell": label,
                "dtype": cfg.dtype, "n_layers": cfg.n_layers,
                "batch": b, "slots": slots, "prompt": prompt,
@@ -2718,8 +2751,8 @@ def train_serve(dev, cfg, params, data, slots: int, partial: int,
     """The trained params through the port's checkpoint (saved, restored
     into a fresh tree, equal bit for bit), then served in float32 by
     ``ServingEngine`` under kernels="cuda" and "ref" on both slot paths:
-    greedy tokens equal, the hand-written kernels launched exactly as
-    ``expected_launches`` says."""
+    greedy tokens equal, the hand-written kernels' wrappers called
+    exactly as ``engine_launch_calls`` says."""
     import shutil
 
     import torch
@@ -2745,7 +2778,7 @@ def train_serve(dev, cfg, params, data, slots: int, partial: int,
         fail("train serve: the restored checkpoint differs from the "
              "trained params")
     counters = path_kernels(cfg)
-    want, _ = expected_launches(cfg, steps)
+    want = engine_launch_calls(cfg, steps)
     tokens = torch.as_tensor(next(data)["tokens"][:, :prompt], device=dev)
     out = {"launches": {k.__name__: 0 for k in counters}}
     for label, b in (("b_eq_slots", slots), ("b_lt_slots", partial)):

@@ -127,7 +127,8 @@ class SpanRecords:
     """Spans as flat parallel lists: a span's id is its index. Times are
     ``time.perf_counter`` seconds (``end`` is NaN while a span is open);
     ``parent`` is the enclosing span's id, -1 at the top. The integer
-    counters start at 0."""
+    counters start at 0; ``graph`` is 1 on an ``engine.step`` that
+    replayed the engine's CUDA graph."""
 
     name: list = dataclasses.field(default_factory=list)
     start: list = dataclasses.field(default_factory=list)
@@ -140,6 +141,7 @@ class SpanRecords:
     d2h_copies: list = dataclasses.field(default_factory=list)
     d2h_bytes: list = dataclasses.field(default_factory=list)
     steps: list = dataclasses.field(default_factory=list)
+    graph: list = dataclasses.field(default_factory=list)
 
     def __len__(self) -> int:
         return len(self.name)
@@ -193,6 +195,7 @@ class Tracer:
         rec.d2h_copies.append(0)
         rec.d2h_bytes.append(0)
         rec.steps.append(steps)
+        rec.graph.append(0)
         return sid
 
     def open(self, name: str, rows: int = 0, steps: int = 0) -> int:
@@ -251,6 +254,11 @@ class Tracer:
             rec, sid = self.records, self._scopes[-1][0]
             rec.h2d_copies[sid] += 1
             rec.h2d_bytes[sid] += nbytes
+
+    def replayed(self) -> None:
+        """The innermost scope replayed a captured CUDA graph."""
+        if self._scopes:
+            self.records.graph[self._scopes[-1][0]] += 1
 
     def d2h(self, nbytes: int) -> None:
         """One device-to-host copy of ``nbytes``."""

@@ -9,6 +9,18 @@ hand-written kernels (``"cuda"``, default) or their plain versions
 (``"ref"``). The cache is the model's: KV rings for attention layers,
 conv buffers and SSM states for Mamba-2 layers; both paths of
 ``generate`` carry either.
+
+On a CUDA device the decode step is one CUDA graph: the first ``step``
+runs eagerly on the engine's own stream, then captures the same work
+(embedding, every layer, final norm and head, the greedy tokens into
+``current``, ``pos`` advanced) on that stream, and every later step
+replays it. The graph is bound to tensors the engine owns: ``current``,
+``pos`` and one static cache, so none of them is ever rebound; the
+tokens' read-back stays outside the graph. A CPU device, or params or a
+cache of DTensors (collectives are not captured), step eagerly. A kernel
+wrapper's ``launches`` counts its calls, so the first step's eager run
+and its capture each count once and a replay, which calls no wrapper,
+not at all: the kernels a replay runs are read from a device trace.
 """
 from __future__ import annotations
 
@@ -17,9 +29,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves, tree_structure
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.telemetry import TRACER
+from repro_torch.distributed.sharding import _is_dtensor
 from repro_torch.models import model
 
 
@@ -69,6 +83,15 @@ class ServingEngine:
                                    device=self.device)
         self._decode = make_decode_fn(cfg, kernels)
         self._prefill = make_prefill_fn(cfg, kernels)
+        self._graphable = self.device.type == "cuda" \
+            and not any_dtensor(params)
+        self._graph = None           # torch.cuda.CUDAGraph of one step
+        self._graph_logits = None    # its logits, written by each replay
+        self._static = None          # the cache the graph reads and writes
+        self._static_ok = False      # whether that cache can be captured
+        self._stream = None
+        self.graph_captures = 0
+        self.graph_replays = 0
 
     def free_slots(self) -> list[int]:
         return [i for i in range(self.slots) if not self.active[i]]
@@ -111,16 +134,71 @@ class ServingEngine:
         try:
             if sid >= 0:
                 TRACER.stage("engine.step.launch")
-            logits, self.cache = self._decode(self.params, self.current,
-                                              self.cache, self.pos)
-            self.current = torch.argmax(logits, dim=-1).to(torch.int32)
-            self.pos = self.pos + 1
+            if not (self._graphable and self._bind_cache()):
+                self._launch()
+            elif self._graph is None:
+                self._capture(sid)
+            else:
+                self._graph.replay()
+                self.graph_replays += 1
+                if sid >= 0:
+                    TRACER.replayed()
             if sid >= 0:
                 TRACER.stage("engine.step.readback")
-            return self.current.cpu().numpy()
+            return self.current.to("cpu", copy=True).numpy()
         finally:
             if sid >= 0:
                 TRACER.close(sid)
+
+    def _launch(self) -> torch.Tensor:
+        """The decode step's device work on the current stream: the model
+        step, its greedy tokens into ``current`` and ``pos`` advanced, in
+        place. Returns the float32 logits (slots, V)."""
+        logits, self.cache = self._decode(self.params, self.current,
+                                          self.cache, self.pos)
+        self.current.copy_(torch.argmax(logits, dim=-1))
+        self.pos.add_(1)
+        return logits
+
+    def _bind_cache(self) -> bool:
+        """Point ``cache`` at the graph's static cache; False where the
+        step runs eagerly (a cache of DTensors).
+
+        ``generate`` with B == slots adopts the prefill cache. When every
+        tensor of it has the static one's shape and dtype it is copied
+        into the static tensors and dropped; otherwise (an attention ring
+        S deep under ``max_len``) the graph is dropped and the adopted
+        cache becomes the static one of the next capture."""
+        if self.cache is self._static:
+            return self._static_ok
+        if self._static_ok and same_layout(self._static, self.cache):
+            copy_into(self._static, self.cache)
+            self.cache = self._static
+            return True
+        self._graph = self._graph_logits = None
+        self._static = self.cache
+        self._static_ok = not any_dtensor(self.cache)
+        return self._static_ok
+
+    def _capture(self, sid: int) -> None:
+        """This step eagerly on the engine's own stream, which also makes
+        the kernels' per-stream scratch there, then the same work captured
+        on that stream as one CUDA graph (the capture runs nothing)."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        stream = self._stream
+        main = torch.cuda.current_stream(self.device)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            self._launch()
+        if sid >= 0:
+            TRACER.stage("engine.step.capture")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            logits = self._launch()
+        main.wait_stream(stream)
+        self._graph, self._graph_logits = graph, logits
+        self.graph_captures += 1
 
     def generate(self, prompts, steps: int) -> GenerationResult:
         """Prefill ``prompts`` (B <= slots, S) then greedy-decode
@@ -151,16 +229,14 @@ class ServingEngine:
                     for key in full_layer:
                         _merge_batch(full_layer[key], new_layer[key])
             first = torch.argmax(logits, dim=-1).to(torch.int32)
-            self.current = torch.zeros(self.slots, dtype=torch.int32,
-                                       device=self.device)
+            self.current.zero_()
             self.current[:b] = first
-            self.pos = torch.zeros(self.slots, dtype=torch.int32,
-                                   device=self.device)
+            self.pos.zero_()
             self.pos[:b] = s
             self.active[:b] = True
             if sid >= 0:
                 TRACER.stage("engine.readback")
-            out = [self.current[:b].cpu().numpy()]
+            out = [self.current[:b].to("cpu", copy=True).numpy()]
             if sid >= 0:
                 # the decode steps nest in generate as engine.step spans
                 TRACER.end_stage()
@@ -181,3 +257,22 @@ def _merge_batch(full: torch.Tensor, new: torch.Tensor) -> None:
     length < max_len), so every differing axis is sliced to ``new``'s
     extent — not just the first mismatch."""
     full[tuple(slice(0, ns) for ns in new.shape)] = new
+
+
+def any_dtensor(tree) -> bool:
+    """Whether a tensor of ``tree`` is a DTensor."""
+    return any(_is_dtensor(t) for t in tree_leaves(tree))
+
+
+def same_layout(a, b) -> bool:
+    """Whether two caches have one structure, with tensors of one shape,
+    dtype and device in each place."""
+    return tree_structure(a) == tree_structure(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and x.device == y.device
+        for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def copy_into(dst, src) -> None:
+    """Copy every tensor of cache ``src`` into ``dst``'s, in place."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        d.copy_(s)

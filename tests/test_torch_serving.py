@@ -23,26 +23,44 @@ RG-LRU states ride both paths beside the KV rings.
 The reduced Mamba2-370m is served the same way (``TestMamba2Engine``):
 both paths carry its conv buffers and SSM states instead of KV rings, at
 a prompt length no chunk of 64 divides.
+
+On a CUDA device the engine replays its decode step as a CUDA graph
+bound to tensors it owns. On the CPU (eager steps) the static-buffer
+contract is held here (``TestStaticBuffers``): ``current`` and ``pos``
+are written in place, and an adopted cache is copied into the static
+one, or rebinds it and drops the graph where a shape differs. The tests
+marked ``cuda`` hold replayed steps to eager ones on the card, bit for
+bit; they need only the port, so the JAX package is imported where it
+is installed (the card's machine has none: run ``-m cuda`` there).
 """
+import dataclasses
 import importlib
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.configs.base import get_config as j_get_config
-from repro.configs.base import reduced as j_reduced
-from repro.models import model as jm
-from repro.serving.engine import ServingEngine as JaxEngine
+from torch.utils._pytree import tree_leaves, tree_map
+
 from repro_torch.configs import get_config, reduced
-from repro_torch.convert import model_params_from_numpy
 from repro_torch.models import model as tm
 from repro_torch.serving import ServingEngine
 from repro_torch.serving.engine import (GenerationResult, _merge_batch,
-                                        make_decode_fn, make_prefill_fn)
-from test_torch_models import random_gates
+                                        make_decode_fn, make_prefill_fn,
+                                        same_layout)
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.base import get_config as j_get_config
+    from repro.configs.base import reduced as j_reduced
+    from repro.models import model as jm
+    from repro.serving.engine import ServingEngine as JaxEngine
+    from repro_torch.convert import model_params_from_numpy
+    from test_torch_models import random_gates
+except ImportError:     # the card's machine: only the cuda tests run there
+    jax = None
 
 CPU = dict(device="cpu", kernels="ref")
 
@@ -342,3 +360,147 @@ def test_recurrentgemma_states_ride_both_paths(decoder_setup):
             else:
                 np.testing.assert_allclose(layer[key].numpy(), want[key],
                                            atol=2e-5, rtol=2e-5)
+
+
+# ------------------------------------------------------ the static buffers
+class TestStaticBuffers:
+    @pytest.mark.parametrize("b", [2, 4], ids=["b_lt_slots", "b_eq_slots"])
+    def test_current_and_pos_stay_in_place(self, setup, b):
+        """``generate`` and ``step`` write the engine's own ``current``
+        and ``pos``, which hold the reference engine's values."""
+        jc, jp, tc, tp = setup
+        p = prompts(40 + b, b, 8, tc.vocab_size)
+        je = JaxEngine(jc, jp, slots=4, max_len=32)
+        te = ServingEngine(tc, tp, slots=4, max_len=32, **CPU)
+        ptrs = (te.current.data_ptr(), te.pos.data_ptr())
+        je.generate(jnp.asarray(p), steps=1)
+        te.generate(p, steps=1)
+        for k in range(3):
+            assert (te.current.data_ptr(), te.pos.data_ptr()) == ptrs
+            np.testing.assert_array_equal(te.current.numpy(),
+                                          np.asarray(je.current))
+            np.testing.assert_array_equal(te.pos.numpy(), np.asarray(je.pos))
+            if k < 2:
+                np.testing.assert_array_equal(te.step(), je.step())
+
+    @pytest.mark.parametrize("arch,s,max_len,copied", [
+        ("mamba2_370m", 70, 16, True),      # states have no depth
+        ("stablelm_3b", 16, 16, True),      # the ring is max_len deep
+        ("stablelm_3b", 8, 16, False),      # a ring S deep under max_len
+    ], ids=["mamba2", "attn_s_eq_max_len", "attn_s_lt_max_len"])
+    def test_an_adopted_cache_binds_to_the_static_one(
+            self, setup, mamba_setup, arch, s, max_len, copied):
+        """A B == slots wave adopts the prefill cache; the next step's
+        binding copies it into the graph's static tensors when every
+        shape matches, else rebinds to it and drops the graph."""
+        _, _, cfg, params = mamba_setup if arch == "mamba2_370m" else setup
+        eng = ServingEngine(cfg, params, slots=3, max_len=max_len, **CPU)
+        assert eng._bind_cache()
+        static = eng.cache
+        captured = eng._graph = object()    # stands in for a graph
+        eng.generate(prompts(9, 3, s, cfg.vocab_size), steps=1)
+        adopted = eng.cache
+        assert adopted is not static
+        want = tree_map(torch.clone, adopted)
+        assert eng._bind_cache()
+        assert same_layout(static, adopted) == copied
+        if copied:
+            assert eng.cache is static and eng._graph is captured
+            for got, ref in zip(tree_leaves(static), tree_leaves(want)):
+                assert torch.equal(got, ref)
+        else:
+            assert eng.cache is adopted and eng._static is adopted
+            assert eng._graph is None
+
+    def test_same_layout(self):
+        a = {"layers": [{"k": torch.zeros(2, 3), "pos": torch.zeros(
+            2, dtype=torch.int32)}]}
+        assert same_layout(a, tree_map(torch.clone, a))
+        b = tree_map(torch.clone, a)
+        b["layers"][0]["pos"] = b["layers"][0]["pos"].long()
+        assert not same_layout(a, b)
+        b = tree_map(torch.clone, a)
+        b["layers"][0]["k"] = torch.zeros(2, 4)
+        assert not same_layout(a, b)
+        assert not same_layout(a, {"layers": a["layers"] * 2})
+        assert not same_layout(a, {"layers": [{"k": torch.zeros(2, 3)}]})
+
+
+# ------------------------------------------------- the graph on the card
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs and the hand-written "
+                    "kernels run on the card only")
+    return torch.device("cuda", 0)
+
+
+GRAPH_ARCHS = ["mamba2_370m", "mamba2_370m@bf16", "stablelm_3b",
+               "recurrentgemma_2b", "dbrx_132b", "whisper_small"]
+
+
+def start_wave(eng, cfg, params, b: int, depth: int, seed: int) -> None:
+    """Prefill ``b`` rows into ``eng`` and set their first tokens. The
+    encoder-decoder, which ``generate`` refuses, takes its cache, tokens
+    and positions from ``model.prefill`` whole (B == slots)."""
+    dev = eng.device
+    gen = torch.Generator(dev).manual_seed(seed)
+    if not cfg.is_encoder_decoder:
+        eng.generate(torch.randint(0, cfg.vocab_size, (b, depth),
+                                   generator=gen, device=dev), 1)
+        return
+    frames = torch.randn((b, depth, cfg.d_model), generator=gen,
+                         device=dev).to(getattr(torch, cfg.dtype))
+    tokens = torch.randint(0, cfg.vocab_size, (b, 4), generator=gen,
+                           device=dev)
+    logits, eng.cache = tm.prefill(params, cfg, {"frames": frames,
+                                                 "tokens": tokens})
+    eng.current.copy_(torch.argmax(logits, dim=-1))
+    eng.pos.fill_(tokens.shape[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_replayed_steps_equal_the_eager_step(cuda_device, arch):
+    """Over a B < slots wave, a B == slots wave (the prefill cache
+    adopted, then copied into the static one), after release a
+    re-admitted B < slots wave, and last a B == slots wave S deep under
+    ``max_len`` (an attention ring of another shape: the graph is dropped
+    and captured again), every replayed step's tokens and float32 logits
+    equal an eager step's from the same state, bit for bit. One capture
+    per engine and one more for a ring of another depth; every other
+    step replays."""
+    name, _, dtype = arch.partition("@")
+    cfg = reduced(get_config(name))
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype={"bf16": "bfloat16"}[dtype])
+    params = tm.init_params(cfg, seed=0, device=cuda_device)
+    slots, depth, steps = 4, 32, 16
+    eng = ServingEngine(cfg, params, slots=slots, max_len=depth,
+                        device=cuda_device)
+    decode = make_decode_fn(cfg, "cuda")
+    if cfg.is_encoder_decoder:
+        waves = [(slots, depth), (slots, depth)]
+    else:
+        waves = [(2, depth), (slots, depth), (3, depth),
+                 (slots, depth // 2)]
+    # every layer but Mamba-2's keeps a ring as deep as its prompt
+    captures = 1 + (not cfg.is_encoder_decoder and name != "mamba2_370m")
+    for k, (b, s) in enumerate(waves):
+        start_wave(eng, cfg, params, b, s, seed=k)
+        cache, cur, pos = tree_map(torch.clone, eng.cache), \
+            eng.current.clone(), eng.pos.clone()
+        for _ in range(steps):
+            replays = eng.graph_replays
+            tok = eng.step()
+            logits, cache = decode(params, cur, cache, pos)
+            cur = torch.argmax(logits, dim=-1).to(torch.int32)
+            pos = pos + 1
+            np.testing.assert_array_equal(tok, cur.cpu().numpy())
+            assert torch.equal(eng.pos, pos)
+            if eng.graph_replays > replays:
+                assert torch.equal(eng._graph_logits, logits)
+        for r in np.flatnonzero(eng.active):
+            eng.release(int(r))
+    assert eng.graph_captures == captures
+    assert eng.graph_replays == len(waves) * steps - captures

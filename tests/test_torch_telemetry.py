@@ -125,6 +125,16 @@ class TestTracer:
         assert not any(math.isnan(e) for e in rec.end)
         assert len(tr.drain()) == 0
 
+    def test_replayed_counts_on_the_innermost_scope(self):
+        tr = Tracer()
+        tr.enable()
+        a = tr.open("engine.step")
+        tr.stage("engine.step.launch")
+        tr.replayed()                       # on the scope, not its stage
+        tr.close(a)
+        tr.replayed()                       # no scope open: dropped
+        assert tr.drain().graph == [1, 0]
+
     def test_close_ends_scopes_left_open_inside(self):
         tr = Tracer()
         tr.enable()
@@ -319,8 +329,10 @@ class TestEngineSpans:
             if p >= 0:
                 assert rec.start[p] <= rec.start[i] <= rec.end[i] \
                     <= rec.end[p]
-        # no copy is counted on the engine's spans
+        # no copy is counted on the engine's spans; a CPU engine steps
+        # eagerly, so no step replays a graph
         assert not any(rec.h2d_copies) and not any(rec.d2h_copies)
+        assert not any(rec.graph)
 
     def test_tokens_equal_with_the_tracer_on_and_off(self, engine_setup):
         prompts = engine_setup[2]

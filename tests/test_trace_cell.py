@@ -4,7 +4,8 @@ span records and device operations (no benchmark, no device).
 The host-time readers keep to spans that ended before the device trace
 began; the idle share inside program spans and the clock check read
 both placements of the device's operations; the span list names a gap
-by the innermost span holding it; the counters' summary. The tool's
+by the innermost span holding it; the counters' summary, decode steps
+and graph replays among them. The tool's
 runs on the benchmark's tiny CPU cells are in
 ``tools/tests/test_trace_cell_runs.py``.
 """
@@ -200,3 +201,21 @@ def test_counters():
                      "prefill_ms_by_rows": {2: pytest.approx(500.0),
                                             4: pytest.approx(700.0)}}
     assert ts.counters(window(SpanRecords())) == {}
+
+
+def test_step_counters_read_the_graph_counter():
+    """Replays are the ``engine.step`` spans whose ``graph`` counter is
+    set, captures the steps with an ``engine.step.capture`` stage."""
+    rec = served_records()                  # two eager steps
+    cap = span(rec, "engine.step", -1, 5.0, 5.3)
+    span(rec, "engine.step.launch", cap, 5.0, 5.1)
+    span(rec, "engine.step.capture", cap, 5.1, 5.2)
+    span(rec, "engine.step.readback", cap, 5.2, 5.3)
+    for t0 in (15.0, 16.0, 17.0):
+        s = span(rec, "engine.step", -1, t0, t0 + 0.02, graph=1)
+        span(rec, "engine.step.launch", s, t0, t0 + 0.001)
+    want = {"steps": 6, "replays": 3, "replay_share": 0.5, "captures": 1}
+    assert ts.step_counters(rec) == want
+    assert ts.counters(window(rec))["step"] == want
+    assert ts.step_counters(fleet_records()) is None
+    assert "step" not in ts.counters(window(fleet_records()))

@@ -63,7 +63,12 @@ def test_a_traced_run_reports_every_metric_of_its_cell(which, request):
     flush = first["program_counters"]["flush"]
     assert flush["rows"] >= 1.0 and flush["d2h_bytes"] > 0
     if which == "served":
-        assert first["program_counters"]["wave"]["steps"] == 1.0
+        counters = first["program_counters"]
+        assert counters["wave"]["steps"] == 1.0
+        # a CPU engine steps eagerly: no capture, no replay
+        setup, steps = counters["setup_step"], counters["step"]
+        assert setup["steps"] > 0 and steps["steps"] > 0
+        assert setup["captures"] == setup["replays"] == steps["replays"] == 0
     assert not TRACER.on and len(TRACER.drain()) == 0
 
 

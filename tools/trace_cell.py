@@ -13,12 +13,13 @@ wanted. Until then it reaches into the harness's ``Run`` and
 
 The first form is ``laimr_bench/run.py --trace 1`` with the port's tracer
 (``repro_torch.core.telemetry.TRACER``) on from the window's opening to
-the device trace's end. It prints the harness's earlier lines and its
-result line, then three lines of its own (reductions in
-``tools/trace_spans.py``):
+the device trace's end, and through the set-up before it. It prints the
+harness's earlier lines and its result line, then three lines of its
+own (reductions in ``tools/trace_spans.py``):
 
 * ``program_spans``: span counts by name, ``program_counters``
-  (``trace_spans.counters``) and ``clock_check``
+  (``trace_spans.counters``, with ``setup_step``: the set-up's decode
+  steps and the engine's graph captures there) and ``clock_check``
   (``trace_spans.clock_check``: routing kernels in their flush and
   device busy time in program spans, each with the device's own stamps
   and with each operation placed by its launch call), and how far the
@@ -110,13 +111,15 @@ class ProgramTrace(common.DeviceTrace):
 
 class ProgramRun(bench_run.Run):
     """A traced run whose window also turns the program's tracer on; the
-    drained records land in ``program``."""
+    drained records land in ``program``, the set-up's in
+    ``setup_program``."""
 
     program: SpanRecords = None
+    setup_program: SpanRecords = None
 
     def open_window(self, t0: float) -> None:
         super().open_window(t0)
-        TRACER.drain()
+        self.setup_program = TRACER.drain()
         TRACER.enable()
 
 
@@ -137,8 +140,10 @@ def program_lines(run) -> list[dict]:
         tr.wall_stop_ns - tr.wall_ns) - 1e6 * (tr.pc_stop - tr.t_start)
     spans = common.Spans(items=list(run.spans.items)
                          + trace_spans.program_items(rec))
+    counters = trace_spans.counters(w)
+    counters["setup_step"] = trace_spans.step_counters(run.setup_program)
     return [{"program_spans": dict(collections.Counter(rec.name)),
-             "program_counters": trace_spans.counters(w),
+             "program_counters": counters,
              "clock_check": check},
             {"program_breakdown": run.trace_obj.breakdown(spans)},
             {"program_metrics": trace_spans.metrics(w)}]
@@ -149,6 +154,8 @@ def traced(run, t_start: float) -> int:
     tracer on through the window; prints this tool's lines last."""
     run.trace_obj = ProgramTrace(run.device)
     metrics = bench_run.manifest_metrics(run.name, True)
+    TRACER.drain()
+    TRACER.enable()
     try:
         bench_run.execute(run)
     finally:

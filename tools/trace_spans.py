@@ -237,11 +237,25 @@ def metrics(w: Window) -> dict:
 
 
 # ------------------------------------------------------------- counters
+def step_counters(rec):
+    """Decode steps, those that replayed the engine's CUDA graph (the
+    ``engine.step`` span's ``graph`` counter) and their share, and the
+    steps that captured it (an ``engine.step.capture`` stage); None
+    without steps."""
+    steps = ids_of(rec, "engine.step")
+    if not steps:
+        return None
+    replays = sum(rec.graph[i] for i in steps)
+    return {"steps": len(steps), "replays": replays,
+            "replay_share": replays / len(steps),
+            "captures": len(ids_of(rec, "engine.step.capture"))}
+
+
 def counters(w: Window) -> dict:
     """The span counters, summarised. Per flush (the whole window): rows
     decided and as padded for the routing kernel, and bytes copied each
     way. Per wave (untraced): rows, steps, and ``engine.prefill`` ms by
-    rows."""
+    rows. Decode steps (the whole window): ``step_counters``."""
     rec, out = w.rec, {}
     fl = sorted(flush_ids(w, untraced=False), key=lambda i: rec.start[i])
     if fl:
@@ -262,6 +276,9 @@ def counters(w: Window) -> dict:
             "prefill_ms_by_rows": {
                 r: child_ms(rec, ids, ("engine.prefill",))
                 for r, ids in sorted(by_rows.items())}}
+    steps = step_counters(rec)
+    if steps:
+        out["step"] = steps
     return out
 
 
