@@ -70,7 +70,8 @@ class Served:
         self.slots, self.max_len = int(eng["slots"]), int(eng["max_len"])
         self.prompt_len = int(cell["lengths"]["prompt"])
         self.out_len = int(cell["lengths"]["output"])
-        self.params = replica.make_params(self.cfg, run.seed, run.device)
+        self.params = replica.make_params(conf["layer_kind"], self.cfg,
+                                          run.seed, run.device)
         self.engine = ServingEngine(self.cfg, self.params, self.slots,
                                     self.max_len, device=run.device,
                                     kernels=run.kernels)
@@ -351,7 +352,6 @@ def logit_gaps(run, st: Served, control: bool = False):
     prompt = st.tokens_in[torch.as_tensor(idx, device=run.device)]
     inp = torch.cat([prompt, served[:, :-1]], dim=1)
     first = st.prompt_len - 1
-    qparams = model_ref.quantize_fp8(st.params) if control else None
     gaps, ctl = [], []
     for s in range(0, len(idx), block):
         ref = model_ref.logits(run.conf, st.params, inp[s:s + block], first)
@@ -359,8 +359,8 @@ def logit_gaps(run, st: Served, control: bool = False):
         tok = served[s:s + block]
         gaps.append((best - ref.gather(-1, tok[..., None])[..., 0]).cpu())
         if control:
-            low = model_ref.logits(run.conf, qparams, inp[s:s + block],
-                                   first)
+            low = model_ref.logits(run.conf, st.params, inp[s:s + block],
+                                   first, control=True)
             pick = low.argmax(dim=-1)
             ctl.append((best - ref.gather(-1, pick[..., None])[..., 0]).cpu())
             del low

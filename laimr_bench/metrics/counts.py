@@ -7,9 +7,13 @@ every projection and MLP product, attention over the causal pairs, the
 Mamba-2 recurrence as written (state update and readout, 5 FLOP per
 state element and token), and the head for the positions that give a
 token. Elementwise passes (norms, activations, rotary, conv) are left
-out but for the depthwise conv's multiply-adds.
+out but for the depthwise conv's multiply-adds. Each kind of
+layer counts its own (``families/<kind>.py``); the sum over a stack,
+the head, the shape helpers and the kernels' counts are here.
 """
 from __future__ import annotations
+
+from laimr_bench import families
 
 SSD_CHUNK = 64
 
@@ -27,51 +31,27 @@ def causal_pairs(s: int) -> int:
     return s * (s + 1) // 2
 
 
-def _attn_token(dims: dict) -> int:
-    """One token through one ``attn`` layer's projections and MLP."""
-    d, h, hkv, hd, f = (dims[k] for k in ("d_model", "n_heads",
-                                          "n_kv_heads", "head_dim", "d_ff"))
-    return 2 * (d * h * hd + 2 * d * hkv * hd + h * hd * d + 3 * d * f)
-
-
-def _mamba2_token(dims: dict) -> int:
-    """One token through one ``mamba2`` layer: in_proj, the conv's
-    taps, out_proj, and the recurrence's update and readout."""
-    k = ssm_dims(dims)
-    return 2 * (dims["d_model"] * k["proj"] + dims["conv_width"] * k["conv"]
-                + k["d_in"] * dims["d_model"]) \
-        + 5 * k["heads"] * dims["ssm_head_dim"] * dims["ssm_state"]
-
-
-def _head(dims: dict) -> int:
+def head_flops(dims: dict) -> int:
+    """The head at one position."""
     return 2 * dims["d_model"] * dims["vocab_size"]
 
 
-def prefill_flops(kind: str, dims: dict, b: int, s: int) -> int:
-    """A prefill of b prompts of s tokens through a stack of ``kind``
-    layers (``dims`` under the port's field names), the head at the last
-    position."""
-    if kind == "attn":
-        attn = 4 * b * dims["n_heads"] * dims["head_dim"] * causal_pairs(s)
-        per_layer = b * s * _attn_token(dims) + attn
-    elif kind == "mamba2":
-        per_layer = b * s * _mamba2_token(dims)
-    else:
-        raise ValueError(f"no FLOP count for layer kind {kind}")
-    return dims["n_layers"] * per_layer + b * _head(dims)
+def prefill_flops(family: str, dims: dict, b: int, s: int) -> int:
+    """A prefill of b prompts of s tokens through a stack of ``family``
+    (``dims`` under the port's field names): each layer by its kind
+    (``families/<kind>.py``), the head at the last position."""
+    return sum(families.get(k).layer_prefill_flops(dims, b, s)
+               for k in families.kinds(family, dims)) \
+        + b * head_flops(dims)
 
 
-def decode_flops(kind: str, dims: dict, rows: int, pos: int) -> int:
+def decode_flops(family: str, dims: dict, rows: int, pos: int) -> int:
     """One decode step of ``rows`` live sequences, each token at position
-    ``pos`` (attending to pos + 1 keys), the head at every row."""
-    if kind == "attn":
-        per_layer = _attn_token(dims) \
-            + 4 * dims["n_heads"] * dims["head_dim"] * (pos + 1)
-    elif kind == "mamba2":
-        per_layer = _mamba2_token(dims)
-    else:
-        raise ValueError(f"no FLOP count for layer kind {kind}")
-    return rows * (dims["n_layers"] * per_layer + _head(dims))
+    ``pos`` (attending to pos + 1 keys), through a stack of ``family``,
+    the head at every row."""
+    return rows * (sum(families.get(k).layer_decode_flops(dims, pos)
+                       for k in families.kinds(family, dims))
+                   + head_flops(dims))
 
 
 def flash_bytes_ops(b, s, h, d, elem=2, hkv=None) -> tuple[int, int]:

@@ -1,9 +1,10 @@
-"""Plain float32 reference of a stack of ``mamba2`` layers, such as
-Mamba2-370m (arXiv:2405.21060): in_proj, causal depthwise conv with
-SiLU, the SSD recurrence in its chunked form, the gated RMSNorm as the
-port orders it (rmsnorm(y) * silu(z), ``norm_before_gate``), out_proj;
-the head tied to the embedding or its own. Nothing of the program is
-imported.
+"""Plain float32 reference of a ``mamba2`` layer, as Mamba2-370m stacks
+them (arXiv:2405.21060): the RMS pre-norm, in_proj, causal depthwise
+conv with SiLU, the SSD recurrence in its chunked form, the gated
+RMSNorm as the port orders it (rmsnorm(y) * silu(z),
+``norm_before_gate``), out_proj; ``model_ref.logits`` runs the stack,
+its sequence padded to a multiple of ``CHUNK``. Nothing of the program
+is imported.
 
 ``dims`` is the configuration under the port's field names
 (``replica.dims``).
@@ -14,6 +15,9 @@ import torch
 import torch.nn.functional as F
 
 from laimr_bench.reference.model_ref import _f, _rmsnorm
+
+#: the SSD's chunk: the sequence a layer takes is a multiple of it
+CHUNK = 64
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -27,7 +31,7 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return xs.masked_fill(~keep, float("-inf"))
 
 
-def ssd(x, dt, a, b, c, chunk: int = 64):
+def ssd(x, dt, a, b, c, chunk: int = CHUNK):
     """The SSD recurrence h_t = exp(dt_t a) h_{t-1} + dt_t x_t b_t^T,
     y_t = h_t c_t, from a zero state, in chunks (the Mamba-2 paper's
     minimal form). x (B, L, H, P), dt (B, L, H), a (H,), b and c
@@ -51,45 +55,47 @@ def ssd(x, dt, a, b, c, chunk: int = 64):
     return (y_diag + y_off).reshape(bsz, length, h, p)
 
 
-def logits(params: dict, dims: dict, tokens: torch.Tensor,
-           first: int, chunk: int = 64) -> torch.Tensor:
-    """(B, L) tokens -> float32 logits (B, L - first, V) at positions
-    first..L-1. The sequence is padded at its end to a multiple of
-    ``chunk``; nothing after a position reaches it."""
+def mixer(m: dict, dims: dict, u: torch.Tensor,
+          chunk: int = CHUNK) -> torch.Tensor:
+    """The Mamba-2 mixer's output for the normed stream u (B, L, D), L a
+    multiple of ``chunk``: in_proj, the causal depthwise conv with SiLU,
+    the SSD recurrence with its skip, the gated norm
+    (rmsnorm(y) * silu(z), ``norm_before_gate``), out_proj."""
     eps = dims["norm_eps"]
     d_in = dims["ssm_expand"] * dims["d_model"]
     hp, n, g = dims["ssm_head_dim"], dims["ssm_state"], dims["ssm_groups"]
     heads = d_in // hp
     w = dims["conv_width"]
+    b_, length = u.shape[:2]
+    proj = u @ _f(m["in_proj"])
+    z, xs, bb, cc, dt = torch.split(
+        proj, [d_in, d_in, g * n, g * n, heads], dim=-1)
+    conv_in = torch.cat([xs, bb, cc], dim=-1)
+    ext = F.pad(conv_in, (0, 0, w - 1, 0))
+    cw = _f(m["conv_w"])
+    conv = sum(ext[:, i:i + length] * cw[i] for i in range(w))
+    conv = F.silu(conv + _f(m["conv_b"]))
+    xs, bb, cc = torch.split(conv, [d_in, g * n, g * n], dim=-1)
+    xh = xs.reshape(b_, length, heads, hp)
+    rep = heads // g
+    bh = bb.reshape(b_, length, g, n).repeat_interleave(rep, dim=2)
+    ch = cc.reshape(b_, length, g, n).repeat_interleave(rep, dim=2)
+    dtp = F.softplus(dt + _f(m["dt_bias"]))
+    a = -torch.exp(_f(m["a_log"]))
+    y = ssd(xh, dtp, a, bh, ch, chunk) + xh * _f(m["d_skip"])[:, None]
+    y = y.reshape(b_, length, d_in)
+    y = _rmsnorm(y, m["norm"]["scale"], eps) * F.silu(z)
+    return y @ _f(m["out_proj"])
+
+
+def layer(p: dict, dims: dict, x: torch.Tensor,
+          chunk: int = CHUNK) -> torch.Tensor:
+    """One ``mamba2`` layer on the float32 residual stream x (B, L, D),
+    L a multiple of ``chunk``: the RMS pre-norm and the mixer."""
+    u = _rmsnorm(x, p["norm1"]["scale"], dims["norm_eps"])
+    return x + mixer(p["mixer"], dims, u, chunk)
+
+
+def check(dims: dict) -> None:
     if not dims.get("norm_before_gate", True):
         raise ValueError("the reference gates after the norm only")
-    b_, s = tokens.shape
-    pad = (-s) % chunk
-    x = _f(params["embed"][F.pad(tokens, (0, pad))])
-    length = s + pad
-    for p in params["layers"]:
-        m = p["mixer"]
-        u = _rmsnorm(x, p["norm1"]["scale"], eps)
-        proj = u @ _f(m["in_proj"])
-        z, xs, bb, cc, dt = torch.split(
-            proj, [d_in, d_in, g * n, g * n, heads], dim=-1)
-        conv_in = torch.cat([xs, bb, cc], dim=-1)
-        ext = F.pad(conv_in, (0, 0, w - 1, 0))
-        cw = _f(m["conv_w"])
-        conv = sum(ext[:, i:i + length] * cw[i] for i in range(w))
-        conv = F.silu(conv + _f(m["conv_b"]))
-        xs, bb, cc = torch.split(conv, [d_in, g * n, g * n], dim=-1)
-        xh = xs.reshape(b_, length, heads, hp)
-        rep = heads // g
-        bh = bb.reshape(b_, length, g, n).repeat_interleave(rep, dim=2)
-        ch = cc.reshape(b_, length, g, n).repeat_interleave(rep, dim=2)
-        dtp = F.softplus(dt + _f(m["dt_bias"]))
-        a = -torch.exp(_f(m["a_log"]))
-        y = ssd(xh, dtp, a, bh, ch, chunk) + xh * _f(m["d_skip"])[:, None]
-        y = y.reshape(b_, length, d_in)
-        y = _rmsnorm(y, m["norm"]["scale"], eps) * F.silu(z)
-        x = x + y @ _f(m["out_proj"])
-    x = _rmsnorm(x[:, first:s], params["final_norm"]["scale"], eps)
-    head = _f(params["embed"]).T if dims["tie_embeddings"] \
-        else _f(params["lm_head"])
-    return x @ head

@@ -16,6 +16,8 @@ from pathlib import Path
 
 import torch
 
+from laimr_bench import families
+
 BENCH = Path(__file__).resolve().parent
 
 #: keys of a configuration's ``model`` that the port has no field for
@@ -51,9 +53,11 @@ def arch_config(conf: dict):
     number of ``conf["model"]`` put in through ``conf["port_fields"]``,
     and ``conf["dtype"]``. Raises where a key has no field and the port
     computes it otherwise than the file states (``PORT_FIXED``, the
-    norm's epsilon), or where the port's layers are not of
-    ``conf["layer_kind"]``."""
+    norm's epsilon), or where the family ``conf["layer_kind"]``
+    (``families/<layer_kind>.py``) does not lay out the port's layers,
+    or a kind of layer refuses its shape (its ``check``)."""
     from repro_torch.configs import get_config
+    from repro_torch.models.transformer import layer_kinds
     fields = conf["port_fields"]
     model = conf["model"]
     for k in set(model) - set(fields):
@@ -66,75 +70,25 @@ def arch_config(conf: dict):
         if model[k] != port:
             raise ValueError(f"{conf['name']}: {k} is {model[k]!r}; the "
                              f"port runs {port!r} only")
-    changes = {fields[k]: v for k, v in model.items() if k in fields}
+    # JSON has lists where the port's fields hold tuples
+    changes = {fields[k]: tuple(v) if isinstance(v, list) else v
+               for k, v in model.items() if k in fields}
     cfg = dataclasses.replace(get_config(conf["port_config"]),
                               dtype=conf["dtype"], **changes)
-    if layer_kind(cfg) != conf["layer_kind"]:
-        raise ValueError(f"{conf['name']}: the port's layers are "
-                         f"{layer_kind(cfg)}, not {conf['layer_kind']}")
-    if cfg.layer_pattern == ("attn",) and cfg.head_dim * cfg.n_heads \
-            != cfg.d_model:
-        raise ValueError(f"{conf['name']}: heads do not tile d_model")
+    family = conf["layer_kind"]
+    try:
+        want = families.kinds(family, vars(cfg))
+        if layer_kinds(cfg) != want:
+            raise ValueError(f"the port's layers are {layer_kinds(cfg)}, "
+                             f"not {family}: {want}")
+        for kind in dict.fromkeys(want):
+            getattr(families.get(kind), "check", lambda cfg: None)(cfg)
+    except ValueError as e:
+        raise ValueError(f"{conf['name']}: {e}") from None
     return cfg
 
 
-def layer_kind(cfg) -> str:
-    (kind,) = set(cfg.layer_pattern)
-    return kind
-
-
 # ------------------------------------------------------------------ weights
-def _shapes(cfg) -> tuple[dict, list]:
-    """(random leaves: path -> (shape, std), fixed leaves: [(path, value
-    maker)]) of the program's parameter tree for a uniform stack of
-    ``attn`` or ``mamba2`` layers."""
-    d, v = cfg.d_model, cfg.vocab_size
-    rand: dict = {("embed",): ((v, d), d ** -0.5)}
-    fixed: list = []
-    kind = layer_kind(cfg)
-    for i in range(cfg.n_layers):
-        p = ("layers", i)
-        if kind == "attn":
-            h, hkv, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
-            rand[p + ("attn", "wq")] = ((d, h, hd), d ** -0.5)
-            rand[p + ("attn", "wk")] = ((d, hkv, hd), d ** -0.5)
-            rand[p + ("attn", "wv")] = ((d, hkv, hd), d ** -0.5)
-            rand[p + ("attn", "wo")] = ((h, hd, d), (h * hd) ** -0.5)
-            rand[p + ("mlp", "wi")] = ((d, f), d ** -0.5)
-            rand[p + ("mlp", "wg")] = ((d, f), d ** -0.5)
-            rand[p + ("mlp", "wo")] = ((f, d), f ** -0.5)
-            for norm in ("norm1", "norm2"):
-                fixed += _norm(cfg, p + (norm,), d)
-        elif kind == "mamba2":
-            d_in = cfg.ssm_expand * d
-            heads = d_in // cfg.ssm_head_dim
-            gn = cfg.ssm_groups * cfg.ssm_state
-            conv_ch = d_in + 2 * gn
-            rand[p + ("mixer", "in_proj")] = ((d, 2 * d_in + 2 * gn + heads),
-                                              d ** -0.5)
-            rand[p + ("mixer", "conv_w")] = ((cfg.conv_width, conv_ch), 0.1)
-            rand[p + ("mixer", "out_proj")] = ((d_in, d), d_in ** -0.5)
-            fixed += _norm(cfg, p + ("norm1",), d)
-            fixed += [(p + ("mixer", "conv_b"), ("zeros", (conv_ch,), "model")),
-                      (p + ("mixer", "dt_bias"), ("dt_bias", (heads,), None)),
-                      (p + ("mixer", "a_log"), ("a_log", (heads,), None)),
-                      (p + ("mixer", "d_skip"), ("ones", (heads,), None)),
-                      (p + ("mixer", "norm", "scale"), ("zeros", (d_in,), None))]
-        else:
-            raise ValueError(f"no weights for layer kind {kind}")
-    fixed += _norm(cfg, ("final_norm",), d)
-    if not cfg.tie_embeddings:
-        rand[("lm_head",)] = ((d, v), d ** -0.5)
-    return rand, fixed
-
-
-def _norm(cfg, path: tuple, d: int) -> list:
-    if cfg.norm == "rmsnorm":
-        return [(path + ("scale",), ("zeros", (d,), None))]
-    return [(path + ("scale",), ("ones", (d,), None)),
-            (path + ("bias",), ("zeros", (d,), None))]
-
-
 def _put(tree: dict, path: tuple, value) -> None:
     node = tree
     for key in path[:-1]:
@@ -147,17 +101,20 @@ def _put(tree: dict, path: tuple, value) -> None:
     node[path[-1]] = value
 
 
-def make_params(cfg, seed: int, device) -> dict:
-    """The program's parameter tree, drawn from ``seed`` by a
-    ``torch.Generator`` on ``device``: every random matrix is a view of
-    one flat buffer filled by a single ``randn`` in the model dtype and
-    scaled in place; norms, biases and the SSM's per-head constants
-    (the published Mamba-2 init: dt log-uniform in [1e-3, 1e-1], A =
-    -U(1, 16)) in float32 as the program keeps them."""
+def make_params(family: str, cfg, seed: int, device) -> dict:
+    """The program's parameter tree of a stack of ``family`` (the
+    configuration's ``layer_kind``; ``families.weights``), drawn from
+    ``seed`` by a ``torch.Generator`` on ``device``: every random matrix
+    is a view of one flat buffer filled by a single ``randn`` in the
+    model dtype and scaled in place; then the fixed leaves in the
+    family's order, norms and biases in float32 as the program keeps
+    them (in the model dtype where the layer says so), or made from the
+    same generator by the layer's own maker (the SSM's per-head
+    constants)."""
     device = torch.device(device)
     dtype = getattr(torch, cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    rand, fixed = _shapes(cfg)
+    rand, fixed = families.weights(family, cfg)
     total = sum(math.prod(s) for s, _ in rand.values())
     flat = torch.randn(total, generator=gen, dtype=dtype, device=device)
     tree: dict = {}
@@ -168,20 +125,14 @@ def make_params(cfg, seed: int, device) -> dict:
         leaf.mul_(std)
         _put(tree, path, leaf)
         at += n
-    for path, (what, shape, kind) in fixed:
-        dt = dtype if kind == "model" else torch.float32
-        if what == "zeros":
+    for path, (what, shape, dtype_kind) in fixed:
+        dt = dtype if dtype_kind == "model" else torch.float32
+        if callable(what):
+            val = what(gen, shape, device)
+        elif what == "zeros":
             val = torch.zeros(shape, dtype=dt, device=device)
         elif what == "ones":
             val = torch.ones(shape, dtype=dt, device=device)
-        elif what == "dt_bias":
-            u = torch.rand(shape, generator=gen, device=device)
-            dt_ = torch.exp(u * (math.log(0.1) - math.log(1e-3))
-                            + math.log(1e-3))
-            val = dt_ + torch.log(-torch.expm1(-dt_))
-        elif what == "a_log":
-            val = torch.log(1.0 + 15.0 * torch.rand(shape, generator=gen,
-                                                    device=device))
         else:
             raise ValueError(what)
         _put(tree, path, val)

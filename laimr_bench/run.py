@@ -191,11 +191,12 @@ def run_and_report(run: Run, t_start: float) -> int:
     run.e2e["setup_s"] = run.t_window_wall - t_start
     device_row = common.device_info(run.device)
     device_row["memory_peak_bytes"] = run.memory_peak
+    line = result_line(run, metrics, device_row)
+    # last of all, after the metric readers have been loaded and run
     found = common.forbidden_loaded()
     if found:
         common.log(f"forbidden modules loaded: {found}")
         return 4
-    line = result_line(run, metrics, device_row)
     for text in run.lines:
         print(text, flush=True)
     common.log(f"card: {common.power_limit()}")

@@ -20,7 +20,8 @@ def counted(fn) -> int:
 def test_attn_prefill_and_decode_flops():
     conf = tiny.conf("stablelm_3b")
     k = replica.dims(conf)
-    params = replica.make_params(replica.arch_config(conf), 1, "cpu")
+    params = replica.make_params("attn", replica.arch_config(conf), 1,
+                                 "cpu")
     b, s = 2, 12
     tokens = torch.zeros((b, s), dtype=torch.int64)
     got = counted(lambda: model_ref.logits(conf, params, tokens, s - 1))

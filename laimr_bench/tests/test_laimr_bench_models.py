@@ -15,7 +15,7 @@ ARCHS = ("stablelm_3b", "mamba2_370m")
 def setup(arch, seed=2**31 + 3):
     conf = tiny.conf(arch)
     cfg = replica.arch_config(conf)
-    params = replica.make_params(cfg, seed, "cpu")
+    params = replica.make_params(conf["layer_kind"], cfg, seed, "cpu")
     return conf, cfg, params
 
 
@@ -72,7 +72,7 @@ def test_chunked_ssd_equals_the_recurrence():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_control_rounds_every_matrix_to_fp8(arch):
-    _, _, params = setup(arch)
+    conf, _, params = setup(arch)
     q = model_ref.quantize_fp8(params)
     w = params["layers"][0]["attn" if arch == "stablelm_3b" else "mixer"]
     wq = q["layers"][0]["attn" if arch == "stablelm_3b" else "mixer"]
@@ -114,7 +114,7 @@ def test_an_attn_config_with_grouped_heads_and_rmsnorm_needs_no_new_code():
                 model=dict(conf["model"], num_key_value_heads=2,
                            norm="rmsnorm", norm_eps=1e-6))
     cfg = replica.arch_config(conf)
-    params = replica.make_params(cfg, 3, "cpu")
+    params = replica.make_params("attn", cfg, 3, "cpu")
     tokens = replica.prompts(5, 2, 20, cfg.vocab_size, "cpu")
     want, _ = model.forward(params, cfg, {"tokens": tokens}, kernels="ref")
     got = model_ref.logits(conf, params, tokens, 0)
