@@ -1773,23 +1773,29 @@ def profile_call(fn, dev, label: str, warm: bool = True,
     return row
 
 
+ATTN_KINDS = ("attn", "local", "hybrid_attn")
+SSM_KINDS = ("mamba2", "hybrid_mamba")
+
+
 def path_kernels(cfg) -> tuple:
     """The kernels ``cfg``'s layers launch: the attention pair for
     attention layers (and the encoder-decoder), ``ssd_scan`` for Mamba-2
-    layers."""
+    layers, ``moe_gemm`` for a hybrid stack's expert layers."""
     from repro_torch.models.transformer import layer_kinds
     if cfg.is_encoder_decoder:
         return attention_kernels()
     kinds = set(layer_kinds(cfg))
-    out = attention_kernels() if kinds & {"attn", "local"} else ()
-    return out + ((ssd_kernel(),) if "mamba2" in kinds else ())
+    out = attention_kernels() if kinds & set(ATTN_KINDS) else ()
+    out += (ssd_kernel(),) if kinds & set(SSM_KINDS) else ()
+    return out + ((expert_kernel(),) if "hybrid_moe" in kinds else ())
 
 
 def expected_launches(cfg, steps: int) -> tuple[dict, dict]:
     """(launches of one ``generate`` of ``steps`` tokens, launches of one
     decode step): one flash_attention per attention layer and prefill,
     one decode_attention per attention layer and decode step, one
-    ssd_scan per Mamba-2 layer and prefill and none in a decode step.
+    ssd_scan per Mamba-2 layer and prefill and none in a decode step,
+    two moe_gemm (up, down) per expert layer and pass.
     The encoder-decoder's prefill runs flash_attention in every encoder
     layer and twice in every decoder layer (self, cross), each decode
     step decode_attention (self) and flash_attention at Sq 1 (cross) in
@@ -1801,12 +1807,14 @@ def expected_launches(cfg, steps: int) -> tuple[dict, dict]:
                  + n * (steps - 1), "decode_attention": n * (steps - 1)},
                 {"flash_attention": n, "decode_attention": n})
     kinds = layer_kinds(cfg)
-    n_attn = sum(k in ("attn", "local") for k in kinds)
-    n_ssm = kinds.count("mamba2")
+    n_attn = sum(k in ATTN_KINDS for k in kinds)
+    n_ssm = sum(k in SSM_KINDS for k in kinds)
+    n_moe = 2 * kinds.count("hybrid_moe")
     gen = {"flash_attention": n_attn,
-           "decode_attention": n_attn * (steps - 1), "ssd_scan": n_ssm}
+           "decode_attention": n_attn * (steps - 1), "ssd_scan": n_ssm,
+           "moe_gemm": n_moe * steps}
     step = {"flash_attention": 0, "decode_attention": n_attn,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "moe_gemm": n_moe}
     names = [k.__name__ for k in path_kernels(cfg)]
     return ({k: gen[k] for k in names}, {k: step[k] for k in names})
 
@@ -1873,7 +1881,7 @@ def phase_engine(dev, cfg, slots: int, max_len: int, prompt: int,
         for k, c in counts.items():
             out["launches"][k] += c
         batch = {"tokens": tokens}
-        if cfg.n_experts:
+        if cfg.n_experts and "E" not in cfg.hybrid_pattern:
             # tokens dropped per layer at the cap: a prefill of these
             # prompts, and a decode step of every slot (idle ones too)
             _, pre = moe_recorded(cfg, lambda: eng._prefill(params, batch))
@@ -2457,6 +2465,137 @@ SSD_EARLIER_MS = {"main": 1.529104, "long": 12.025760}
 def ssd_kernel():
     from repro_torch.kernels.ssd_scan import ssd_scan
     return ssd_scan
+
+
+def expert_kernel():
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    return moe_gemm
+
+
+# --------------------------------------------------- NVIDIA-Nemotron-3-Nano
+#: the served shapes of ``nemotron_3_nano.robot_chat``: 32 slots, prompts
+#: of 128, 64 tokens out, ``max_len`` 192; a partial wave of 8
+NEMOTRON_SERVE = dict(slots=32, max_len=192, prompt=128, steps=64,
+                      partial=8)
+#: (tokens, top_k, experts, d, f): a decode step's 32 rows and a full
+#: wave's prefill of 32 x 128, and a prefill routed to 6 experts alone
+EXPERT_SHAPES = {"decode": (32, 6, 128, 2688, 1856),
+                 "prefill": (4096, 6, 128, 2688, 1856),
+                 "all_to_one": (512, 6, 128, 2688, 1856)}
+#: bf16 kernel against its plain version: the same bf16 inputs, float32
+#: sums in another order, one rounding of the up product to bf16 each
+EXPERT_BF16_REL = 1e-2
+
+
+def expert_case(shape: str, dev, seed: int = 7):
+    """Routed rows of ``EXPERT_SHAPES[shape]`` (sigmoid scores of random
+    tokens, or every token on experts 0-5), their plan, the tokens and
+    both weight stacks in bf16 at Normal(0, 1/fan_in)."""
+    import torch
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.models import layers
+    t, k, e, d, f = EXPERT_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scores = torch.rand((t, e), generator=gen, device=dev)
+    if shape == "all_to_one":
+        scores[:, :k] += 10.0
+    idx = torch.sort(scores, dim=-1, descending=True).indices[:, :k]
+    _, tok, counts = layers.sort_by_expert(idx, e)
+    x = randn(gen, (t, d), dev, torch.bfloat16)
+    wi = (torch.randn((e, d, f), generator=gen, device=dev)
+          * d ** -0.5).to(torch.bfloat16)
+    wo = (torch.randn((e, f, d), generator=gen, device=dev)
+          * f ** -0.5).to(torch.bfloat16)
+    return mg.plan(counts, t * k), tok, counts, x, wi, wo
+
+
+def expert_bound_ms(counts, d: int, f: int) -> float:
+    """One layer's up and down launches at their least: the touched
+    experts' weights and the rows in and out over 3.35 TB/s, against 4
+    rows d f FLOPs at 989 TFLOP/s."""
+    rows = int(counts.sum())
+    touched = int((counts > 0).sum())
+    nbytes = touched * 2 * d * f * 2 + rows * (2 * d + 4 * f + 4 * d)
+    return 1e3 * max(nbytes / 3.35e12, 4 * rows * d * f / 989e12)
+
+
+def phase_expert_kernel(dev) -> dict:
+    """``moe_gemm`` (up with relu², down to float32) against its plain
+    version at Nemotron-3-Nano's widths, every shape of
+    ``EXPERT_SHAPES``, within ``EXPERT_BF16_REL`` x max |out|; then one
+    layer's pair timed at the decode and prefill shapes beside its bound
+    and the plain version."""
+    import torch
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels.ref import moe_gemm_ref
+    out = {}
+    for shape in EXPERT_SHAPES:
+        pl, tok, counts, x, wi, wo = expert_case(shape, dev)
+        h = mg.moe_gemm(x, tok, wi, pl, act="relu2")
+        y = mg.moe_gemm(h, None, wo, pl, out_dtype=torch.float32)
+        sync(dev)
+        want_h = moe_gemm_ref(x, tok, wi, counts, "relu2")
+        want = moe_gemm_ref(want_h, None, wo, counts,
+                            out_dtype=torch.float32)
+        rel_h = ((h.float() - want_h.float()).abs().max()
+                 / want_h.float().abs().max()).item()
+        rel = ((y - want).abs().max() / want.abs().max()).item()
+        ok = max(rel_h, rel) <= EXPERT_BF16_REL and bool(
+            torch.isfinite(y).all())
+        row = {"phase": "expert_parity", "shape": shape,
+               "rows": pl.rows, "touched": int((counts > 0).sum()),
+               "max_rows": int(counts.max()), "rel_up": rel_h,
+               "rel_down": rel, "bound": EXPERT_BF16_REL, "ok": ok}
+        emit(row)
+        if not ok:
+            fail(f"moe_gemm {shape}: relative differences {rel_h}, {rel} "
+                 f"above {EXPERT_BF16_REL}")
+        if shape != "all_to_one":
+            d, f = wi.shape[1], wi.shape[2]
+
+            def pair():
+                hh = mg.moe_gemm(x, tok, wi, pl, act="relu2")
+                mg.moe_gemm(hh, None, wo, pl, out_dtype=torch.float32)
+
+            def plain():
+                hh = moe_gemm_ref(x, tok, wi, counts, "relu2")
+                moe_gemm_ref(hh, None, wo, counts, out_dtype=torch.float32)
+            ms = time_launches(pair, dev, n=100, chunk=10)
+            row = {"phase": "expert_times", "shape": shape,
+                   "pair_ms": ms, "bound_ms": expert_bound_ms(counts, d, f),
+                   "plain_ms": time_host(plain, dev, n=3, warm=1)}
+            row["roofline_pct"] = 100.0 * row["bound_ms"] / ms
+            emit(row)
+            out[shape] = row
+        del pl, tok, counts, x, wi, wo, h, y, want_h, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_nemotron(dev) -> dict:
+    """NVIDIA-Nemotron-3-Nano-30B-A3B whole in bf16 (52 layers, 128
+    experts, the full vocabulary; weights from generator seed 0) served
+    through ``ServingEngine`` at ``NEMOTRON_SERVE``: exact launches, one
+    graph, every later step replayed, a prefill and a step profiled; the
+    expert counters of the prefill and of a step."""
+    import torch
+    from repro_torch.models import layers, model
+    cfg = full_width("nemotron_3_nano", "bfloat16")
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device=dev)
+    sync(dev)
+    emit({"phase": "nemotron_params", "seconds": time.perf_counter() - t0,
+          "params": model.param_count(cfg),
+          "bytes": torch.cuda.memory_allocated(dev)})
+    served = phase_engine(dev, cfg, **NEMOTRON_SERVE, params=params)
+    c = layers.expert_counters(dev).phase.cpu().tolist()
+    emit({"phase": "nemotron_expert_counters",
+          **{ph: dict(zip(layers.EXPERT_COLUMNS, row))
+             for ph, row in zip(layers.EXPERT_PHASES, c)},
+          "memory_peak_bytes": torch.cuda.max_memory_allocated(dev)})
+    del params
+    torch.cuda.empty_cache()
+    return served
 
 
 def ssd_inputs(seed, b, l, h, p, g, n, dtype, dev, h0=False, dt_scale=1.0,
@@ -3279,7 +3418,7 @@ def phase_dryrun(proc, out: Path = DRYRUN_DIR) -> dict:
     one must be ``ok`` (10 decode_32k/single, StableLM-3B
     train_4k/multi on 512 ranks). Per-device figures are accounting on
     meta tensors, not measurements."""
-    from repro_torch.configs.base import ARCH_IDS
+    from repro_torch.configs.base import REFERENCE_IDS
     try:
         stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
     except subprocess.TimeoutExpired:
@@ -3288,7 +3427,7 @@ def phase_dryrun(proc, out: Path = DRYRUN_DIR) -> dict:
         fail(f"dry run: over {DRYRUN_TIMEOUT} s")
     if proc.returncode:
         fail(f"dry run: exit {proc.returncode}: {stderr[-2000:]}")
-    want = [(a, "decode_32k", "single") for a in ARCH_IDS] \
+    want = [(a, "decode_32k", "single") for a in REFERENCE_IDS] \
         + [("stablelm_3b", "train_4k", "multi")]
     recs = {}
     for arch, shape, mesh_kind in want:
@@ -3694,6 +3833,13 @@ def main() -> int:
     decoders = phase_decoders(dev)
     torch.cuda.empty_cache()
     decoders["whisper_small"] = phase_whisper(dev)
+    torch.cuda.empty_cache()
+
+    # NVIDIA-Nemotron-3-Nano whole: the expert kernel, then the served model
+    phase_expert_kernel(dev)
+    served = phase_nemotron(dev)
+    decoders["nemotron_3_nano"] = {"engine": served,
+                                   "launches": served["launches"]}
     torch.cuda.empty_cache()
 
     # the launch layer: the dry run's records, the H100 catalogue that

@@ -2,26 +2,37 @@
 
 The port's own copy of the reference's ``repro.configs.base`` (plain
 dataclasses, no framework): :class:`ArchConfig`, :data:`SHAPES` and
-:func:`reduced` are the same, field for field. Every architecture of the
-reference is ported: each is a module ``repro_torch/configs/<id>.py``
-exposing ``CONFIG``, and ``WAITING`` (architectures not ported yet) is
-empty.
+:func:`reduced` hold every field of the reference's, with the same
+values for its architectures. Fields the reference lacks follow its
+fields, under "hybrid stacks and their experts"; their defaults keep
+every other architecture as the reference computes it. Every
+architecture of the reference is ported: each is a module
+``repro_torch/configs/<id>.py`` exposing ``CONFIG``, and ``WAITING``
+(architectures not ported yet) is empty. ``REFERENCE_IDS`` are the
+reference's architectures; ``ARCH_IDS`` adds the port's own
+(NVIDIA-Nemotron-3-Nano-30B-A3B, a Mamba-2 / expert / attention
+hybrid).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import math
 from typing import Optional
 
-ARCH_IDS = [
+#: the reference's architectures
+REFERENCE_IDS = [
     "chameleon_34b", "mamba2_370m", "recurrentgemma_2b", "nemotron_4_340b",
     "gemma2_27b", "dbrx_132b", "stablelm_3b", "arctic_480b",
     "whisper_small", "phi3_medium_14b",
 ]
+ARCH_IDS = REFERENCE_IDS + ["nemotron_3_nano"]
 #: architectures the port runs
 PORTED = ("stablelm_3b", "mamba2_370m", "recurrentgemma_2b", "gemma2_27b",
           "phi3_medium_14b", "chameleon_34b", "nemotron_4_340b",
-          "dbrx_132b", "arctic_480b", "whisper_small")
+          "dbrx_132b", "arctic_480b", "whisper_small", "nemotron_3_nano")
+#: the layer kind of each character of ``ArchConfig.hybrid_pattern``
+HYBRID_KINDS = {"M": "hybrid_mamba", "E": "hybrid_moe", "*": "hybrid_attn"}
 #: architectures not ported yet -> where they wait in ROADMAP.md (none)
 WAITING: dict[str, str] = {}
 
@@ -88,9 +99,25 @@ class ArchConfig:
     opt_state_dtype: str = "float32"
     remat: bool = True
 
+    # hybrid stacks and their experts (fields the reference lacks)
+    # one character a layer ("M" Mamba-2, "E" experts, "*" attention), each
+    # layer one sublayer behind its own pre-norm; "" -> layer_pattern
+    hybrid_pattern: str = ""
+    norm_eps: float = 0.0          # 0 -> the norm's own: 1e-6 RMS, 1e-5 Layer
+    routed_scale: float = 1.0      # an "E" layer's weights: scores x this
+    shared_d_ff: int = 0           # >0: a shared expert of this width
+    ssm_heads: int = 0             # 0 -> ssm_expand * d_model // ssm_head_dim
+    # the gated norm: rmsnorm(y * silu(z)) over ssm_groups groups when
+    # True, else rmsnorm(y) * silu(z) over the whole width
+    ssm_gate_first: bool = False
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.hybrid_pattern and len(self.hybrid_pattern) != self.n_layers:
+            raise ValueError(f"{self.name}: hybrid_pattern has "
+                             f"{len(self.hybrid_pattern)} layers, n_layers "
+                             f"{self.n_layers}")
 
     @property
     def period(self) -> int:
@@ -134,9 +161,17 @@ def reduced(cfg: ArchConfig, seq_hint: int = 128) -> ArchConfig:
     """The CPU smoke-test variant: same family, tiny dimensions.
 
     2 layers (rounded up to one full pattern period), d_model <= 256,
-    <= 4 experts, vocab truncated, float32.
+    <= 4 experts, vocab truncated, float32. A hybrid stack keeps its
+    whole pattern, with at most 8 SSM heads and widths of at most 512.
     """
     period = max(len(cfg.layer_pattern), 2)
+    hybrid = {}
+    if cfg.hybrid_pattern:
+        period = len(cfg.hybrid_pattern)
+        hybrid = dict(
+            shared_d_ff=min(cfg.shared_d_ff, 512),
+            ssm_heads=min(cfg.ssm_heads, 8),
+            ssm_groups=math.gcd(cfg.ssm_groups, min(cfg.ssm_heads, 8)))
     d_model = min(cfg.d_model, 256)
     n_heads = min(cfg.n_heads, 4)
     n_kv = max(1, min(cfg.n_kv_heads, n_heads))
@@ -163,4 +198,4 @@ def reduced(cfg: ArchConfig, seq_hint: int = 128) -> ArchConfig:
         opt_state_dtype="float32",
         name=cfg.name + "-reduced",
     )
-    return dataclasses.replace(cfg, **changes)
+    return dataclasses.replace(cfg, **changes, **hybrid)

@@ -17,8 +17,8 @@ Two estimators per model stream:
 
 :data:`TRACER` records where the port's own host time goes: spans of
 the admission flush's stages and of the serving engine's launches and
-read-backs, with the flush's copy counters. It is off unless a caller
-enables it.
+read-backs, with the flush's copy counters and the expert layers'
+routing counters. It is off unless a caller enables it.
 """
 from __future__ import annotations
 
@@ -128,7 +128,10 @@ class SpanRecords:
     ``time.perf_counter`` seconds (``end`` is NaN while a span is open);
     ``parent`` is the enclosing span's id, -1 at the top. The integer
     counters start at 0; ``graph`` is 1 on an ``engine.step`` that
-    replayed the engine's CUDA graph."""
+    replayed the engine's CUDA graph; ``expert_*`` sum the expert layers
+    an ``engine.generate`` (its prefill) or ``engine.step`` ran:
+    launches (one a layer), rows routed, experts touched and the most
+    rows on one expert."""
 
     name: list = dataclasses.field(default_factory=list)
     start: list = dataclasses.field(default_factory=list)
@@ -142,6 +145,10 @@ class SpanRecords:
     d2h_bytes: list = dataclasses.field(default_factory=list)
     steps: list = dataclasses.field(default_factory=list)
     graph: list = dataclasses.field(default_factory=list)
+    expert_launches: list = dataclasses.field(default_factory=list)
+    expert_rows: list = dataclasses.field(default_factory=list)
+    expert_touched: list = dataclasses.field(default_factory=list)
+    expert_max_rows: list = dataclasses.field(default_factory=list)
 
     def __len__(self) -> int:
         return len(self.name)
@@ -196,6 +203,10 @@ class Tracer:
         rec.d2h_bytes.append(0)
         rec.steps.append(steps)
         rec.graph.append(0)
+        rec.expert_launches.append(0)
+        rec.expert_rows.append(0)
+        rec.expert_touched.append(0)
+        rec.expert_max_rows.append(0)
         return sid
 
     def open(self, name: str, rows: int = 0, steps: int = 0) -> int:
@@ -259,6 +270,18 @@ class Tracer:
         """The innermost scope replayed a captured CUDA graph."""
         if self._scopes:
             self.records.graph[self._scopes[-1][0]] += 1
+
+    def experts(self, launches: int, rows: int, touched: int,
+                max_rows: int) -> None:
+        """The innermost scope's expert layers: ``launches`` of them,
+        with their rows, experts touched and most rows on one expert
+        summed."""
+        if self._scopes:
+            rec, sid = self.records, self._scopes[-1][0]
+            rec.expert_launches[sid] += launches
+            rec.expert_rows[sid] += rows
+            rec.expert_touched[sid] += touched
+            rec.expert_max_rows[sid] += max_rows
 
     def d2h(self, nbytes: int) -> None:
         """One device-to-host copy of ``nbytes``."""

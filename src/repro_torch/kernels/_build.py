@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels at first use.
 
 Each source under ``csrc/`` (``routing.cu``, ``attention.cu``,
-``ssd.cu``) is compiled by ``nvcc`` into a shared library of its own
-with a plain C interface and loaded with ``ctypes`` (no PyTorch
+``ssd.cu``, ``moe.cu``) is compiled by ``nvcc`` into a shared library of
+its own with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). A library lands in ``build/torch_kernels/`` at the
 repository root, named by a hash of its source and flags, so an edited
 source never loads a stale build. :func:`build_all` starts one ``nvcc``
@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"routing": CSRC / "routing.cu", "attention": CSRC / "attention.cu",
-           "ssd": CSRC / "ssd.cu"}
+           "ssd": CSRC / "ssd.cu", "moe": CSRC / "moe.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
 # -fmad=false: the kernels pin the rounding of every step (no fused
@@ -83,10 +83,16 @@ SIGNATURES = {
         # dtype -> dynamic shared memory bytes of that body
         "laimr_ssd_smem_bytes": [_INT],
     },
+    "moe": {
+        # a, rows (or null), w, out, tile_expert, tile_row0, ends, n_tiles,
+        # dtype, out_dtype, act, E, K, N, max_tiles, wide, stream
+        "laimr_moe_gemm": [_VOIDP] * 8 + [_INT] * 8 + [_VOIDP],
+    },
 }
 ERROR_STRING = {"routing": "laimr_cuda_error_string",
                 "attention": "laimr_attention_error_string",
-                "ssd": "laimr_ssd_error_string"}
+                "ssd": "laimr_ssd_error_string",
+                "moe": "laimr_moe_error_string"}
 
 
 class KernelLibrary:

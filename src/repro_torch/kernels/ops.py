@@ -1,4 +1,5 @@
-"""Dispatch facade for the port's kernels (routing, attention, SSD).
+"""Dispatch facade for the port's kernels (routing, attention, SSD,
+experts).
 
 Each op has three execution paths, chosen per call with ``impl=``:
 
@@ -139,3 +140,14 @@ def ssd_scan(x, dt, a, b, c, d_skip, initial_state=None,
     from repro_torch.kernels import ssd_scan as ssd
     return ssd.ssd_scan(x, dt, a, b, c, d_skip, initial_state=initial_state,
                         return_final_state=return_final_state)
+
+
+def moe_gemm(a, rows, w, plan, act: str = "none", out_dtype=None,
+             impl: str = "ref"):
+    """The grouped expert GEMM of a dropless MoE layer. See
+    ``ref.moe_gemm_ref``; ``"fused"`` runs the plain version."""
+    _require_cuda("moe_gemm", a, impl)
+    if impl in ("ref", "fused"):
+        return _ref.moe_gemm_ref(a, rows, w, plan.counts, act, out_dtype)
+    from repro_torch.kernels import moe_gemm as mg
+    return mg.moe_gemm(a, rows, w, plan, act=act, out_dtype=out_dtype)

@@ -370,3 +370,31 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         + xf * d_skip.to(torch.float32)[None, None, :, None]
     y = y.to(x.dtype)
     return (y, h) if return_final_state else y
+
+
+# ------------------------------------------------------------ experts
+def moe_gemm_ref(a: torch.Tensor, rows: torch.Tensor | None,
+                 w: torch.Tensor, counts: torch.Tensor, act: str = "none",
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The grouped expert GEMM; the plain version of ``moe_gemm``.
+
+    a: (T, K); rows: (P,) the row of ``a`` each sorted row reads, or
+    None (row r is ``a[r]``); w: (E, K, N); counts: (E,) rows per expert,
+    the rows sorted by expert. Row r of the (P, N) result is
+    act(a[rows[r]] @ w[e]) for the expert e whose block of rows holds r,
+    the product of the float32 operands (exact for bf16 inputs) with
+    ``act`` ("relu2": the ReLU squared) applied before the cast to
+    ``out_dtype`` (default a's). A loop over the experts that have rows,
+    their counts read on the host."""
+    x = a if rows is None else a[rows]
+    out = torch.empty((x.shape[0], w.shape[2]), dtype=out_dtype or a.dtype,
+                      device=a.device)
+    start = 0
+    for e, n in enumerate(counts.tolist()):
+        if n:
+            h = x[start:start + n].to(torch.float32) @ w[e].to(torch.float32)
+            if act == "relu2":
+                h = torch.relu(h).square()
+            out[start:start + n] = h.to(out.dtype)
+        start += n
+    return out

@@ -44,7 +44,8 @@ import sys
 import time
 import traceback
 
-from repro_torch.configs.base import ARCH_IDS, SHAPES, ArchConfig, get_config
+from repro_torch.configs.base import (ARCH_IDS, REFERENCE_IDS, SHAPES,
+                                      ArchConfig, get_config)
 
 # --------------------------------------------------------------- skips
 LONG_OK = {"mamba2_370m", "recurrentgemma_2b", "gemma2_27b"}
@@ -52,6 +53,9 @@ LONG_OK = {"mamba2_370m", "recurrentgemma_2b", "gemma2_27b"}
 
 def applicability(arch_id: str, shape_name: str) -> str | None:
     """Return a skip reason, or None if the pair must run."""
+    if arch_id not in REFERENCE_IDS:
+        return ("SKIP: the reference's dry run has no such architecture; "
+                "the dropless expert layer has no sharding rules yet")
     if shape_name == "long_500k":
         if arch_id == "whisper_small":
             return ("SKIP: enc-dec with full-attention encoder; 512k frames "

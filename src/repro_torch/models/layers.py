@@ -25,6 +25,13 @@ carries across leaf for leaf (``repro_torch.convert``).
   the expert products are batched GEMMs over every expert's ``cap``
   rows, as the reference's einsums (no Pallas kernel backs them). Every
   shape follows from the input's: no host sync, no data-dependent size.
+* ``moe_dropless`` is Nemotron-H's mixture (the reference has none): a
+  float32 sigmoid router with a selection bias, no token dropped, the
+  routed (token, expert) rows sorted by expert on the device and run by
+  the grouped expert GEMM (``ops.moe_gemm``), a shared expert beside
+  them. Its shapes follow from the input's alone too, so a CUDA graph
+  captures it; it adds its routing counters (``expert_counters``) on
+  the device.
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import sharding
-from repro_torch.kernels import ops
+from repro_torch.kernels import moe_gemm, ops
 
 
 class Init:
@@ -147,8 +154,12 @@ def norm_init(init: Init, kind: str, d: int) -> dict:
         else layernorm_init(init, d)
 
 
-def apply_norm(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
-    return rmsnorm(params, x) if kind == "rmsnorm" else layernorm(params, x)
+def apply_norm(kind: str, params: dict, x: torch.Tensor, eps: float = 0.0
+               ) -> torch.Tensor:
+    """The norm ``kind`` of x; ``eps`` 0 takes the norm's own epsilon."""
+    if kind == "rmsnorm":
+        return rmsnorm(params, x, eps or 1e-6)
+    return layernorm(params, x, eps or 1e-5)
 
 
 # ------------------------------------------------------------------- rope
@@ -389,14 +400,21 @@ MOE_RECORD: Optional[list] = None
 
 
 def moe_init(init: Init, d: int, d_ff: int, n_experts: int, kind: str,
-             dtype) -> dict:
+             dtype, select_bias: bool = False, shared_d_ff: int = 0) -> dict:
     """Router (d, E) in float32 whatever ``dtype``; experts ``wi``, ``wg``
-    (gated kinds) (E, d, d_ff) and ``wo`` (E, d_ff, d) in ``dtype``."""
+    (gated kinds) (E, d, d_ff) and ``wo`` (E, d_ff, d) in ``dtype``.
+    ``select_bias`` adds the dropless sigmoid router's selection bias
+    ``select_bias`` (E,) in float32 (zeros); ``shared_d_ff`` > 0 a shared
+    expert ``shared``, an MLP of that width."""
     p = {"router": init.dense((d, n_experts), d, torch.float32),
          "wi": init.dense((n_experts, d, d_ff), d, dtype)}
     if kind in ("swiglu", "geglu"):
         p["wg"] = init.dense((n_experts, d, d_ff), d, dtype)
     p["wo"] = init.dense((n_experts, d_ff, d), d_ff, dtype)
+    if select_bias:
+        p["select_bias"] = init.full((n_experts,), 0.0)
+    if shared_d_ff:
+        p["shared"] = mlp_init(init, d, shared_d_ff, kind, dtype)
     return p
 
 
@@ -548,3 +566,131 @@ def moe(params: dict, x: torch.Tensor, *, top_k: int, kind: str,
     y = sharding.local_groups(_combine, out, slot, gates, keep, gate_idx)
     y = sharding.constrain_moe_groups(y)
     return y.reshape(b, s, d), aux
+
+
+# ------------------------------------------------------- dropless experts
+#: the routing counters' columns, per phase (row 0 prefill, row 1 decode):
+#: MoE launches, and rows routed, experts touched and the most rows on
+#: one expert summed over them
+EXPERT_COLUMNS = ("launches", "rows", "touched", "max_rows")
+EXPERT_PHASES = ("prefill", "decode")
+#: launches the per-launch log holds, the newest last
+EXPERT_LOG = 1 << 16
+#: device -> its ``ExpertCounters`` (``expert_counters``)
+EXPERT_COUNTERS: dict = {}
+
+
+@dataclasses.dataclass
+class ExpertCounters:
+    """The routing of ``moe_dropless``'s launches on one device, kept on
+    the device: ``phase`` (2, 4) int64 sums by phase (``EXPERT_COLUMNS``)
+    and ``log`` (``EXPERT_LOG``, 2) int32, the rows and the experts
+    touched of each launch, launch ``i`` at row ``i % EXPERT_LOG``, with
+    ``at`` (1,) int64 the launches logged."""
+
+    phase: torch.Tensor
+    log: torch.Tensor
+    at: torch.Tensor
+
+
+def expert_counters(device) -> ExpertCounters:
+    """The routing counters of ``moe_dropless`` on ``device``, made at
+    their first use: every launch adds to them in place on the device,
+    in a captured decode step too, so reading them is the only sync."""
+    key = str(torch.device(device))
+    if key not in EXPERT_COUNTERS:
+        EXPERT_COUNTERS[key] = ExpertCounters(
+            phase=torch.zeros((len(EXPERT_PHASES), len(EXPERT_COLUMNS)),
+                              dtype=torch.int64, device=device),
+            log=torch.zeros((EXPERT_LOG, 2), dtype=torch.int32,
+                            device=device),
+            at=torch.zeros(1, dtype=torch.int64, device=device))
+    return EXPERT_COUNTERS[key]
+
+
+def _count_experts(c: ExpertCounters, phase: int,
+                   counts: torch.Tensor) -> None:
+    """Add one launch's routing (``counts``: rows per expert) to the
+    counters, on the device."""
+    vals = torch.stack([counts.sum(), (counts > 0).sum(), counts.max()]) \
+        .to(torch.int64)                         # rows, touched, max rows
+    c.phase[phase, 0].add_(1)
+    c.phase[phase, 1:].add_(vals)
+    c.log.index_copy_(0, c.at % c.log.shape[0],
+                      vals[None, :2].to(torch.int32))
+    c.at.add_(1)
+
+
+def sigmoid_route(router: torch.Tensor, select_bias: torch.Tensor,
+                  x: torch.Tensor, top_k: int, scale: float):
+    """Nemotron-H's router on tokens x (T, d): float32 sigmoid scores,
+    each token's ``top_k`` experts by score + ``select_bias`` (ties to
+    the lower index), their scores divided by the chosen scores' sum
+    (+ 1e-20) and multiplied by ``scale``. The bias chooses; it never
+    weighs. Returns (expert ids (T, k) in order of choice, float32
+    weights (T, k), scores (T, E))."""
+    scores = torch.sigmoid(torch.matmul(x.to(torch.float32), router))
+    order = torch.sort(scores + select_bias, dim=-1, descending=True,
+                       stable=True).indices
+    idx = order[:, :top_k]
+    w = scores.gather(1, idx)
+    w = w / (w.sum(dim=-1, keepdim=True) + 1e-20) * scale
+    return idx, w, scores
+
+
+def sort_by_expert(idx: torch.Tensor, n_experts: int):
+    """The (token, expert) pairs of ``idx`` (T, k), flattened token by
+    token, sorted by expert (a stable sort: within an expert, in token
+    order) on the device without a sync: (each pair's place in the
+    sorted order (T*k,), the token of each sorted row (T*k,), rows per
+    expert (E,) int32, an exact integer histogram)."""
+    flat = idx.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    place = torch.empty_like(order).scatter_(
+        0, order, torch.arange(flat.numel(), device=idx.device))
+    counts = torch.zeros(n_experts, dtype=torch.int32, device=idx.device) \
+        .scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    return place, order // idx.shape[1], counts
+
+
+def moe_dropless(params: dict, x: torch.Tensor, *, top_k: int, kind: str,
+                 routed_scale: float, kernels: str = "cuda",
+                 counters: Optional[tuple] = None) -> torch.Tensor:
+    """Nemotron-H's mixture of experts, dropping no token. x: (B, S, d).
+
+    ``sigmoid_route`` picks each token's k experts; the routed rows,
+    sorted by expert (``sort_by_expert``), go through the grouped expert
+    GEMM (``ops.moe_gemm``) twice: up with the activation (relu² fused
+    into the kernel) in x's dtype, down with a float32 result. A token
+    adds its k weighted rows in float32 in ascending expert order (a
+    fixed order of adds, so a run repeats bit for bit), then the shared
+    expert's output, unscaled, and the sum is cast to x's dtype. Every
+    shape follows from x's: no sync, no data-dependent size. With
+    ``counters`` (``expert_counters`` and a phase, 0 prefill or 1 decode)
+    the launch's routing is added to them; ``MOE_RECORD`` collects
+    "gate_idx", "weights" and "scores"."""
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    e = params["router"].shape[1]
+    idx, w, scores = sigmoid_route(params["router"], params["select_bias"],
+                                   xf, top_k, routed_scale)
+    if MOE_RECORD is not None:
+        MOE_RECORD.append({"gate_idx": idx, "weights": w, "scores": scores})
+    place, tokens, counts = sort_by_expert(idx, e)
+    if counters is not None:
+        _count_experts(*counters, counts)
+    plan = moe_gemm.plan(counts, t * top_k)
+    h = ops.moe_gemm(xf, tokens, params["wi"], plan, act=kind,
+                     impl=kernels)
+    out = ops.moe_gemm(h, None, params["wo"], plan, act="none",
+                       out_dtype=torch.float32, impl=kernels)
+    asc = torch.argsort(idx, dim=1)
+    rows = place.view(t, top_k).gather(1, asc)
+    wt = w.gather(1, asc)
+    y = out[rows[:, 0]] * wt[:, :1]
+    for j in range(1, top_k):
+        y = y + out[rows[:, j]] * wt[:, j:j + 1]
+    if "shared" in params:
+        y = y + mlp(params["shared"], xf, kind).to(torch.float32)
+    return y.to(x.dtype).reshape(b, s, d)

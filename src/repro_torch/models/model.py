@@ -38,14 +38,16 @@ def forward(params: dict, cfg: ArchConfig, batch: dict,
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict,
-            kernels: str = "cuda"):
-    """-> (last-token float32 logits (B, V), cache: of depth S, or the
-    encoder-decoder's ``max_decoder_len`` ring with cross K/V)."""
+            kernels: str = "cuda", max_len=None):
+    """-> (last-token float32 logits (B, V), cache: attention rings of
+    depth ``max_len`` (S when None), or the encoder-decoder's
+    ``max_decoder_len`` ring with cross K/V)."""
     if cfg.is_encoder_decoder:
         return encdec.prefill(params, cfg, batch["frames"], batch["tokens"],
                               kernels)
     inp = batch.get("tokens", batch.get("embeddings"))
-    return transformer.prefill(params, cfg, inp, kernels=kernels)
+    return transformer.prefill(params, cfg, inp, max_len=max_len,
+                               kernels=kernels)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"
@@ -79,10 +81,13 @@ def param_count(cfg: ArchConfig) -> int:
 
 def active_param_count(cfg: ArchConfig) -> int:
     """Params touched per token: the total less the (n_experts - top_k)
-    unused expert slices of every MoE layer."""
+    unused expert slices of every MoE layer (a hybrid stack's expert
+    layers)."""
     total = param_count(cfg)
     if cfg.n_experts == 0:
         return total
     gated = cfg.mlp_kind in ("swiglu", "geglu")
     per_expert = cfg.d_model * cfg.d_ff * (3 if gated else 2)
-    return total - cfg.n_layers * (cfg.n_experts - cfg.top_k) * per_expert
+    n_moe = cfg.hybrid_pattern.count("E") if cfg.hybrid_pattern \
+        else cfg.n_layers
+    return total - n_moe * (cfg.n_experts - cfg.top_k) * per_expert

@@ -9,6 +9,12 @@ The reference is ``repro.models.ssm`` (arXiv:2405.21060 §7)::
   y = SSD(x·heads, dt, A, B, C) + D ⊙ x
   out = out_proj( rmsnorm(y) * silu(z) )     (gated RMSNorm variant)
 
+A config may give the head count (``ssm_heads``; the inner width is then
+heads x head_dim, not expand x d_model) and the published Mamba-2 gate
+order (``ssm_gate_first``: rmsnorm(y * silu(z)) over ``ssm_groups``
+groups, as Nemotron-H's ``MambaRMSNormGated``); the gated norm takes its
+epsilon from ``norm_eps`` where the config sets one.
+
 Plain functions on dicts of tensors, with the reference's layouts and
 dtype steps: the prefill conv sums its taps in the input dtype in the
 order ``ext[:, 0:L]·w0 + … + ext[:, W-1:L+W-1]·w_{W-1}``, adds the bias
@@ -35,8 +41,12 @@ from repro_torch.models import layers
 
 
 def dims(cfg: ArchConfig) -> dict:
-    d_in = cfg.ssm_expand * cfg.d_model
-    n_heads = d_in // cfg.ssm_head_dim
+    if cfg.ssm_heads:
+        n_heads = cfg.ssm_heads
+        d_in = n_heads * cfg.ssm_head_dim
+    else:
+        d_in = cfg.ssm_expand * cfg.d_model
+        n_heads = d_in // cfg.ssm_head_dim
     conv_ch = d_in + 2 * cfg.ssm_groups * cfg.ssm_state
     return dict(d_in=d_in, n_heads=n_heads, head_dim=cfg.ssm_head_dim,
                 state=cfg.ssm_state, groups=cfg.ssm_groups,
@@ -113,12 +123,21 @@ def _heads(cfg: ArchConfig, conv_out: torch.Tensor):
             c.reshape(bsz, length, dd["groups"], dd["state"]).contiguous())
 
 
-def _gate_out(params: dict, y: torch.Tensor, z: torch.Tensor,
-              dtype) -> torch.Tensor:
+def _gate_out(params: dict, cfg: ArchConfig, y: torch.Tensor,
+              z: torch.Tensor, dtype) -> torch.Tensor:
     """out_proj(rmsnorm(y) * silu(z)), the SiLU in float32 cast to the
-    model dtype."""
-    y = layers.rmsnorm(params["norm"], y) \
-        * F.silu(z.to(torch.float32)).to(dtype)
+    model dtype; under ``ssm_gate_first`` out_proj(rmsnorm(y * silu(z)))
+    with each of the ``ssm_groups`` groups of the width normed on
+    its own, in float32 and cast once."""
+    eps = cfg.norm_eps or 1e-6
+    if not cfg.ssm_gate_first:
+        y = layers.rmsnorm(params["norm"], y, eps) \
+            * F.silu(z.to(torch.float32)).to(dtype)
+        return layers.matmul(y, params["out_proj"])
+    g = (y.to(torch.float32) * F.silu(z.to(torch.float32))) \
+        .unflatten(-1, (cfg.ssm_groups, -1))
+    g = g * torch.rsqrt(g.square().mean(dim=-1, keepdim=True) + eps)
+    y = (g.flatten(-2) * (1.0 + params["norm"]["scale"])).to(dtype)
     return layers.matmul(y, params["out_proj"])
 
 
@@ -143,7 +162,8 @@ def forward(params: dict, cfg: ArchConfig, x: torch.Tensor,
         lambda *args: ops.ssd_scan(*args, impl=kernels),
         xh, dt, a, bh, ch, params["d_skip"],
         None if state is None else state["ssm"], True)
-    out = _gate_out(params, y.reshape(bsz, length, dd["d_in"]), z, x.dtype)
+    out = _gate_out(params, cfg, y.reshape(bsz, length, dd["d_in"]), z,
+                    x.dtype)
     if return_state:
         return out, {"conv": conv_buf, "ssm": final}
     return out
@@ -193,7 +213,7 @@ def decode_step(params: dict, cfg: ArchConfig, x: torch.Tensor,
     yh = sharding.local_state_step(_state_step, state["ssm"], dt1, a, xs1,
                                    b1, c1, params["d_skip"])
     yh = yh.reshape(bsz, 1, dd["d_in"]).to(x.dtype)
-    return _gate_out(params, yh, z, x.dtype), state
+    return _gate_out(params, cfg, yh, z, x.dtype), state
 
 
 def _state_step(h, dt1, a, xs1, b1, c1, d_skip):

@@ -28,6 +28,16 @@ an ``"rglru"`` layer carries one, as an attention layer does. With
 beside a dense MLP under ``dense_residual``; ``forward`` returns the sum
 of the layers' load-balance losses, ``prefill`` and ``decode_step`` drop
 them, as the reference does.
+
+A hybrid stack (``cfg.hybrid_pattern``, Nemotron-H; the reference has
+none) lays out one layer a character, each layer ONE sublayer behind its
+own pre-norm and a residual add: ``"hybrid_mamba"`` (a Mamba-2 mixer,
+cached as a ``"mamba2"`` layer), ``"hybrid_moe"`` (the dropless mixture
+of experts alone, ``layers.moe_dropless``, no cache) and
+``"hybrid_attn"`` (attention alone, cached as an ``"attn"`` layer).
+Norms take ``cfg.norm_eps`` where it is set. ``prefill`` and
+``decode_step`` add each expert layer's routing to the device's expert
+counters (``layers.expert_counters``), phase 0 and phase 1.
 """
 from __future__ import annotations
 
@@ -36,14 +46,16 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import HYBRID_KINDS, ArchConfig
 from repro_torch.distributed.sharding import constrain_batch, embed_lookup
 from repro_torch.models import layers, rglru, ssm
 
-ATTN_KINDS = ("attn", "local")
+ATTN_KINDS = ("attn", "local", "hybrid_attn")
 #: recurrent layer kind -> its module: init, forward (with state,
 #: return_state and kernels), init_state and an in-place decode_step
-MIXERS = {"mamba2": ssm, "rglru": rglru}
+MIXERS = {"mamba2": ssm, "rglru": rglru, "hybrid_mamba": ssm}
+#: layer kinds that are one sublayer, with no MLP after it
+SINGLE = tuple(HYBRID_KINDS.values())
 
 
 def dtype_of(cfg: ArchConfig) -> torch.dtype:
@@ -55,11 +67,16 @@ def check_ported(cfg: ArchConfig) -> None:
     for kind in cfg.layer_pattern:
         if kind not in ATTN_KINDS + tuple(MIXERS):
             raise ValueError(f"unknown layer kind {kind}")
+    for c in cfg.hybrid_pattern:
+        if c not in HYBRID_KINDS:
+            raise ValueError(f"unknown hybrid layer {c!r}")
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
-    """The kind of every layer, in order: n_periods full patterns, then
-    the remainder."""
+    """The kind of every layer, in order: the hybrid pattern's, or
+    n_periods full patterns, then the remainder."""
+    if cfg.hybrid_pattern:
+        return [HYBRID_KINDS[c] for c in cfg.hybrid_pattern]
     return list(cfg.layer_pattern) * cfg.n_periods \
         + list(cfg.layer_pattern[:cfg.n_remainder_layers])
 
@@ -82,16 +99,25 @@ def cache_len_for(cfg: ArchConfig, kind: str, max_len: int) -> int:
 
 
 def _has_mlp(cfg: ArchConfig, kind: str) -> bool:
-    # Mamba-2 blocks are the whole layer; attention/rglru layers carry an
-    # MLP.
-    return cfg.d_ff > 0 and kind != "mamba2"
+    # Mamba-2 blocks and a hybrid stack's layers are the whole layer;
+    # attention/rglru layers carry an MLP.
+    return cfg.d_ff > 0 and kind != "mamba2" and kind not in SINGLE
+
+
+def _norm(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    return layers.apply_norm(cfg.norm, p, x, cfg.norm_eps)
 
 
 # ------------------------------------------------------------------ init
 def layer_init(init: layers.Init, cfg: ArchConfig, kind: str) -> dict:
     dt = dtype_of(cfg)
     p = {"norm1": layers.norm_init(init, cfg.norm, cfg.d_model)}
-    if kind in ATTN_KINDS:
+    if kind == "hybrid_moe":
+        p["moe"] = layers.moe_init(init, cfg.d_model, cfg.d_ff,
+                                   cfg.n_experts, cfg.mlp_kind, dt,
+                                   select_bias=True,
+                                   shared_d_ff=cfg.shared_d_ff)
+    elif kind in ATTN_KINDS:
         p["attn"] = layers.attention_init(init, attn_spec(cfg, kind), dt)
     else:
         p["mixer"] = MIXERS[kind].init(init, cfg, dt)
@@ -136,7 +162,7 @@ def _mlp_block(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor):
     if not _has_mlp(cfg, kind):
         return x, None
     x = constrain_batch(x)
-    h = layers.apply_norm(cfg.norm, p["norm2"], x)
+    h = _norm(cfg, p["norm2"], x)
     if cfg.n_experts == 0:
         return x + layers.mlp(p["mlp"], h, cfg.mlp_kind), None
     y, aux = layers.moe(p["moe"], h, top_k=cfg.top_k, kind=cfg.mlp_kind,
@@ -164,7 +190,7 @@ def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     head of more than ``HEAD_BLOCK`` elements is upcast a block of
     vocabulary columns at a time (each logit is its own column's sum),
     so no float32 copy of a whole 18432 x 256000 head is made."""
-    x = layers.apply_norm(cfg.norm, params["final_norm"], x)
+    x = _norm(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     x = x.to(torch.float32)
     parts = [torch.matmul(x, block.to(torch.float32)) for block in
@@ -180,11 +206,22 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
         .expand(b, s)
 
 
+def _experts(p: dict, cfg: ArchConfig, h: torch.Tensor, kernels: str,
+             counters: Optional[tuple] = None) -> torch.Tensor:
+    """A ``"hybrid_moe"`` layer's sublayer on the normed stream h."""
+    return layers.moe_dropless(p["moe"], h, top_k=cfg.top_k,
+                               kind=cfg.mlp_kind,
+                               routed_scale=cfg.routed_scale,
+                               kernels=kernels, counters=counters)
+
+
 def _layer(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor,
            positions: torch.Tensor, kernels: str):
     """One layer of the training forward: (x, its MoE aux loss or
     None)."""
-    h = layers.apply_norm(cfg.norm, p["norm1"], x)
+    h = _norm(cfg, p["norm1"], x)
+    if kind == "hybrid_moe":
+        return x + _experts(p, cfg, h, kernels), None
     if kind in ATTN_KINDS:
         x = x + layers.self_attention(p["attn"], attn_spec(cfg, kind), h,
                                       positions, kernels)
@@ -229,6 +266,8 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------- caches
 def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                      device="cuda") -> dict:
+    if kind == "hybrid_moe":
+        return {}
     if kind in MIXERS:
         return MIXERS[kind].init_state(cfg, batch, dtype_of(cfg), device)
     c = cache_len_for(cfg, kind, max_len)
@@ -246,7 +285,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"
     layers, min(window, max_len) for local ones, pos -1 marking a slot
     never written; {"conv" (batch, W-1, conv channels), "ssm" (batch, H,
     P, N) float32} for Mamba-2 layers, {"conv" (batch, W-1, w), "h"
-    (batch, w) float32} for RG-LRU layers, zeros."""
+    (batch, w) float32} for RG-LRU layers, zeros; {} for an expert
+    layer."""
     check_ported(cfg)
     return {"layers": [init_layer_cache(cfg, kind, batch, max_len, device)
                        for kind in layer_kinds(cfg)]}
@@ -268,7 +308,12 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     caches = []
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
         x = constrain_batch(x)
-        h = layers.apply_norm(cfg.norm, p["norm1"], x)
+        h = _norm(cfg, p["norm1"], x)
+        if kind == "hybrid_moe":
+            x = x + _experts(p, cfg, h, kernels,
+                             (layers.expert_counters(x.device), 0))
+            caches.append({})
+            continue
         if kind in ATTN_KINDS:
             y, c = layers.self_attention_prefill(
                 p["attn"], attn_spec(cfg, kind), h, positions,
@@ -296,7 +341,11 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     for p, kind, c in zip(params["layers"], layer_kinds(cfg),
                           cache["layers"]):
         x = constrain_batch(x)
-        h = layers.apply_norm(cfg.norm, p["norm1"], x)
+        h = _norm(cfg, p["norm1"], x)
+        if kind == "hybrid_moe":
+            x = x + _experts(p, cfg, h, kernels,
+                             (layers.expert_counters(x.device), 1))
+            continue
         if kind in ATTN_KINDS:
             y, _ = layers.self_attention_decode(
                 p["attn"], attn_spec(cfg, kind), h, c, pos, kernels)

@@ -7,8 +7,13 @@ pools map onto the card's batch slots. The engine runs on the card
 unless the caller passes ``device="cpu"``; ``kernels`` picks the
 hand-written kernels (``"cuda"``, default) or their plain versions
 (``"ref"``). The cache is the model's: KV rings for attention layers,
-conv buffers and SSM states for Mamba-2 layers; both paths of
-``generate`` carry either.
+conv buffers and SSM states for Mamba-2 layers, nothing for an expert
+layer; both paths of ``generate`` carry any mix of them. ``generate``
+prefills attention rings ``max_len`` deep (a prompt longer than
+``max_len`` is refused where the cache holds a ring; Mamba-2 states
+have no depth), so a full wave decodes past its prompt without
+overwriting it, and a partial wave's merge overwrites every position a
+previous wave left in its rows (their keys marked -1: never attended).
 
 On a CUDA device the decode step is one CUDA graph: the first ``step``
 runs eagerly on the engine's own stream, then captures the same work
@@ -34,13 +39,16 @@ from torch.utils._pytree import tree_leaves, tree_structure
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.telemetry import TRACER
 from repro_torch.distributed.sharding import _is_dtensor
-from repro_torch.models import model
+from repro_torch.models import layers, model
 
 
-def make_prefill_fn(cfg: ArchConfig, kernels: str = "cuda"):
-    """(params, batch) -> (last-token logits, cache)."""
+def make_prefill_fn(cfg: ArchConfig, kernels: str = "cuda",
+                    max_len: Optional[int] = None):
+    """(params, batch) -> (last-token logits, cache): attention rings
+    ``max_len`` deep, or as deep as the prompt when it is None."""
     def fn(params, batch):
-        return model.prefill(params, cfg, batch, kernels=kernels)
+        return model.prefill(params, cfg, batch, kernels=kernels,
+                             max_len=max_len)
     return fn
 
 
@@ -82,7 +90,14 @@ class ServingEngine:
         self.current = torch.zeros(slots, dtype=torch.int32,
                                    device=self.device)
         self._decode = make_decode_fn(cfg, kernels)
-        self._prefill = make_prefill_fn(cfg, kernels)
+        self._prefill = make_prefill_fn(cfg, kernels, max_len)
+        # the expert layers' routing counters, read with the tokens only
+        # while TRACER is on (made here, before any graph is captured);
+        # the last read on the host and the calls made by then
+        self._experts = layers.expert_counters(self.device).phase \
+            if "E" in cfg.hybrid_pattern else None
+        self._experts_read = None
+        self._calls = 0              # generate and step calls
         self._graphable = self.device.type == "cuda" \
             and not any_dtensor(params)
         self._graph = None           # torch.cuda.CUDAGraph of one step
@@ -133,7 +148,9 @@ class ServingEngine:
         sid = TRACER.open("engine.step") if TRACER.on else -1
         try:
             if sid >= 0:
+                before = self._experts_before()
                 TRACER.stage("engine.step.launch")
+            self._calls += 1
             if not (self._graphable and self._bind_cache()):
                 self._launch()
             elif self._graph is None:
@@ -145,10 +162,36 @@ class ServingEngine:
                     TRACER.replayed()
             if sid >= 0:
                 TRACER.stage("engine.step.readback")
-            return self.current.to("cpu", copy=True).numpy()
+            out = self.current.to("cpu", copy=True).numpy()
+            if sid >= 0:
+                self._trace_experts(before, 1)
+            return out
         finally:
             if sid >= 0:
                 TRACER.close(sid)
+
+    def _experts_before(self):
+        """The expert counters at a traced span's start, on the host: the
+        previous span's read when no call ran since, else (the first
+        traced call after untraced ones) a copy of them, the one read
+        that waits for the device; None without expert layers."""
+        if self._experts is None:
+            return None
+        if self._experts_read is not None \
+                and self._experts_read[1] == self._calls:
+            return self._experts_read[0]
+        return self._experts.to("cpu", copy=True)
+
+    def _trace_experts(self, before, phase: int) -> None:
+        """The expert counters' change since ``before``, of row
+        ``phase`` (0 prefill, 1 decode), onto the open span: launches,
+        rows, experts touched and most rows on one expert, summed. Read
+        after the tokens' read-back, so the copy waits for nothing, and
+        kept for the next span's start."""
+        if before is not None:
+            now = self._experts.to("cpu", copy=True)
+            self._experts_read = (now, self._calls)
+            TRACER.experts(*(now[phase] - before[phase]).tolist())
 
     def _launch(self) -> torch.Tensor:
         """The decode step's device work on the current stream: the model
@@ -166,8 +209,8 @@ class ServingEngine:
 
         ``generate`` with B == slots adopts the prefill cache. When every
         tensor of it has the static one's shape and dtype it is copied
-        into the static tensors and dropped; otherwise (an attention ring
-        S deep under ``max_len``) the graph is dropped and the adopted
+        into the static tensors and dropped; otherwise (the first binding,
+        or a cache of another layout) the graph is dropped and the adopted
         cache becomes the static one of the next capture."""
         if self.cache is self._static:
             return self._static_ok
@@ -201,23 +244,32 @@ class ServingEngine:
         self.graph_captures += 1
 
     def generate(self, prompts, steps: int) -> GenerationResult:
-        """Prefill ``prompts`` (B <= slots, S) then greedy-decode
-        ``steps`` tokens (the first from the prefill logits).
+        """Prefill ``prompts`` (B <= slots, S; S <= max_len where the
+        cache holds attention rings) then greedy-decode ``steps`` tokens
+        (the first from the prefill logits).
 
-        With B == slots the engine adopts the prefill cache as it is, a
-        ring S deep (``max_len`` unused), as the reference does; with
-        B < slots the prefill cache is merged into the engine's
-        ``max_len``-deep cache (``_merge_batch``)."""
+        The prefill's attention rings are ``max_len`` deep: with B ==
+        slots the engine adopts that cache, with B < slots it is merged
+        into the engine's cache (``_merge_batch``), every position of the
+        leading rows written.
+        (The reference adopts an S-deep ring at B == slots, whose first
+        decode step overwrites the prompt's first key.)"""
         prompts = torch.as_tensor(prompts, device=self.device)
         b, s = prompts.shape[:2]
         if b > self.slots:
             raise ValueError(f"generate: {b} prompts for {self.slots} "
                              "slots")
+        if s > self.max_len and any("pos" in layer
+                                    for layer in self.cache["layers"]):
+            raise ValueError(f"generate: prompts of {s} positions; the "
+                             f"attention rings hold max_len {self.max_len}")
         sid = TRACER.open("engine.generate", rows=b, steps=steps) \
             if TRACER.on else -1
         try:
             if sid >= 0:
+                before = self._experts_before()
                 TRACER.stage("engine.prefill")
+            self._calls += 1
             batch = {"tokens": prompts} if self.cfg.frontend == "tokens" else \
                 {"embeddings": prompts}
             logits, cache = self._prefill(self.params, batch)
@@ -238,6 +290,7 @@ class ServingEngine:
                 TRACER.stage("engine.readback")
             out = [self.current[:b].to("cpu", copy=True).numpy()]
             if sid >= 0:
+                self._trace_experts(before, 0)
                 # the decode steps nest in generate as engine.step spans
                 TRACER.end_stage()
             for _ in range(steps - 1):

@@ -19,7 +19,7 @@ import pytest
 
 from repro.core import catalogue as ref_catalogue
 from repro.core.scheduler import QualityClass as RefQ
-from repro_torch.configs.base import ARCH_IDS
+from repro_torch.configs.base import REFERENCE_IDS
 from repro_torch.core import catalogue
 from repro_torch.core.scheduler import QualityClass
 from repro_torch.launch import mesh
@@ -35,7 +35,7 @@ def records(seed: int = 0) -> list[dict]:
     (left out by both) and one bound by each term."""
     rng = np.random.default_rng(seed)
     out = []
-    for i, arch in enumerate(ARCH_IDS):
+    for i, arch in enumerate(REFERENCE_IDS):
         rec = {"arch": arch, "shape": "decode_32k", "mesh": "single",
                "status": "ok",
                "flops": float(rng.uniform(1e9, 1e12)),
@@ -81,7 +81,7 @@ def both(tmp_path):
 
 def test_catalogues_agree_field_for_field(both):
     port, ref = both
-    assert len(port) == len(ref) == len(ARCH_IDS) - 1
+    assert len(port) == len(ref) == len(REFERENCE_IDS) - 1
     for p, r in zip(port, ref):
         assert p.model.name == r.model.name
         assert p.model.l_ref == pytest.approx(r.model.l_ref, rel=1e-12)

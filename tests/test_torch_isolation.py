@@ -71,7 +71,8 @@ def test_port_has_the_slice_modules():
             "training/checkpoint.py", "training/train.py",
             "distributed/__init__.py", "distributed/sharding.py",
             "launch/__init__.py", "launch/mesh.py", "launch/specs.py",
-            "launch/op_analysis.py", "launch/dryrun.py"]
+            "launch/op_analysis.py", "launch/dryrun.py",
+            "configs/nemotron_3_nano.py", "kernels/moe_gemm.py"]
     missing = [m for m in want if not (PORT / m).is_file()]
     assert not missing, missing
 
@@ -148,6 +149,7 @@ def wrapper_of(kernel: str):
 def test_kernel_scan_sees_every_kernel():
     assert cuda_kernels() == ["flash_attention_kernel",
                               "decode_attention_kernel",
+                              "moe_gemm_kernel",
                               "routing_score_kernel", "routing_guard_kernel",
                               "routing_topk_kernel", "routing_attain_kernel",
                               "ssd_scan_kernel"]

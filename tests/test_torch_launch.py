@@ -28,7 +28,7 @@ from repro.distributed import sharding as rs
 from repro.launch import dryrun as ref_dryrun
 from repro.launch import hlo_analysis
 from repro.launch import specs as ref_specs
-from repro_torch.configs.base import ARCH_IDS, SHAPES, get_config, reduced
+from repro_torch.configs.base import REFERENCE_IDS, SHAPES, get_config, reduced
 from repro_torch.distributed import sharding
 from repro_torch.launch import dryrun, mesh as meshes, op_analysis, specs
 from repro_torch.models import model
@@ -161,7 +161,7 @@ def _ref_flat(tree) -> dict:
 
 
 @pytest.mark.parametrize("shape_name", list(SHAPES))
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", REFERENCE_IDS)
 def test_specs_match_reference_shape_dtype_structs(arch, shape_name):
     cfg, rcfg = get_config(arch), ref_get_config(arch)
     shape = SHAPES[shape_name]
@@ -183,7 +183,7 @@ def test_specs_match_reference_shape_dtype_structs(arch, shape_name):
         assert got[k].device.type == "meta"
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", REFERENCE_IDS)
 def test_param_and_cache_specs_match_reference(arch):
     from test_torch_sharding import ref_path
     cfg, rcfg = get_config(arch), ref_get_config(arch)
@@ -205,7 +205,7 @@ def test_param_and_cache_specs_match_reference(arch):
 
 
 @pytest.mark.parametrize("shape_name", list(SHAPES))
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", REFERENCE_IDS)
 def test_applicability_matches_reference(arch, shape_name):
     assert dryrun.applicability(arch, shape_name) == \
         ref_dryrun.applicability(arch, shape_name)

@@ -308,7 +308,7 @@ class TestMoEModels:
         assert any(not bool(r["keep"].all()) for r in record[tc.n_layers:])
 
     @pytest.mark.parametrize("b,s,steps,slots,max_len", [
-        (3, 24, 6, 3, 16),      # b == slots: adopts the 24-deep ring
+        (3, 16, 6, 3, 16),      # b == slots: adopts the 16-deep ring
         (2, 24, 6, 4, 40),      # b < slots: merged; idle slots compete
     ], ids=["b_eq_slots", "b_lt_slots"])
     def test_engine_greedy_tokens_match(self, arch, b, s, steps, slots,

@@ -5,8 +5,14 @@ reference's weights from ``jax.random.PRNGKey(0)`` (carried across by
 ``model_params_from_numpy``) on prompts drawn with numpy from stated
 seeds; the port runs ``device="cpu", kernels="ref"`` (the plain versions
 of its attention kernels). Greedy tokens must be equal. Both engine
-paths are driven: ``b == slots`` adopts the prefill cache as an S-deep
-ring, ``b < slots`` merges it into the ``max_len``-deep cache.
+paths are driven: ``b == slots`` adopts the prefill cache, ``b < slots``
+merges it into the engine's; either way the port's attention rings are
+``max_len`` deep. The reference's ``b == slots`` path adopts a ring as
+deep as the prompt, whose first decode step overwrites the prompt's
+first key, so a port's ``b == slots`` wave is held to the reference's
+``b < slots`` path on the same prompts (one more slot there), and a full
+wave and a second wave to the port's own full forward
+(``TestFullWaves``).
 
 The reference's own engine tests (``tests/test_serving.py``) are ported
 as well: manual decode, slot management, positions, the partial-batch
@@ -27,9 +33,10 @@ a prompt length no chunk of 64 divides.
 On a CUDA device the engine replays its decode step as a CUDA graph
 bound to tensors it owns. On the CPU (eager steps) the static-buffer
 contract is held here (``TestStaticBuffers``): ``current`` and ``pos``
-are written in place, and an adopted cache is copied into the static
-one, or rebinds it and drops the graph where a shape differs. The tests
-marked ``cuda`` hold replayed steps to eager ones on the card, bit for
+are written in place, an adopted cache is copied into the static one,
+and a prompt longer than ``max_len`` is refused where the cache holds
+attention rings. The tests marked
+``cuda`` hold replayed steps to eager ones on the card, bit for
 bit; they need only the port, so the JAX package is imported where it
 is installed (the card's machine has none: run ``-m cuda`` there).
 """
@@ -82,14 +89,17 @@ def prompts(seed: int, b: int, s: int, vocab: int) -> np.ndarray:
 
 class TestAgainstTheReferenceEngine:
     @pytest.mark.parametrize("b,s,steps,slots,max_len", [
-        (4, 16, 4, 4, 64),      # b == slots: the S-deep prefill ring
+        (4, 16, 4, 4, 64),      # b == slots: adopts the max_len-deep ring
         (2, 8, 3, 4, 64),       # b < slots: merged into max_len
-        (3, 24, 6, 3, 16),      # b == slots, decode wraps the 24-deep ring
+        (3, 24, 6, 3, 32),      # b == slots, decode past a 24-token prompt
     ])
     def test_greedy_tokens_match(self, setup, b, s, steps, slots, max_len):
+        """A ``b == slots`` wave is held to the reference's ``b < slots``
+        path (one more slot), which keeps the whole prompt."""
         jc, jp, tc, tp = setup
         p = prompts(b * 100 + s, b, s, tc.vocab_size)
-        want = JaxEngine(jc, jp, slots=slots, max_len=max_len) \
+        want = JaxEngine(jc, jp, slots=slots + (b == slots),
+                         max_len=max_len) \
             .generate(jnp.asarray(p), steps=steps)
         got = ServingEngine(tc, tp, slots=slots, max_len=max_len, **CPU) \
             .generate(p, steps=steps)
@@ -124,7 +134,7 @@ class TestServingEngine:
         out = ServingEngine(cfg, params, slots=b, max_len=64, **CPU) \
             .generate(p, steps=steps)
         assert out.tokens.shape == (b, steps)
-        prefill, decode = make_prefill_fn(cfg, "ref"), make_decode_fn(
+        prefill, decode = make_prefill_fn(cfg, "ref", 64), make_decode_fn(
             cfg, "ref")
         logits, cache = prefill(params, {"tokens": p})
         tok = torch.argmax(logits, -1).to(torch.int32)
@@ -317,14 +327,17 @@ def decoder_setup():
 @pytest.mark.parametrize("arch", DECODERS)
 class TestDecoderEngines:
     @pytest.mark.parametrize("b,s,steps,slots,max_len", [
-        (3, 72, 5, 3, 16),      # b == slots: adopts the 72-deep prefill ring
+        (3, 72, 5, 3, 96),      # b == slots: adopts the prefill rings
         (2, 72, 5, 4, 96),      # b < slots: merged into the leading slots
     ], ids=["b_eq_slots", "b_lt_slots"])
     def test_greedy_tokens_match(self, decoder_setup, arch, b, s, steps,
                                  slots, max_len):
+        """``b == slots`` is held to the reference's ``b < slots`` path
+        (one more slot), as in ``TestAgainstTheReferenceEngine``."""
         jc, jp, tc, tp = decoder_setup(arch)
         p = prompts(b * 100 + s, b, s, tc.vocab_size)
-        want = JaxEngine(jc, jp, slots=slots, max_len=max_len) \
+        want = JaxEngine(jc, jp, slots=slots + (b == slots),
+                         max_len=max_len) \
             .generate(jnp.asarray(p), steps=steps)
         got = ServingEngine(tc, tp, slots=slots, max_len=max_len, **CPU) \
             .generate(p, steps=steps)
@@ -362,15 +375,75 @@ def test_recurrentgemma_states_ride_both_paths(decoder_setup):
                                            atol=2e-5, rtol=2e-5)
 
 
+# ------------------------------------------------------------ full waves
+def full_wave_then_second(cfg, params, second: int, **engine) -> tuple:
+    """A full wave of 3 prompts of 8 decoding 12 tokens (keys at
+    positions 8 to 18), released, then ``second`` prompts of 6 decoding
+    6: (the second wave's tokens, a fresh engine's on its prompts)."""
+    eng = ServingEngine(cfg, params, slots=3, max_len=32, **engine)
+    p1 = torch.as_tensor(prompts(12, 3, 8, cfg.vocab_size),
+                         device=eng.device)
+    eng.generate(p1, steps=12)
+    for r in range(3):
+        eng.release(r)
+    p2 = torch.as_tensor(prompts(13, second, 6, cfg.vocab_size),
+                         device=eng.device)
+    got = eng.generate(p2, steps=6).tokens
+    want = ServingEngine(cfg, params, slots=3, max_len=32, **engine) \
+        .generate(p2, steps=6).tokens
+    return got, want
+
+
+class TestFullWaves:
+    def test_a_full_wave_decodes_past_its_prompt(self, setup):
+        """``b == slots``: every greedy token equals the full forward's
+        over the prompt and the tokens before it (the prompt's first key
+        is never overwritten)."""
+        _, _, cfg, params = setup
+        b, s, steps = 3, 12, 8
+        p = torch.from_numpy(prompts(11, b, s, cfg.vocab_size))
+        got = ServingEngine(cfg, params, slots=b, max_len=32, **CPU) \
+            .generate(p, steps=steps).tokens
+        seq = torch.cat([p, torch.from_numpy(got[:, :-1]).to(p.dtype)], 1)
+        logits, _ = tm.forward(params, cfg, {"tokens": seq}, kernels="ref")
+        np.testing.assert_array_equal(
+            got, logits[:, s - 1:].argmax(-1).numpy())
+
+    @pytest.mark.parametrize("second", [2, 3], ids=["b_lt_slots",
+                                                    "b_eq_slots"])
+    def test_a_second_wave_never_attends_the_first(self, setup, second):
+        """After a full wave decoded past its prompt, a second, shorter
+        wave (partial or full) decodes as on a fresh engine: the first
+        wave's keys past the new prompts are never attended."""
+        _, _, cfg, params = setup
+        got, want = full_wave_then_second(cfg, params, second, **CPU)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("second", [2, 3], ids=["b_lt_slots",
+                                                "b_eq_slots"])
+def test_a_second_wave_never_attends_the_first_through_the_graph(
+        cuda_device, second):
+    """``TestFullWaves``' second wave on the card, its steps replayed
+    from the engine's CUDA graph."""
+    cfg = reduced(get_config("stablelm_3b"))
+    params = tm.init_params(cfg, seed=0, device=cuda_device)
+    got, want = full_wave_then_second(cfg, params, second,
+                                      device=cuda_device)
+    np.testing.assert_array_equal(got, want)
+
+
 # ------------------------------------------------------ the static buffers
 class TestStaticBuffers:
     @pytest.mark.parametrize("b", [2, 4], ids=["b_lt_slots", "b_eq_slots"])
     def test_current_and_pos_stay_in_place(self, setup, b):
         """``generate`` and ``step`` write the engine's own ``current``
-        and ``pos``, which hold the reference engine's values."""
+        and ``pos``, which hold the reference engine's values (at b ==
+        slots, those of its ``b < slots`` path's leading slots)."""
         jc, jp, tc, tp = setup
         p = prompts(40 + b, b, 8, tc.vocab_size)
-        je = JaxEngine(jc, jp, slots=4, max_len=32)
+        je = JaxEngine(jc, jp, slots=4 + (b == 4), max_len=32)
         te = ServingEngine(tc, tp, slots=4, max_len=32, **CPU)
         ptrs = (te.current.data_ptr(), te.pos.data_ptr())
         je.generate(jnp.asarray(p), steps=1)
@@ -378,39 +451,47 @@ class TestStaticBuffers:
         for k in range(3):
             assert (te.current.data_ptr(), te.pos.data_ptr()) == ptrs
             np.testing.assert_array_equal(te.current.numpy(),
-                                          np.asarray(je.current))
-            np.testing.assert_array_equal(te.pos.numpy(), np.asarray(je.pos))
+                                          np.asarray(je.current)[:4])
+            np.testing.assert_array_equal(te.pos.numpy(),
+                                          np.asarray(je.pos)[:4])
             if k < 2:
-                np.testing.assert_array_equal(te.step(), je.step())
+                np.testing.assert_array_equal(te.step(), je.step()[:4])
 
     @pytest.mark.parametrize("arch,s,max_len,copied", [
         ("mamba2_370m", 70, 16, True),      # states have no depth
         ("stablelm_3b", 16, 16, True),      # the ring is max_len deep
-        ("stablelm_3b", 8, 16, False),      # a ring S deep under max_len
-    ], ids=["mamba2", "attn_s_eq_max_len", "attn_s_lt_max_len"])
+        ("stablelm_3b", 8, 16, True),       # so is a shorter prompt's
+        ("stablelm_3b", 24, 16, None),      # a prompt past max_len: refused
+    ], ids=["mamba2", "attn_s_eq_max_len", "attn_s_lt_max_len",
+            "attn_s_gt_max_len"])
     def test_an_adopted_cache_binds_to_the_static_one(
             self, setup, mamba_setup, arch, s, max_len, copied):
         """A B == slots wave adopts the prefill cache; the next step's
-        binding copies it into the graph's static tensors when every
-        shape matches, else rebinds to it and drops the graph."""
+        binding copies it into the graph's static tensors, since every
+        shape matches (attention rings are ``max_len`` deep; Mamba-2
+        states have no depth, so a Mamba-2 prompt may be longer). An
+        attention model's prompt longer than ``max_len`` is refused before
+        any work, and the engine keeps its static cache and graph."""
         _, _, cfg, params = mamba_setup if arch == "mamba2_370m" else setup
         eng = ServingEngine(cfg, params, slots=3, max_len=max_len, **CPU)
         assert eng._bind_cache()
         static = eng.cache
         captured = eng._graph = object()    # stands in for a graph
+        if copied is None:
+            with pytest.raises(ValueError, match="max_len"):
+                eng.generate(prompts(9, 3, s, cfg.vocab_size), steps=1)
+            assert eng.cache is static and eng._graph is captured
+            assert not eng.active.any()
+            return
         eng.generate(prompts(9, 3, s, cfg.vocab_size), steps=1)
         adopted = eng.cache
         assert adopted is not static
         want = tree_map(torch.clone, adopted)
         assert eng._bind_cache()
-        assert same_layout(static, adopted) == copied
-        if copied:
-            assert eng.cache is static and eng._graph is captured
-            for got, ref in zip(tree_leaves(static), tree_leaves(want)):
-                assert torch.equal(got, ref)
-        else:
-            assert eng.cache is adopted and eng._static is adopted
-            assert eng._graph is None
+        assert same_layout(static, adopted)
+        assert eng.cache is static and eng._graph is captured
+        for got, ref in zip(tree_leaves(static), tree_leaves(want)):
+            assert torch.equal(got, ref)
 
     def test_same_layout(self):
         a = {"layers": [{"k": torch.zeros(2, 3), "pos": torch.zeros(
@@ -464,12 +545,11 @@ def start_wave(eng, cfg, params, b: int, depth: int, seed: int) -> None:
 def test_replayed_steps_equal_the_eager_step(cuda_device, arch):
     """Over a B < slots wave, a B == slots wave (the prefill cache
     adopted, then copied into the static one), after release a
-    re-admitted B < slots wave, and last a B == slots wave S deep under
-    ``max_len`` (an attention ring of another shape: the graph is dropped
-    and captured again), every replayed step's tokens and float32 logits
-    equal an eager step's from the same state, bit for bit. One capture
-    per engine and one more for a ring of another depth; every other
-    step replays."""
+    re-admitted B < slots wave, and last a B == slots wave of a prompt
+    shorter than ``max_len`` (its rings are ``max_len`` deep all the
+    same, so the graph stays), every replayed step's tokens and float32
+    logits equal an eager step's from the same state, bit for bit. One
+    capture per engine; every other step replays."""
     name, _, dtype = arch.partition("@")
     cfg = reduced(get_config(name))
     if dtype:
@@ -484,8 +564,7 @@ def test_replayed_steps_equal_the_eager_step(cuda_device, arch):
     else:
         waves = [(2, depth), (slots, depth), (3, depth),
                  (slots, depth // 2)]
-    # every layer but Mamba-2's keeps a ring as deep as its prompt
-    captures = 1 + (not cfg.is_encoder_decoder and name != "mamba2_370m")
+    captures = 1
     for k, (b, s) in enumerate(waves):
         start_wave(eng, cfg, params, b, s, seed=k)
         cache, cur, pos = tree_map(torch.clone, eng.cache), \

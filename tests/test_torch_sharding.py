@@ -27,7 +27,7 @@ from jax.sharding import AbstractMesh
 from repro.configs import get_config as ref_get_config
 from repro.distributed import sharding as rs
 from repro.models import model as ref_model
-from repro_torch.configs.base import ARCH_IDS, SHAPES, get_config
+from repro_torch.configs.base import REFERENCE_IDS, SHAPES, get_config
 from repro_torch.distributed import sharding
 from repro_torch.launch import mesh as meshes
 from repro_torch.launch import specs
@@ -87,7 +87,7 @@ def _port_leaves(tree) -> dict:
 @pytest.fixture(scope="module")
 def shapes():
     out = {}
-    for arch in ARCH_IDS:
+    for arch in REFERENCE_IDS:
         cfg, rcfg = get_config(arch), ref_get_config(arch)
         out[arch] = (cfg, specs.params_specs(cfg),
                      ref_leaves(ref_model.param_shapes(rcfg)))
@@ -96,7 +96,7 @@ def shapes():
 
 @pytest.mark.parametrize("fsdp", [True, False])
 @pytest.mark.parametrize("mesh_kind", list(MESHES))
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", REFERENCE_IDS)
 def test_param_spec_matches_reference(shapes, arch, mesh_kind, fsdp):
     cfg, params, ref = shapes[arch]
     rmesh = ref_mesh(mesh_kind)
@@ -116,7 +116,7 @@ def test_param_spec_matches_reference(shapes, arch, mesh_kind, fsdp):
 
 
 @pytest.mark.parametrize("mesh_kind", list(MESHES))
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", REFERENCE_IDS)
 def test_opt_state_spec_matches_reference(shapes, arch, mesh_kind):
     cfg, params, ref = shapes[arch]
     rcfg = ref_get_config(arch)
@@ -143,7 +143,7 @@ def test_opt_state_spec_matches_reference(shapes, arch, mesh_kind):
 
 @pytest.mark.parametrize("mesh_kind", list(MESHES))
 @pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", REFERENCE_IDS)
 def test_cache_spec_matches_reference(arch, shape_name, mesh_kind):
     cfg, rcfg = get_config(arch), ref_get_config(arch)
     shape = SHAPES[shape_name]
@@ -166,7 +166,7 @@ def test_cache_spec_matches_reference(arch, shape_name, mesh_kind):
 
 @pytest.mark.parametrize("mesh_kind", list(MESHES))
 @pytest.mark.parametrize("shape_name", list(SHAPES))
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", REFERENCE_IDS)
 def test_batch_and_token_specs_match_reference(arch, shape_name, mesh_kind):
     from repro.launch import specs as ref_specs
     cfg, rcfg = get_config(arch), ref_get_config(arch)

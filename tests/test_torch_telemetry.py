@@ -4,7 +4,8 @@ The tracer itself (scopes, contiguous stages, counters, ``drain``), the
 spans that ``ControlPlane.flush`` and the routing policies record
 (``admission.flush`` with its five stages and copy counters), the
 engine's (``engine.generate`` / ``engine.step`` with their launches and
-read-backs), and that tracing changes no decision and no token. CPU,
+read-backs, and the expert layers' routing counters of a hybrid stack),
+and that tracing changes no decision and no token. CPU,
 ``backend="ref"`` (the plain versions of the routing kernels) and
 ``kernels="ref"``.
 """
@@ -20,8 +21,9 @@ from repro_torch.control.plane import ControlPlane
 from repro_torch.core import catalogue, latency_model as lm
 from repro_torch.core.scheduler import QualityClass, Request
 from repro_torch.core.telemetry import TRACER, SpanRecords, Tracer
-from repro_torch.models import model
+from repro_torch.models import layers, model
 from repro_torch.serving.engine import ServingEngine
+from test_torch_nemotron_h import draw, tiny
 
 STAGES = ("admission.rates", "admission.upload", "admission.kernel",
           "admission.download", "admission.settle")
@@ -352,6 +354,107 @@ class TestEngineSpans:
         eng.generate(engine_setup[2], 2)
         eng.step()
         assert len(TRACER.drain()) == 0
+
+
+# ------------------------------------------------------- expert counters
+@pytest.fixture(scope="module")
+def hybrid_setup():
+    cfg = tiny()
+    gen = np.random.default_rng(6)
+    return cfg, draw(cfg, 3), gen.integers(0, cfg.vocab_size, (3, 10))
+
+
+def routed(record: dict, n_experts: int) -> tuple:
+    """(rows, experts touched, most rows on one expert) of one
+    ``MOE_RECORD`` entry."""
+    counts = np.bincount(record["gate_idx"].reshape(-1).numpy(),
+                         minlength=n_experts)
+    return int(counts.sum()), int((counts > 0).sum()), int(counts.max())
+
+
+class TestExpertCounters:
+    def test_counters_on_generate_and_step_equal_the_routing(
+            self, tracing, hybrid_setup):
+        """Each span's counters sum its expert layers' routing, as
+        ``MOE_RECORD`` records it: the prefill's on ``engine.generate``,
+        each step's on its ``engine.step``."""
+        cfg, params, prompts = hybrid_setup
+        eng = ServingEngine(cfg, params, slots=4, max_len=16,
+                            device="cpu", kernels="ref")
+        layers.MOE_RECORD = []
+        try:
+            eng.generate(prompts, 3)
+            records = layers.MOE_RECORD
+        finally:
+            layers.MOE_RECORD = None
+        rec = tracing.drain()
+        n_moe = cfg.hybrid_pattern.count("E")
+        spans = [rec.name.index("engine.generate")] + [
+            i for i in range(len(rec)) if rec.name[i] == "engine.step"]
+        assert len(records) == n_moe * len(spans)
+        for k, sid in enumerate(spans):
+            mine = [routed(r, cfg.n_experts)
+                    for r in records[k * n_moe:(k + 1) * n_moe]]
+            got = (rec.expert_launches[sid], rec.expert_rows[sid],
+                   rec.expert_touched[sid], rec.expert_max_rows[sid])
+            assert got == (n_moe, *map(sum, zip(*mine))), k
+        assert rec.expert_rows[spans[0]] == n_moe * 3 * 10 * cfg.top_k
+        assert rec.expert_rows[spans[1]] == n_moe * 4 * cfg.top_k
+
+    def test_the_tracer_off_reads_no_counter(self, hybrid_setup,
+                                             monkeypatch):
+        """With the tracer off the engine never reads the device's
+        counters (no sync); they still count on the device."""
+        cfg, params, prompts = hybrid_setup
+        eng = ServingEngine(cfg, params, slots=4, max_len=16,
+                            device="cpu", kernels="ref")
+        before = eng._experts.clone()
+        monkeypatch.setattr(eng, "_experts_before", _raise)
+        monkeypatch.setattr(eng, "_trace_experts", _raise)
+        TRACER.drain()
+        eng.generate(prompts, 2)
+        eng.step()
+        assert len(TRACER.drain()) == 0
+        assert int(eng._experts[0, 0] - before[0, 0]) == \
+            cfg.hybrid_pattern.count("E")
+        assert int(eng._experts[1, 0] - before[1, 0]) == \
+            2 * cfg.hybrid_pattern.count("E")
+
+    def test_a_span_starts_from_the_previous_read(self, tracing,
+                                                  hybrid_setup,
+                                                  monkeypatch):
+        """Under the tracer a span's start reads the counters only when
+        no span read them since the last call: the first traced call, or
+        the first after an untraced one. Every other span starts from
+        the previous span's read, so the tokens' read-back stays the
+        only wait."""
+        cfg, params, prompts = hybrid_setup
+        eng = ServingEngine(cfg, params, slots=4, max_len=16,
+                            device="cpu", kernels="ref")
+        real = eng._experts_before
+        fresh = []
+
+        def spy():
+            kept = eng._experts_read
+            got = real()
+            fresh.append(kept is None or got is not kept[0])
+            return got
+        monkeypatch.setattr(eng, "_experts_before", spy)
+        eng.generate(prompts, 3)
+        eng.step()
+        tracing.disable()
+        eng.step()
+        tracing.enable()
+        eng.step()
+        eng.step()
+        assert fresh == [True, False, False, False, True, False]
+        rec = tracing.drain()
+        steps = [i for i in range(len(rec)) if rec.name[i] == "engine.step"]
+        assert [rec.expert_launches[i] for i in steps] == \
+            [cfg.hybrid_pattern.count("E")] * 5
+
+    def test_an_expert_free_engine_keeps_no_counters(self, engine_setup):
+        assert new_engine(engine_setup)._experts is None
 
 
 # ------------------------------------------------------- calls that raise

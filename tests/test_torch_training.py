@@ -422,7 +422,8 @@ def test_step_runs_in_one_float32_gemm_scope(monkeypatch):
 
     real_norm = tl.apply_norm
     monkeypatch.setattr(tl, "apply_norm",
-                        lambda kind, p, x: real_norm(kind, p, Probe.apply(x)))
+                        lambda kind, p, x, *eps: real_norm(
+                            kind, p, Probe.apply(x), *eps))
     saved = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("medium")
     try:

@@ -219,3 +219,26 @@ def test_step_counters_read_the_graph_counter():
     assert ts.counters(window(rec))["step"] == want
     assert ts.step_counters(fleet_records()) is None
     assert "step" not in ts.counters(window(fleet_records()))
+
+
+def test_expert_counters_per_launch_by_phase():
+    """``program_counters.experts``: the expert layers' launches of the
+    prefills (``engine.generate``) and of the steps, and per launch their
+    rows, experts touched and most rows on one expert."""
+    rec = served_records()
+    gen = next(i for i in range(len(rec)) if rec.name[i] == "engine.generate")
+    rec.expert_launches[gen] = 2
+    rec.expert_rows[gen] = 1536
+    rec.expert_touched[gen] = 250
+    rec.expert_max_rows[gen] = 40
+    for t0 in (15.0, 16.0):
+        span(rec, "engine.step", -1, t0, t0 + 0.02, expert_launches=2,
+             expert_rows=384, expert_touched=180, expert_max_rows=10)
+    want = {"prefill": {"launches": 2, "rows": 768.0, "touched": 125.0,
+                        "max_rows": 20.0},
+            "decode": {"launches": 4, "rows": 192.0, "touched": 90.0,
+                       "max_rows": 5.0}}
+    assert ts.expert_counters(rec) == want
+    assert ts.counters(window(rec))["experts"] == want
+    assert ts.expert_counters(fleet_records()) is None
+    assert "experts" not in ts.counters(window(served_records()))

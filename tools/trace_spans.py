@@ -251,11 +251,32 @@ def step_counters(rec):
             "captures": len(ids_of(rec, "engine.step.capture"))}
 
 
+def expert_counters(rec):
+    """The expert layers' routing counters of ``engine.generate`` (its
+    prefill) and ``engine.step`` spans: per span kind, the expert
+    launches (one a layer), and per launch the rows routed, the experts
+    touched and the most rows on one expert; None where no span ran an
+    expert layer."""
+    out = {}
+    for key, name in (("prefill", "engine.generate"),
+                      ("decode", "engine.step")):
+        ids = ids_of(rec, name)
+        n = sum(rec.expert_launches[i] for i in ids)
+        if n:
+            out[key] = {
+                "launches": n,
+                "rows": sum(rec.expert_rows[i] for i in ids) / n,
+                "touched": sum(rec.expert_touched[i] for i in ids) / n,
+                "max_rows": sum(rec.expert_max_rows[i] for i in ids) / n}
+    return out or None
+
+
 def counters(w: Window) -> dict:
     """The span counters, summarised. Per flush (the whole window): rows
     decided and as padded for the routing kernel, and bytes copied each
     way. Per wave (untraced): rows, steps, and ``engine.prefill`` ms by
-    rows. Decode steps (the whole window): ``step_counters``."""
+    rows. Decode steps (the whole window): ``step_counters``. Expert
+    layers (the whole window): ``expert_counters``."""
     rec, out = w.rec, {}
     fl = sorted(flush_ids(w, untraced=False), key=lambda i: rec.start[i])
     if fl:
@@ -279,6 +300,9 @@ def counters(w: Window) -> dict:
     steps = step_counters(rec)
     if steps:
         out["step"] = steps
+    experts = expert_counters(rec)
+    if experts:
+        out["experts"] = experts
     return out
 
 
