@@ -11,7 +11,8 @@ Each phase prints one JSON object per line:
 0. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
 1. the kernel build: one ``nvcc`` per source (``kernels/csrc/routing.cu``,
    ``kernels/csrc/attention.cu``, ``kernels/csrc/ssd.cu``), all started
-   together, with their ptxas register and spill lines, and per body of
+   together, with their ptxas register and spill lines (``ssd_step``'s
+   among ``ssd.cu``'s), and per body of
    ``ssd_scan`` (float32, bf16) and of the routing kernels (a narrow and
    a wide body each of ``routing_score`` / ``routing_topk`` /
    ``routing_attain``, the staged and unstaged body of ``routing_guard``)
@@ -85,11 +86,16 @@ Each phase prints one JSON object per line:
    ``PREFILL_REL`` x max |logit|, greedy first tokens equal except at a
    near-tie (``NEAR_TIE``);
 13. serving Mamba2-370m in bf16 as phase 9, with 8 x 2048 prompts:
-   exactly 48 ``ssd_scan`` launches per prefill and none per decode step;
+   exactly 48 ``ssd_scan`` launches per prefill and none per decode
+   step, 48 ``ssd_step`` launches per decode step and none per prefill;
 14. ``ssd_scan`` times at the served shape (100 launches) and the long
    prompt (20 launches) against its plain version (the mean wall time
    of ``PLAIN_RUNS`` runs: a Python loop over L), its bound and the
-   earlier CUDA-core design's times (``SSD_EARLIER_MS``); then the
+   earlier CUDA-core design's times (``SSD_EARLIER_MS``); ``ssd_step``
+   against its plain version (the state bit for bit, y within its
+   sum-order bound) and its times at both served decode steps (B 64 x
+   32 heads, B 32 x 64 heads) beside its plain version, its bound and
+   the launch floor; then the
    routing kernels' times at the main path's shapes and at fleet scale
    (``routing_topk`` and ``routing_attain`` also at k = 8, their most
    duplicate passes; ``routing_guard`` also at its staging cap, I = 32,
@@ -1779,14 +1785,16 @@ SSM_KINDS = ("mamba2", "hybrid_mamba")
 
 def path_kernels(cfg) -> tuple:
     """The kernels ``cfg``'s layers launch: the attention pair for
-    attention layers (and the encoder-decoder), ``ssd_scan`` for Mamba-2
-    layers, ``moe_gemm`` for a hybrid stack's expert layers."""
+    attention layers (and the encoder-decoder), ``ssd_scan`` and
+    ``ssd_step`` for Mamba-2 layers, ``moe_gemm`` for a hybrid stack's
+    expert layers."""
     from repro_torch.models.transformer import layer_kinds
     if cfg.is_encoder_decoder:
         return attention_kernels()
     kinds = set(layer_kinds(cfg))
     out = attention_kernels() if kinds & set(ATTN_KINDS) else ()
-    out += (ssd_kernel(),) if kinds & set(SSM_KINDS) else ()
+    out += (ssd_kernel(), ssd_step_kernel()) if kinds & set(SSM_KINDS) \
+        else ()
     return out + ((expert_kernel(),) if "hybrid_moe" in kinds else ())
 
 
@@ -1795,7 +1803,8 @@ def expected_launches(cfg, steps: int) -> tuple[dict, dict]:
     decode step): one flash_attention per attention layer and prefill,
     one decode_attention per attention layer and decode step, one
     ssd_scan per Mamba-2 layer and prefill and none in a decode step,
-    two moe_gemm (up, down) per expert layer and pass.
+    one ssd_step per Mamba-2 layer and decode step and none in a
+    prefill, two moe_gemm (up, down) per expert layer and pass.
     The encoder-decoder's prefill runs flash_attention in every encoder
     layer and twice in every decoder layer (self, cross), each decode
     step decode_attention (self) and flash_attention at Sq 1 (cross) in
@@ -1812,9 +1821,9 @@ def expected_launches(cfg, steps: int) -> tuple[dict, dict]:
     n_moe = 2 * kinds.count("hybrid_moe")
     gen = {"flash_attention": n_attn,
            "decode_attention": n_attn * (steps - 1), "ssd_scan": n_ssm,
-           "moe_gemm": n_moe * steps}
+           "ssd_step": n_ssm * (steps - 1), "moe_gemm": n_moe * steps}
     step = {"flash_attention": 0, "decode_attention": n_attn,
-            "ssd_scan": 0, "moe_gemm": n_moe}
+            "ssd_scan": 0, "ssd_step": n_ssm, "moe_gemm": n_moe}
     names = [k.__name__ for k in path_kernels(cfg)]
     return ({k: gen[k] for k in names}, {k: step[k] for k in names})
 
@@ -2467,6 +2476,11 @@ def ssd_kernel():
     return ssd_scan
 
 
+def ssd_step_kernel():
+    from repro_torch.kernels.ssd_step import ssd_step
+    return ssd_step
+
+
 def expert_kernel():
     from repro_torch.kernels.moe_gemm import moe_gemm
     return moe_gemm
@@ -2742,6 +2756,111 @@ def phase_ssd_times(dev) -> dict:
     return out
 
 
+# The decode step's state update (``ssd_step``) at the served steps:
+# mamba2_370m's robot_chat (64 slots, 32 heads over 1 group) and
+# Nemotron-H's (32 slots, 64 heads over 8 groups), P 64, N 128; before
+# them the CPU tests' shapes (tests/test_torch_ssd_step.py), with P and N
+# at their limits
+SSD_STEP_SHAPES = {"mamba2_370m": dict(b=64, h=32, g=1, p=64, n=128),
+                   "nemotron_3_nano": dict(b=32, h=64, g=8, p=64, n=128)}
+SSD_STEP_CASES = [(2, 32, 1, 64, 128), (2, 64, 8, 64, 128), (3, 3, 1, 5, 4),
+                  (1, 4, 2, 7, 12), (2, 6, 3, 24, 20), (5, 2, 2, 1, 8),
+                  (2, 4, 4, 40, 72), (1, 1, 1, 64, 128), (3, 5, 1, 33, 124),
+                  (2, 3, 3, 63, 4)]
+
+
+def ssd_step_inputs(seed, b, h, g, p, n, dev, cols=True) -> list:
+    """[h, dt, a, x, b, c, d_skip] as the decode step hands them over: x
+    a view of a conv output row (x | B | C), laid out by column (strides
+    (1, B), as the step's einsum leaves it) or with ``cols`` False by
+    row; B and C repeated from G groups over the heads, dt a softplus of
+    N(0, 1), a = -linspace(1, 16, H); the state and d_skip ~ N(0, 1)."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    conv = normal(h * p + 2 * g * n, b).t() if cols \
+        else normal(b, h * p + 2 * g * n)
+    rep = h // g
+    bb = conv[:, h * p:h * p + g * n].reshape(b, g, n) \
+        .repeat_interleave(rep, dim=1)
+    cc = conv[:, h * p + g * n:].reshape(b, g, n) \
+        .repeat_interleave(rep, dim=1)
+    return [normal(b, h, p, n), F.softplus(normal(b, h)),
+            -torch.linspace(1.0, 16.0, h, device=dev),
+            conv[:, :h * p].reshape(b, h, p), bb, cc, normal(h)]
+
+
+def ssd_step_bytes_ops(b, h, p, n) -> tuple[int, int]:
+    """The float32 state read once and written once; x read and y written;
+    b, c, dt, a and d_skip read once. FLOPs: per state element its decay,
+    (dt x) b, their sum, h c and its sum (5); per state row dt x, d_skip
+    x and its add (3); per head dt a (1)."""
+    return (8 * b * h * p * n + 8 * b * h * p + 8 * b * h * n + 4 * b * h
+            + 8 * h, 5 * b * h * p * n + 3 * b * h * p + b * h)
+
+
+def phase_ssd_step(dev) -> dict:
+    """``ssd_step`` against its plain version on the card: the new state
+    bit for bit, y within the bound of its sum order (N 2^-23 x sum |h c|
+    + 2^-23 |y|: tests/test_torch_ssd_step.py) at ``SSD_STEP_CASES`` and
+    at the served steps (``SSD_STEP_SHAPES``), x laid out by row and by
+    column; then at the served steps (x by column, as served) the
+    kernel's device time, the plain version's, the bytes bound and the
+    launch floor. Returns {"max_y_err": the largest y error at the
+    served steps, "launch_floor_ms", arch: times}."""
+    import torch
+    from repro_torch.kernels import ref
+    kernel = ssd_step_kernel()
+    cases = [("b{}_h{}_g{}_p{}_n{}".format(*c),
+              dict(zip(("b", "h", "g", "p", "n"), c)))
+             for c in SSD_STEP_CASES] + list(SSD_STEP_SHAPES.items())
+    cases = [(f"{label}_{'cols' if cols else 'rows'}", label, kw, cols)
+             for label, kw in cases for cols in (False, True)]
+    worst = 0.0
+    for i, (label, name, kw, cols) in enumerate(cases):
+        args = ssd_step_inputs(1300 + i, dev=dev, cols=cols, **kw)
+        want_h = args[0].clone()
+        want = ref.ssd_step_ref(want_h, *args[1:])
+        got = kernel(*args)
+        sync(dev)
+        same = bool(torch.equal(args[0], want_h))
+        err = (got - want).abs()
+        mass = (args[0] * args[5][:, :, None, :]).abs().sum(-1)
+        tol = kw["n"] * 2.0 ** -23 * mass + 2.0 ** -23 * want.abs()
+        row = {"phase": "ssd_step_parity", "case": label,
+               "h_bit_equal": same, "y_max_abs_err": err.max().item(),
+               "y_err_over_bound": (err / tol).max().item()}
+        emit(row)
+        if not same:
+            fail(f"ssd_step {label}: the state differs from the plain "
+                 f"version's in {int((args[0] != want_h).sum())} elements")
+        if not bool((err <= tol).all()):
+            fail(f"ssd_step {label}: y off by {row['y_max_abs_err']}, "
+                 f"{row['y_err_over_bound']} of its bound")
+        if name in SSD_STEP_SHAPES:
+            worst = max(worst, row["y_max_abs_err"])
+        del args, want_h, want, got
+    one = torch.zeros(1, device=dev)
+    floor = time_launches(lambda: one.fill_(1.0), dev)
+    out = {"max_y_err": worst, "launch_floor_ms": floor}
+    for arch, kw in SSD_STEP_SHAPES.items():
+        args = ssd_step_inputs(1400, dev=dev, **kw)
+        nbytes, ops = ssd_step_bytes_ops(kw["b"], kw["h"], kw["p"], kw["n"])
+        bms, by = bound_ms(nbytes, ops)
+        out[arch] = row = dict(
+            shape="b{b}_h{h}_g{g}_p{p}_n{n}_f32".format(**kw),
+            ms=time_launches(lambda: kernel(*args), dev),
+            plain_ms=time_launches(lambda: ref.ssd_step_ref(*args), dev),
+            bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops,
+            launch_floor_ms=floor)
+        emit({"phase": "times", "kernel": "ssd_step", "arch": arch, **row})
+        del args
+    return out
+
+
 # ----------------------------------------------------- training: phase --
 # The trainer (``repro_torch.training``) on the card, through the fused
 # path (``kernels="fused"``: blocked attention with its hand-written
@@ -2782,9 +2901,9 @@ def all_kernels() -> tuple:
                                                     routing_guard,
                                                     routing_topk)
     from repro_torch.kernels.routing_score import routing_score
-    return attention_kernels() + (ssd_kernel(), routing_score,
-                                  routing_guard, routing_topk,
-                                  routing_attain)
+    return attention_kernels() + (ssd_kernel(), ssd_step_kernel(),
+                                  routing_score, routing_guard,
+                                  routing_topk, routing_attain)
 
 
 def example_config():
@@ -3575,8 +3694,9 @@ def served_costs(cfg, batch: int, prompt: int):
     served path's hand-written kernels take no meta tensors, so each is
     stood in for by an op that makes its outputs and adds its own bytes
     and FLOPs (``flash_bytes_ops``, ``decode_bytes_ops``,
-    ``ssd_bytes_ops``, the kernel table's bounds); every other op is
-    counted by the analysis. Returns {"prefill", "decode"}: Costs."""
+    ``ssd_bytes_ops``, ``ssd_step_bytes_ops``, the kernel table's
+    bounds); every other op is counted by the analysis. Returns
+    {"prefill", "decode"}: Costs."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import op_analysis, specs
@@ -3612,10 +3732,14 @@ def served_costs(cfg, batch: int, prompt: int):
             return y
         return y, torch.empty((bs, h, p, b.shape[3]), dtype=torch.float32,
                               device=x.device)
+    def ssd_step(h, dt, a, x, b, c, d_skip, impl="cuda"):
+        charge(ssd_step_bytes_ops(*h.shape))
+        return torch.empty(h.shape[:3], dtype=torch.float32,
+                           device=h.device)
     params = model.init_params(cfg, device="meta")
-    saved = (ops.attention, ops.decode_attention, ops.ssd_scan)
-    ops.attention, ops.decode_attention, ops.ssd_scan = \
-        attention, decode_attention, ssd_scan
+    saved = (ops.attention, ops.decode_attention, ops.ssd_scan, ops.ssd_step)
+    ops.attention, ops.decode_attention, ops.ssd_scan, ops.ssd_step = \
+        attention, decode_attention, ssd_scan, ssd_step
     out = {}
     try:
         with counter:
@@ -3629,7 +3753,8 @@ def served_costs(cfg, batch: int, prompt: int):
                               kernels="cuda")
         out["decode"] = counter.costs
     finally:
-        ops.attention, ops.decode_attention, ops.ssd_scan = saved
+        ops.attention, ops.decode_attention, ops.ssd_scan, \
+            ops.ssd_step = saved
     return out
 
 
@@ -3824,6 +3949,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssd_times = phase_ssd_times(dev)
     torch.cuda.empty_cache()
+    step_times = phase_ssd_step(dev)
+    torch.cuda.empty_cache()
 
     # the decoders of slices 6 and 7: RecurrentGemma-2B whole, the dense
     # and MoE configs at full width (parity one period, serving the depth
@@ -3928,6 +4055,19 @@ def main() -> int:
         "shape": tm["shape"], "plain_runs": tm["plain_runs"],
         "long_ms": long["ms"], "long_plain_ms": long["plain_ms"],
         "long_bound_ms": long["bound_ms"]})
+    tm, nem = step_times["mamba2_370m"], step_times["nemotron_3_nano"]
+    rows.append({
+        "name": "ssd_step", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "none: the reference's decode step is plain jnp",
+        "launches": mamba["launches"]["ssd_step"],
+        "max_abs_err": step_times["max_y_err"], "ms": tm["ms"],
+        "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+        "bound_by": tm["bound_by"], "library_ms": None,
+        "shape": tm["shape"], "nemotron_shape": nem["shape"],
+        "nemotron_ms": nem["ms"], "nemotron_plain_ms": nem["plain_ms"],
+        "nemotron_bound_ms": nem["bound_ms"],
+        "launch_floor_ms": step_times["launch_floor_ms"]})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

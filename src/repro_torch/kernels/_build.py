@@ -82,6 +82,9 @@ SIGNATURES = {
         "laimr_ssd_scan": [_VOIDP] * 9 + [_INT] * 7 + [_VOIDP],
         # dtype -> dynamic shared memory bytes of that body
         "laimr_ssd_smem_bytes": [_INT],
+        # h, dt, a, x, b, c, d_skip, y, x's three strides, B, H, P, N,
+        # stream
+        "laimr_ssd_step": [_VOIDP] * 8 + [_INT] * 7 + [_VOIDP],
     },
     "moe": {
         # a, rows (or null), w, out, tile_expert, tile_row0, ends, n_tiles,

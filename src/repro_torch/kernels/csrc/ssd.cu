@@ -83,6 +83,9 @@
 // body takes its decays as ex2.approx (2^-22 relative) of log2-scaled
 // seg, far inside the bf16 bound. Hand PTX (wgmma, ldmatrix, TMA,
 // mbarrier, cp.async); no CUTLASS headers, no library call.
+//
+// ssd_step_kernel, beside it, is one decode token's state update (the
+// served decode step's recurrence; its note is at the kernel).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1131,6 +1134,110 @@ int launch_ssd(SsdArgs a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// ssd_step_kernel: one decode token's SSM recurrence, the plain version
+// kernels/ref.py: ssd_step_ref. It replaces no TPU kernel: the reference's
+// decode step is plain jnp. Per (batch row, head), with the (P x N) state
+// h in float32, updated in place:
+//
+//   decay = exp(dt * a)
+//   h     = h * decay + (dt * x) b^T
+//   y     = h c + d_skip * x                     (P values, float32)
+//
+// What bounds it: bytes. The state is read once and written once (8
+// bytes a state element against 5 FLOP: ~0.6 FLOP a byte); x, b, c, y
+// are ~1% beside it. At mamba2_370m's served step (B 64, H 32, P 64,
+// N 128) a layer's state is 67 MB, more than the 50 MB L2, so nothing of
+// it is found there by the next layer or the next step.
+//
+// Design: one block of 256 threads per (row, head), B x H blocks. Warp w
+// owns state rows [w R, (w + 1) R), R = ceil(P / 8) <= 8; lane l owns
+// columns 4l .. 4l + 3 (one float4; lanes past N / 4 idle) with its four
+// b and c values in registers. Every lane issues its R 16-byte state
+// loads before it computes, so each SM keeps tens of KB in flight, and
+// they stream (__ldcs / __stcs, evict-first). The update keeps the plain
+// version's rounding (h * decay, dt * x, (dt x) * b, their sum, each
+// rounded: no contraction; expf as PyTorch's exp), so the new h equals
+// the plain version's bit for bit. y sums over N per lane (fmaf) and then
+// over the lanes by 5 xor shuffles: only its order differs.
+constexpr int kStepThreads = 256;
+constexpr int kStepWarps = kStepThreads / 32;
+constexpr int kStepRows = kPMax / kStepWarps;   // rows a warp holds, at most
+
+// h (B, H, P, N); dt (B, H); a, d_skip (H,); x (B, H, P) at element
+// strides (x_sb, x_sh, x_sp), any layout (the decode step's is a view of
+// its conv output); b, c (B, H, N); y (B, H, P). N % 4 == 0.
+__global__ void __launch_bounds__(kStepThreads)
+ssd_step_kernel(float* __restrict__ h, const float* __restrict__ dt,
+                const float* __restrict__ a, const float* __restrict__ x,
+                const float* __restrict__ b, const float* __restrict__ c,
+                const float* __restrict__ d_skip, float* __restrict__ y,
+                int x_sb, int x_sh, int x_sp, int H, int P, int N) {
+  const int bh = blockIdx.x;              // batch row * H + head
+  const int head = bh % H;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rows = (P + kStepWarps - 1) / kStepWarps;
+  const int p0 = warp * rows;
+  const int n4 = N >> 2;
+  const bool on = lane < n4;
+  const float dtv = dt[bh];
+  const float decay = expf(__fmul_rn(dtv, a[head]));
+  const float* xr = x + static_cast<int64_t>(bh / H) * x_sb
+                    + static_cast<int64_t>(head) * x_sh;
+  float4* hr =
+      reinterpret_cast<float4*>(h) + static_cast<int64_t>(bh) * P * n4;
+  const int64_t bc = static_cast<int64_t>(bh) * n4 + lane;
+  float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 cv = bv;
+  if (on) {
+    bv = __ldg(reinterpret_cast<const float4*>(b) + bc);
+    cv = __ldg(reinterpret_cast<const float4*>(c) + bc);
+  }
+  float4 hv[kStepRows];
+  float xv[kStepRows];
+#pragma unroll
+  for (int j = 0; j < kStepRows; ++j) {
+    const int p = p0 + j;
+    hv[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    xv[j] = 0.f;
+    if (j < rows && p < P) {
+      xv[j] = __ldg(xr + static_cast<int64_t>(p) * x_sp);
+      if (on) hv[j] = __ldcs(hr + p * n4 + lane);
+    }
+  }
+  float s[kStepRows];
+#pragma unroll
+  for (int j = 0; j < kStepRows; ++j) {
+    const int p = p0 + j;
+    s[j] = 0.f;
+    if (j < rows && p < P && on) {
+      const float dx = __fmul_rn(dtv, xv[j]);
+      float4 v = hv[j];
+      v.x = __fadd_rn(__fmul_rn(v.x, decay), __fmul_rn(dx, bv.x));
+      v.y = __fadd_rn(__fmul_rn(v.y, decay), __fmul_rn(dx, bv.y));
+      v.z = __fadd_rn(__fmul_rn(v.z, decay), __fmul_rn(dx, bv.z));
+      v.w = __fadd_rn(__fmul_rn(v.w, decay), __fmul_rn(dx, bv.w));
+      __stcs(hr + p * n4 + lane, v);
+      s[j] = dot4(v, cv, 0.f);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kStepRows; ++j) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s[j] = __fadd_rn(s[j], __shfl_xor_sync(kFull, s[j], off));
+  }
+  const float d = d_skip[head];
+#pragma unroll
+  for (int j = 0; j < kStepRows; ++j) {
+    const int p = p0 + j;
+    if (lane == j && j < rows && p < P)
+      y[static_cast<int64_t>(bh) * P + p] =
+          __fadd_rn(s[j], __fmul_rn(xv[j], d));
+  }
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype 0 is float32, 1 bfloat16
@@ -1153,6 +1260,25 @@ int laimr_ssd_scan(const void* x, const float* dt, const float* a,
   if (dtype == 0) return launch_ssd<float>(args, B, st);
   if (dtype == 1) return launch_ssd<__nv_bfloat16>(args, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One decode token's state update (ssd_step_kernel): h (B, H, P, N)
+// float32 in place, y (B, H, P) float32; x at element strides (x_sb,
+// x_sh, x_sp). The wrapper checks shapes, the contiguity and 16-byte
+// alignment of h, b and c.
+int laimr_ssd_step(float* h, const float* dt, const float* a, const float* x,
+                   const float* b, const float* c, const float* d_skip,
+                   float* y, int x_sb, int x_sh, int x_sp, int B, int H,
+                   int P, int N, void* stream) {
+  if (B < 0 || H < 1 || P < 1 || P > kPMax || N < 4 || N > kNMax ||
+      N % 4 != 0 || x_sb < 0 || x_sh < 0 || x_sp < 0 ||
+      static_cast<int64_t>(B) * H > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  ssd_step_kernel<<<B * H, kStepThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      h, dt, a, x, b, c, d_skip, y, x_sb, x_sh, x_sp, H, P, N);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The dynamic shared memory of dtype's body, in bytes.

@@ -1,5 +1,5 @@
-"""Dispatch facade for the port's kernels (routing, attention, SSD,
-experts).
+"""Dispatch facade for the port's kernels (routing, attention, SSD scan
+and state step, experts).
 
 Each op has three execution paths, chosen per call with ``impl=``:
 
@@ -9,11 +9,11 @@ Each op has three execution paths, chosen per call with ``impl=``:
   CUDA device: a CPU tensor raises here instead of silently running the
   plain version. The kernels have no backward: their wrappers refuse
   inputs that need a gradient;
-* ``"fused"`` — the attention and SSD ops through
+* ``"fused"`` — the attention and SSD scan ops through
   ``repro_torch.kernels.fused`` (plain torch on any device, blocked
   attention with a hand-written backward: the path training takes); the
-  routing ops, which have no fused form, run their plain versions, as
-  the reference's facade does.
+  routing ops, the SSD state step and the expert GEMM, which have no
+  fused form, run their plain versions, as the reference's facade does.
 """
 from __future__ import annotations
 
@@ -140,6 +140,16 @@ def ssd_scan(x, dt, a, b, c, d_skip, initial_state=None,
     from repro_torch.kernels import ssd_scan as ssd
     return ssd.ssd_scan(x, dt, a, b, c, d_skip, initial_state=initial_state,
                         return_final_state=return_final_state)
+
+
+def ssd_step(h, dt, a, x, b, c, d_skip, impl: str = "ref"):
+    """One decode token's Mamba-2 state update, h in place. See
+    ``ref.ssd_step_ref``; ``"fused"`` runs the plain version."""
+    _require_cuda("ssd_step", h, impl)
+    if impl in ("ref", "fused"):
+        return _ref.ssd_step_ref(h, dt, a, x, b, c, d_skip)
+    from repro_torch.kernels import ssd_step as step
+    return step.ssd_step(h, dt, a, x, b, c, d_skip)
 
 
 def moe_gemm(a, rows, w, plan, act: str = "none", out_dtype=None,

@@ -29,7 +29,10 @@ P @ V, and the output cast to ``q``'s dtype.
 ``ssd_scan_ref`` is the plain version of the Mamba-2 SSD kernel
 (``ssd_scan_kernel`` in ``csrc/ssd.cu``): the torch twin of the
 reference's sequential oracle ``repro.kernels.ref.ssd_scan``, a float32
-recurrence over the sequence, one step at a time.
+recurrence over the sequence, one step at a time. ``ssd_step_ref`` is
+one decode token of that recurrence with the state updated in place,
+the plain version of ``ssd_step_kernel``: the eager passes of the
+reference's decode step.
 """
 from __future__ import annotations
 
@@ -370,6 +373,25 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         + xf * d_skip.to(torch.float32)[None, None, :, None]
     y = y.to(x.dtype)
     return (y, h) if return_final_state else y
+
+
+def ssd_step_ref(h: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                 d_skip: torch.Tensor) -> torch.Tensor:
+    """One decode token's SSM recurrence; the plain version of
+    ``ssd_step``. h: (B, H, P, N) float32, updated in place; dt: (B, H);
+    a, d_skip: (H,); x: (B, H, P); b, c: (B, H, N), all float32::
+
+        h = h * exp(dt * a) + (dt * x) b^T ;  y = h c + d_skip * x
+
+    the update's products and its sum each rounded on its own (no fused
+    multiply-add), y's sum over N in the einsum's order. Returns y (B, H,
+    P) float32."""
+    decay = torch.exp(dt * a)                             # (B, H)
+    h.mul_(decay[..., None, None]).add_(
+        (dt[..., None] * x)[..., None] * b[:, :, None, :])
+    y = torch.einsum("bhpn,bhn->bhp", h, c)               # (B, H, P)
+    return y + x * d_skip[None, :, None]
 
 
 # ------------------------------------------------------------ experts

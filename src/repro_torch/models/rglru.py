@@ -151,9 +151,11 @@ def init_state(cfg: ArchConfig, batch: int, dtype, device="cuda") -> dict:
 
 
 def decode_step(params: dict, cfg: ArchConfig, u: torch.Tensor,
-                state: dict):
+                state: dict, kernels: str = "cuda"):
     """One-token step. u: (B, 1, d). Returns (out (B, 1, d), state), with
-    ``state["conv"]`` and ``state["h"]`` updated in place."""
+    ``state["conv"]`` and ``state["h"]`` updated in place. ``kernels`` is
+    taken as the other mixers' and unused: the RG-LRU step has no
+    kernel."""
     w = width(cfg)
     proj = layers.matmul(u, params["in_proj"])
     x, gate = proj[..., :w], proj[..., w:]

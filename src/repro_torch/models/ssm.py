@@ -27,7 +27,10 @@ made contiguous here (the kernel's wrapper takes nothing else).
 Decode carries two pieces of state per layer, a conv buffer (B, W-1,
 conv channels) in the model dtype and the SSM state (B, H, P, N) in
 float32; ``decode_step`` updates both in place, as the attention layers
-update their caches.
+update their caches. Its state recurrence goes through
+``ops.ssd_step`` (one launch a layer under ``kernels="cuda"``, x a
+strided view of the conv output); the conv, dt's softplus, the
+repeat of B and C over the heads and the gated norm stay plain ops.
 """
 from __future__ import annotations
 
@@ -181,11 +184,13 @@ def init_state(cfg: ArchConfig, batch: int, dtype, device="cuda") -> dict:
 
 
 def decode_step(params: dict, cfg: ArchConfig, x: torch.Tensor,
-                state: dict):
+                state: dict, kernels: str = "cuda"):
     """One-token step, O(1) in the sequence length. x: (B, 1, d).
     Returns (out (B, 1, d), state), with ``state["conv"]`` and
-    ``state["ssm"]`` updated in place. Plain ops: no kernel of the port
-    runs here."""
+    ``state["ssm"]`` updated in place. The state recurrence is
+    ``ops.ssd_step`` under ``kernels`` (``"cuda"``: the hand-written
+    kernel, one launch; ``"ref"`` / ``"fused"``: its plain version); the
+    rest is plain ops."""
     dd = dims(cfg)
     bsz = x.shape[0]
     proj = layers.matmul(x, params["in_proj"])          # (B, 1, proj_out)
@@ -210,17 +215,8 @@ def decode_step(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
     dt1 = F.softplus(dt[:, 0].to(torch.float32) + params["dt_bias"])
     a = -torch.exp(params["a_log"])
-    yh = sharding.local_state_step(_state_step, state["ssm"], dt1, a, xs1,
-                                   b1, c1, params["d_skip"])
+    yh = sharding.local_state_step(
+        lambda *args: ops.ssd_step(*args, impl=kernels), state["ssm"], dt1,
+        a, xs1, b1, c1, params["d_skip"])
     yh = yh.reshape(bsz, 1, dd["d_in"]).to(x.dtype)
     return _gate_out(params, cfg, yh, z, x.dtype), state
-
-
-def _state_step(h, dt1, a, xs1, b1, c1, d_skip):
-    """One token's SSM recurrence: h (B, H, P, N) updated in place,
-    returns y (B, H, P) float32 (the skip term included)."""
-    decay = torch.exp(dt1 * a)                            # (B, H)
-    h.mul_(decay[..., None, None]).add_(
-        (dt1[..., None] * xs1)[..., None] * b1[:, :, None, :])
-    yh = torch.einsum("bhpn,bhn->bhp", h, c1)             # (B, H, P)
-    return yh + xs1 * d_skip[None, :, None]

@@ -53,6 +53,7 @@ from repro_torch.models import layers, rglru, ssm
 ATTN_KINDS = ("attn", "local", "hybrid_attn")
 #: recurrent layer kind -> its module: init, forward (with state,
 #: return_state and kernels), init_state and an in-place decode_step
+#: (with kernels)
 MIXERS = {"mamba2": ssm, "rglru": rglru, "hybrid_mamba": ssm}
 #: layer kinds that are one sublayer, with no MLP after it
 SINGLE = tuple(HYBRID_KINDS.values())
@@ -350,6 +351,6 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             y, _ = layers.self_attention_decode(
                 p["attn"], attn_spec(cfg, kind), h, c, pos, kernels)
         else:
-            y, _ = MIXERS[kind].decode_step(p["mixer"], cfg, h, c)
+            y, _ = MIXERS[kind].decode_step(p["mixer"], cfg, h, c, kernels)
         x, _ = _mlp_block(p, cfg, kind, x + y)
     return _logits(params, cfg, x)[:, 0, :], cache

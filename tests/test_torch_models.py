@@ -638,7 +638,7 @@ class TestSSMLayers:
         for _ in range(3):
             x = rng.normal(size=(3, 1, tc.d_model)).astype(np.float32)
             jy, jst = jssm.decode_step(jp, jc, jnp.asarray(x), jst)
-            ty, tst = tssm.decode_step(tp, tc, t_of(x), tst)
+            ty, tst = tssm.decode_step(tp, tc, t_of(x), tst, kernels="ref")
             np.testing.assert_allclose(np_of(ty), np.asarray(jy),
                                        **LAYER_TOL)
             for key in ("conv", "ssm"):
@@ -656,7 +656,8 @@ class TestSSMLayers:
         _, st = tssm.forward(tp, tc, x[:, :40], return_state=True,
                              kernels="ref")
         for t in range(40, 43):
-            y, st = tssm.decode_step(tp, tc, x[:, t:t + 1], st)
+            y, st = tssm.decode_step(tp, tc, x[:, t:t + 1], st,
+                                     kernels="ref")
             np.testing.assert_allclose(np_of(y), np_of(whole[:, t:t + 1]),
                                        **LAYER_TOL)
 

@@ -221,6 +221,35 @@ def test_step_counters_read_the_graph_counter():
     assert "step" not in ts.counters(window(fleet_records()))
 
 
+def test_ssd_step_counter_reads_the_device_trace():
+    """``program_counters.step.ssd_step``: the state-step kernel's device
+    launches over the ``engine.step`` spans that began inside the trace
+    (10 to 20), and that count over the model's Mamba-2 layers."""
+    rec = served_records()                  # a step at 6, one at 14
+    for t0 in (15.0, 16.0, 17.0):
+        span(rec, "engine.step", -1, t0, t0 + 0.02, graph=1)
+    traced = [i for i in ts.ids_of(rec, "engine.step") if rec.start[i] > 10]
+    kern = "void (anonymous namespace)::ssd_step_kernel(float*, ...)"
+    ops = [op(kern, rec.start[s] + 0.001 * k, rec.start[s] + 0.001 * k
+              + 5e-4) for s in traced for k in range(3)]
+    ops += [op("ssd_scan_kernel", 12.0, 12.1), op("elementwise", 15.5,
+                                                    15.6)]
+    w = window(rec, ops)
+    want = {"launches": 12, "steps": 4, "per_step": 3.0, "share": 1.0}
+    assert ts.ssd_step_counter(w, 3) == want
+    assert ts.counters(w, 3)["step"]["ssd_step"] == want
+    assert ts.ssd_step_counter(w, 6)["share"] == pytest.approx(0.5)
+    # a model without Mamba-2 layers: no launches, no share
+    plain = window(rec, ops[-2:])
+    assert ts.ssd_step_counter(plain, 0) == {
+        "launches": 0, "steps": 4, "per_step": 0.0, "share": None}
+    # no layer count given, or no step traced: nothing added
+    assert "ssd_step" not in ts.counters(w)["step"]
+    late = window(rec, ops, t_start=18.0)
+    assert ts.ssd_step_counter(late, 3) is None
+    assert "ssd_step" not in ts.counters(late, 3)["step"]
+
+
 def test_expert_counters_per_launch_by_phase():
     """``program_counters.experts``: the expert layers' launches of the
     prefills (``engine.generate``) and of the steps, and per launch their

@@ -18,8 +18,10 @@ harness's earlier lines and its result line, then three lines of its
 own (reductions in ``tools/trace_spans.py``):
 
 * ``program_spans``: span counts by name, ``program_counters``
-  (``trace_spans.counters``, with ``setup_step``: the set-up's decode
-  steps and the engine's graph captures there) and ``clock_check``
+  (``trace_spans.counters``, with ``step.ssd_step``: the traced steps'
+  launches of the Mamba-2 state-step kernel against the model's Mamba-2
+  layers; and ``setup_step``: the set-up's decode steps and the engine's
+  graph captures there) and ``clock_check``
   (``trace_spans.clock_check``: routing kernels in their flush and
   device busy time in program spans, each with the device's own stamps
   and with each operation placed by its launch call), and how far the
@@ -59,7 +61,8 @@ for p in (ROOT / "src", ROOT):
     if str(p) not in sys.path:
         sys.path.insert(0, str(p))
 
-from laimr_bench import common, run as bench_run  # noqa: E402
+from laimr_bench import common, families, replica  # noqa: E402
+from laimr_bench import run as bench_run  # noqa: E402
 from repro_torch.core.telemetry import TRACER, SpanRecords, Tracer  # noqa: E402
 from tools import trace_spans  # noqa: E402
 
@@ -131,6 +134,13 @@ def window_of(run) -> trace_spans.Window:
                               ops=tr.ops())
 
 
+def mamba_layers(conf: dict) -> int:
+    """The Mamba-2 layers of a cell's model: those whose prefill launches
+    ``ssd_scan`` (and whose decode step ``ssd_step``)."""
+    return families.launches(conf["layer_kind"], replica.dims(conf),
+                             "ssd_scan")
+
+
 def program_lines(run) -> list[dict]:
     """The three lines this tool adds to a traced run's output."""
     w, tr = window_of(run), run.trace_obj
@@ -140,7 +150,7 @@ def program_lines(run) -> list[dict]:
         tr.wall_stop_ns - tr.wall_ns) - 1e6 * (tr.pc_stop - tr.t_start)
     spans = common.Spans(items=list(run.spans.items)
                          + trace_spans.program_items(rec))
-    counters = trace_spans.counters(w)
+    counters = trace_spans.counters(w, mamba_layers(run.conf))
     counters["setup_step"] = trace_spans.step_counters(run.setup_program)
     return [{"program_spans": dict(collections.Counter(rec.name)),
              "program_counters": counters,

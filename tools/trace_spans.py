@@ -251,6 +251,23 @@ def step_counters(rec):
             "captures": len(ids_of(rec, "engine.step.capture"))}
 
 
+def ssd_step_counter(w: Window, mamba_layers: int):
+    """Launches of ``ssd_step_kernel`` (the Mamba-2 decode state step) in
+    the device trace, per ``engine.step`` span that began inside it, and
+    that per-step count over ``mamba_layers`` (one launch a Mamba-2 layer
+    and step reads 1.0; None for a model without such layers); None
+    without a traced step."""
+    rec = w.rec
+    steps = [i for i in ids_of(rec, "engine.step")
+             if w.t_start <= rec.start[i] <= w.t_stop]
+    if not steps:
+        return None
+    n = sum("ssd_step_kernel" in name for name, *_ in w.ops)
+    per_step = n / len(steps)
+    return {"launches": n, "steps": len(steps), "per_step": per_step,
+            "share": per_step / mamba_layers if mamba_layers else None}
+
+
 def expert_counters(rec):
     """The expert layers' routing counters of ``engine.generate`` (its
     prefill) and ``engine.step`` spans: per span kind, the expert
@@ -271,12 +288,14 @@ def expert_counters(rec):
     return out or None
 
 
-def counters(w: Window) -> dict:
+def counters(w: Window, mamba_layers: int | None = None) -> dict:
     """The span counters, summarised. Per flush (the whole window): rows
     decided and as padded for the routing kernel, and bytes copied each
     way. Per wave (untraced): rows, steps, and ``engine.prefill`` ms by
-    rows. Decode steps (the whole window): ``step_counters``. Expert
-    layers (the whole window): ``expert_counters``."""
+    rows. Decode steps (the whole window): ``step_counters``, and given
+    the model's ``mamba_layers``, its ``ssd_step`` (``ssd_step_counter``,
+    the traced steps). Expert layers (the whole window):
+    ``expert_counters``."""
     rec, out = w.rec, {}
     fl = sorted(flush_ids(w, untraced=False), key=lambda i: rec.start[i])
     if fl:
@@ -299,6 +318,10 @@ def counters(w: Window) -> dict:
                 for r, ids in sorted(by_rows.items())}}
     steps = step_counters(rec)
     if steps:
+        if mamba_layers is not None:
+            state = ssd_step_counter(w, mamba_layers)
+            if state:
+                steps["ssd_step"] = state
         out["step"] = steps
     experts = expert_counters(rec)
     if experts:
