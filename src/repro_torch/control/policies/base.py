@@ -14,12 +14,19 @@ decision-boundary contract:
 
 * :class:`CandidateTable` — the static per-deployment parameter arrays
   (alpha/beta/gamma/mu/rtt/cost, SLO budgets tau_m, quality-lane masks,
-  key -> column index) plus the per-flush ``n_replicas`` refresh;
+  key -> column index, the home-column memo) plus the per-flush
+  ``n_replicas`` refresh;
+* :class:`DeviceResidency` — the table's device half: its columns, the
+  n column and the Erlang table keyed on it, uploaded once per
+  residency and shared by every policy built on it (``hybrid`` and its
+  two constituents hold one);
 * :class:`RoutingPolicyBase` — batched scoring + selection over an
-  (R, I) decision matrix: one ``score_instances_batch`` (or one CUDA
-  ``routing_score`` kernel launch) per window, vectorised SLO filter +
-  f32-pinned two-stage cost tie-break, the float64 scalar reference
-  loop used by parity tests and benchmarks, and the
+  (R, I) decision matrix: one ``score_instances_batch`` (or one fused
+  ``routing_*`` launch through :meth:`RoutingPolicyBase._fused`, the one
+  place a window's rows go to the device and back) per window,
+  vectorised SLO filter + f32-pinned two-stage cost tie-break, the
+  float64 scalar reference loop used by parity tests and benchmarks,
+  the top-k settle the fused strategies share, and the
   :meth:`RoutingPolicyBase.decide` strategy hook the
   :class:`~repro_torch.control.plane.ControlPlane` drives;
 * :class:`WindowDecision` — the strategy output: per-request primary
@@ -119,12 +126,90 @@ class CandidateTable:
                 self.lane_mask[q] = m if m.any() else \
                     np.ones(len(self.deps), bool)
         self.all_mask = np.ones(len(self.deps), bool)
+        self._home: dict = {}
 
     def __len__(self) -> int:
         return len(self.deps)
 
     def n(self) -> np.ndarray:
         return np.array([d.n_replicas for d in self.deps], np.float32)
+
+    def home_index(self, req: Request) -> int:
+        """Column index of the request's home deployment — the simulator's
+        edge-first binding (``_bind_deployment``), memoised per (model,
+        quality). Falls back to the first candidate in the request's lane
+        when no deployment serves the model (synthetic workloads)."""
+        key = (req.model, req.quality)
+        h = self._home.get(key)
+        if h is None:
+            same = [i for i, d in enumerate(self.deps)
+                    if d.model.name == req.model]
+            if same:
+                edge = [i for i in same
+                        if self.deps[i].instance.tier == "edge"]
+                h = (edge or same)[0]
+            else:
+                h = int(np.flatnonzero(
+                    self.lane_mask.get(req.quality, self.all_mask))[0])
+            self._home[key] = h
+        return h
+
+
+#: the table columns that live on the device from the first flush on
+STATIC = ("alpha", "beta", "gamma", "mu", "rtt", "cost")
+#: the columns every fused op takes after lam, in its argument order
+LEAD = ("alpha", "beta", "gamma", "mu", "n", "rtt")
+
+
+class DeviceResidency:
+    """The candidate table's device half, one per table: the six static
+    columns (and any host column a strategy registers in ``host``, such
+    as ``reliable``'s distribution columns) upload once, the n column
+    and the Erlang table keyed on it re-upload only when a replica
+    count moves (the flush span's h2d counters show it)."""
+
+    def __init__(self, table: CandidateTable, device: torch.device,
+                 erlang_size: int):
+        self.table = table
+        self.device = device
+        self.erlang_size = erlang_size
+        self.host: dict[str, np.ndarray] = {c: getattr(table, c)
+                                            for c in STATIC}
+        self.cols: dict[str, torch.Tensor] = {}
+        self._n_key: Optional[tuple] = None
+        self._erlang: Optional[torch.Tensor] = None
+        self._erlang_key: Optional[tuple] = None
+
+    def upload(self, arr: np.ndarray, dtype=np.float32) -> torch.Tensor:
+        """A host array as a contiguous tensor on this device."""
+        host = np.ascontiguousarray(arr, dtype)
+        if TRACER.on:
+            TRACER.h2d(host.nbytes)
+        return torch.as_tensor(host, device=self.device)
+
+    def columns(self, *extra: str) -> dict:
+        """The device columns by name: the static six, the ``extra``
+        registered ones, and n as of now."""
+        for c in STATIC + extra:
+            if c not in self.cols:
+                self.cols[c] = self.upload(self.host[c])
+        n = self.table.n()
+        key = tuple(int(x) for x in n)
+        if self._n_key != key:
+            self.cols["n"] = self.upload(n)
+            self._n_key = key
+        return self.cols
+
+    def erlang(self) -> torch.Tensor:
+        """(I, T) Erlang-C wait table on the device, keyed on the n
+        column of the last :meth:`columns` call."""
+        if self._erlang_key != self._n_key:
+            from repro_torch.kernels.routing_score import build_erlang_table
+            self._erlang = self.upload(build_erlang_table(
+                self.table.mu, np.array(self._n_key, np.int64),
+                t=self.erlang_size))
+            self._erlang_key = self._n_key
+        return self._erlang
 
 
 @dataclasses.dataclass
@@ -167,8 +252,8 @@ class WindowDecision:
 class RoutingPolicyBase:
     """The swappable LA-IMR decision object (simulator == serving engine).
 
-    Stateless apart from the candidate table and the device-resident
-    column / Erlang-table caches; telemetry reads go through the composed :class:`Router` so the
+    Stateless apart from the candidate table and its device residency;
+    telemetry reads go through the composed :class:`Router` so the
     policy sees whatever arrival history its adapter maintains.
     Subclasses implement :meth:`decide` — everything else (decision-
     matrix construction, batched score+select, the scalar reference) is
@@ -179,7 +264,8 @@ class RoutingPolicyBase:
     name: ClassVar[str] = "base"
 
     def __init__(self, cluster: Cluster, router: Router,
-                 config: Optional[AdmissionConfig] = None):
+                 config: Optional[AdmissionConfig] = None, *,
+                 _resident: Optional[DeviceResidency] = None):
         self.cluster = cluster
         self.router = router
         self.cfg = config or AdmissionConfig()
@@ -195,15 +281,12 @@ class RoutingPolicyBase:
                              f"needs a CUDA device, got device="
                              f"{self.cfg.device!r} (use backend='ref' for "
                              "the plain versions)")
-        self.table = CandidateTable(cluster, router)
-        # fused-path Erlang table, rebuilt only when replica counts move
-        self._erlang_table: Optional[torch.Tensor] = None
-        self._erlang_key: Optional[tuple] = None
-        # device-resident candidate columns: the six static columns
-        # upload ONCE per policy, n re-uploads only when a replica count
-        # moves (the flush span's h2d counters show it)
-        self._dev_cols: Optional[dict] = None
-        self._n_key: Optional[tuple] = None
+        # a constituent strategy (hybrid's) shares its owner's residency,
+        # and with it the candidate table, instead of building its own
+        self.resident = _resident or DeviceResidency(
+            CandidateTable(cluster, router), self.device,
+            self.cfg.erlang_table_size)
+        self.table = self.resident.table
 
     @property
     def deps(self) -> list[Deployment]:
@@ -217,13 +300,6 @@ class RoutingPolicyBase:
         score-matrix + Python."""
         return self.cfg.backend in ("cuda", "ref")
 
-    def _upload(self, arr: np.ndarray, dtype=np.float32) -> torch.Tensor:
-        """A host array as a contiguous tensor on this policy's device."""
-        host = np.ascontiguousarray(arr, dtype)
-        if TRACER.on:
-            TRACER.h2d(host.nbytes)
-        return torch.as_tensor(host, device=self.device)
-
     @staticmethod
     def _download(t: torch.Tensor) -> np.ndarray:
         """A decision tensor read back to the host (blocking)."""
@@ -231,38 +307,6 @@ class RoutingPolicyBase:
         if TRACER.on:
             TRACER.d2h(host.nbytes)
         return host
-
-    def _device_static(self) -> dict:
-        """The candidate table's device residency (see __init__)."""
-        tbl = self.table
-        if self._dev_cols is None:
-            self._dev_cols = {
-                "alpha": self._upload(tbl.alpha),
-                "beta": self._upload(tbl.beta),
-                "gamma": self._upload(tbl.gamma),
-                "mu": self._upload(tbl.mu),
-                "rtt": self._upload(tbl.rtt),
-                "cost": self._upload(tbl.cost),
-            }
-        n = tbl.n()
-        key = tuple(int(x) for x in n)
-        if self._n_key != key:
-            self._dev_cols["n"] = self._upload(n)
-            self._n_key = key
-        return self._dev_cols
-
-    def _erlang(self) -> torch.Tensor:
-        """(I, T) Erlang-C wait table on the device, keyed like the n
-        column."""
-        tbl = self.table
-        n = tbl.n()
-        key = tuple(int(x) for x in n)
-        if self._erlang_key != key:
-            from repro_torch.kernels.routing_score import build_erlang_table
-            self._erlang_table = self._upload(build_erlang_table(
-                tbl.mu, n.astype(np.int64), t=self.cfg.erlang_table_size))
-            self._erlang_key = key
-        return self._erlang_table
 
     def _pad_block(self, r: int) -> tuple[int, int]:
         """(block_r, padded rows) for a window of r requests: rows pad to
@@ -276,44 +320,70 @@ class RoutingPolicyBase:
             TRACER.pad(padded)
         return block, padded
 
-    def _fused_rows(self, lam: np.ndarray, slo: np.ndarray,
-                    mask: np.ndarray):
-        """Per-flush device inputs for the fused kernels: lane masks fold
-        into the SLO rows (excluded candidate -> slo = -1, infeasible
-        since g >= 0), rows pad to the shape bucket. Returns
-        (lam (P, I) device, slo (P, I) device, r)."""
-        slo_eff = np.where(mask, slo, np.float32(-1.0)).astype(np.float32)
-        r = lam.shape[0]
-        _, padded = self._pad_block(r)
-        lam = lam.astype(np.float32)
-        if padded > r:
-            zrow = np.zeros((padded - r, lam.shape[1]), np.float32)
-            lam = np.concatenate([lam, zrow], axis=0)
-            slo_eff = np.concatenate([slo_eff, zrow], axis=0)
-        return self._upload(lam), self._upload(slo_eff), r
+    def _fused(self, op: str, rows, *extra: str, **kw) -> tuple:
+        """The one fused decision path: a window's host rows padded to the
+        shape bucket and uploaded, one ``ops.<op>`` call on the device
+        columns, its outputs read back for the window's rows.
 
-    def _fused_topk(self, lam: np.ndarray, slo: np.ndarray,
-                    mask: np.ndarray, k: int, margin: float = 0.0):
-        """Whole-window top-k decision in one ``routing_topk`` call:
-        route_best primary in column 0, the next k-1 feasible candidates
-        ascending by g (headroom-gated by ``margin``) after it, -1
-        padding. Returns host (idx (R, k), g (R, k), ok (R,))."""
+        ``rows`` are (host array, dtype, pad value) triples, lam first,
+        then the op's per-row inputs in its argument order; ``extra``
+        names the device columns that follow them (before the Erlang
+        table); ``kw`` are the op's own options. Returns the outputs as
+        host arrays."""
         from repro_torch.kernels import ops
         if TRACER.on:
             TRACER.stage("admission.upload")
-        cols = self._device_static()
-        lam_d, slo_d, r = self._fused_rows(lam, slo, mask)
-        erlang = self._erlang()
+        cols = self.resident.columns(*extra)
+        r = len(rows[0][0])
+        _, padded = self._pad_block(r)
+        dev = []
+        for host, dtype, fill in rows:
+            buf = np.full((padded,) + host.shape[1:], fill, dtype)
+            buf[:r] = host
+            dev.append(self.resident.upload(buf, dtype))
+        erlang = self.resident.erlang()
         if TRACER.on:
             TRACER.stage("admission.kernel")
-        idx, g, ok = ops.routing_topk(
-            lam_d, cols["alpha"], cols["beta"], cols["gamma"], cols["mu"],
-            cols["n"], cols["rtt"], slo_d, cols["cost"], erlang,
-            k=k, margin=float(margin), impl=self.cfg.backend)
+        out = getattr(ops, op)(dev[0], *(cols[c] for c in LEAD), *dev[1:],
+                               *(cols[c] for c in extra), erlang,
+                               impl=self.cfg.backend, **kw)
         if TRACER.on:
             TRACER.stage("admission.download")
-        return (self._download(idx[:r]), self._download(g[:r]),
-                self._download(ok[:r]))
+        return tuple(self._download(x[:r]) for x in out)
+
+    @staticmethod
+    def _lane_rows(lam: np.ndarray, slo: np.ndarray, mask: np.ndarray):
+        """``_fused`` rows of the lane-masked ops: lam, and slo with the
+        lane masks folded in (excluded candidate -> slo = -1, infeasible
+        since g >= 0)."""
+        return ((lam, np.float32, 0),
+                (np.where(mask, slo, np.float32(-1.0)), np.float32, -1))
+
+    def settle_topk(self, idx: np.ndarray, g: np.ndarray, ok: np.ndarray,
+                    lam: np.ndarray, slo: np.ndarray,
+                    mask: np.ndarray) -> WindowDecision:
+        """A fused top-k-shaped result as the window's decision: column 0
+        of idx (R, k) is the primary and of g (R, k) its predicted
+        latency (the row-min score on infeasible rows, whose primary is
+        ``cheapest_lane_upstream``); columns 1.. are the duplicates, -1
+        padding dropped. ``routing_score``'s (R,) idx and g are k = 1
+        and leave ``duplicates`` empty, as single dispatch does."""
+        if TRACER.on:
+            TRACER.stage("admission.settle")
+        single = idx.ndim == 1
+        idx, g = idx.reshape(len(ok), -1), g.reshape(len(ok), -1)
+        feasible = ok.astype(bool)
+        primary = idx[:, 0].astype(np.int64)
+        offload = np.zeros(len(ok), bool)
+        for r in np.flatnonzero(~feasible):
+            primary[r], offload[r] = self.cheapest_lane_upstream(mask[r])
+        duplicates = () if single else tuple(
+            tuple(int(j) for j in row if j >= 0) for row in idx[:, 1:])
+        return WindowDecision(primary=primary, feasible=feasible,
+                              offload=offload,
+                              predicted=g[:, 0].astype(np.float64),
+                              lam=lam, slo=slo, mask=mask, g=None,
+                              duplicates=duplicates)
 
     # ---------------- strategy hook ----------------------------------- #
     def decide(self, reqs: list[Request], t_now: float) -> WindowDecision:
@@ -361,7 +431,8 @@ class RoutingPolicyBase:
         None) — exactly one of g_best/g is provided, depending on the
         backend."""
         if self.fused:
-            idx, g_best, ok = self._fused_select(lam, slo, mask)
+            idx, g_best, ok = self._fused(
+                "routing_score", self._lane_rows(lam, slo, mask), "cost")
             return idx, ok, g_best, None
         # the scores stay on the device between score and select (whose
         # reads fall in the kernel stage)
@@ -379,10 +450,10 @@ class RoutingPolicyBase:
         over a score matrix (device tensor or host array). The ONE
         selection semantics every strategy shares. Returns (idx (R,),
         ok (R,))."""
-        g_t = g if isinstance(g, torch.Tensor) else self._upload(g)
+        g_t = g if isinstance(g, torch.Tensor) else self.resident.upload(g)
         idx, ok = select_instance_batch(
-            g_t, self._upload(slo), self._device_static()["cost"],
-            self._upload(mask, bool))
+            g_t, self.resident.upload(slo), self.resident.columns()["cost"],
+            self.resident.upload(mask, bool))
         return self._download(idx), self._download(ok)
 
     def cheapest_lane_upstream(self, mask_row: np.ndarray
@@ -401,10 +472,9 @@ class RoutingPolicyBase:
     def score_tensor(self, lam: np.ndarray) -> torch.Tensor:
         """(R, I) predicted-latency matrix through the batched scorer,
         left on the device."""
-        cols = self._device_static()
-        return score_instances_batch(
-            self._upload(lam), cols["alpha"], cols["beta"], cols["gamma"],
-            cols["mu"], cols["n"], cols["rtt"])
+        cols = self.resident.columns()
+        return score_instances_batch(self.resident.upload(lam),
+                                     *(cols[c] for c in LEAD))
 
     def score_matrix(self, lam: np.ndarray) -> np.ndarray:
         """(R, I) predicted-latency matrix through the batched scorer —
@@ -417,55 +487,6 @@ class RoutingPolicyBase:
         path (rare: only when the winner's engine is full and the
         backend returned no (R, I) score matrix)."""
         return self.score_matrix(lam_row[None, :])[0]
-
-    def _fused_select(self, lam: np.ndarray, slo: np.ndarray,
-                      mask: np.ndarray):
-        """Kernel-backed score+select: one ``routing_score`` call with
-        the per-request SLO rows (lane restrictions folded in as slo =
-        -1). Returns host (idx (R,), g_best (R,), ok (R,))."""
-        from repro_torch.kernels import ops
-        if TRACER.on:
-            TRACER.stage("admission.upload")
-        cols = self._device_static()
-        lam_d, slo_d, r = self._fused_rows(lam, slo, mask)
-        erlang = self._erlang()
-        if TRACER.on:
-            TRACER.stage("admission.kernel")
-        idx, g_best, ok = ops.routing_score(
-            lam_d, cols["alpha"], cols["beta"], cols["gamma"], cols["mu"],
-            cols["n"], cols["rtt"], slo_d, cols["cost"], erlang,
-            impl=self.cfg.backend)
-        if TRACER.on:
-            TRACER.stage("admission.download")
-        return (self._download(idx[:r]), self._download(g_best[:r]),
-                self._download(ok[:r]))
-
-    # ---------------- home-tier binding (guard strategies) ------------ #
-    def home_index(self, req: Request) -> int:
-        """Column index of the request's home deployment — the simulator's
-        edge-first binding (``_bind_deployment``) over the candidate
-        table, memoised per (model, quality). Falls back to the first
-        candidate in the request's lane when no deployment serves the
-        model (synthetic workloads)."""
-        cache = getattr(self, "_home_idx", None)
-        if cache is None:
-            cache = self._home_idx = {}
-        key = (req.model, req.quality)
-        h = cache.get(key)
-        if h is None:
-            tbl = self.table
-            same = [i for i, d in enumerate(tbl.deps)
-                    if d.model.name == req.model]
-            if same:
-                edge = [i for i in same
-                        if tbl.deps[i].instance.tier == "edge"]
-                h = (edge or same)[0]
-            else:
-                lane = np.flatnonzero(
-                    tbl.lane_mask.get(req.quality, tbl.all_mask))
-                h = int(lane[0])
-            cache[key] = h
-        return h
 
     # ---------------- float64 scalar reference ------------------------ #
     def route_window_scalar(self, reqs: list[Request],
@@ -497,5 +518,5 @@ class RoutingPolicyBase:
 
 
 # re-exported so strategy modules share one sentinel with the scorer
-__all__ = ["BACKENDS", "BIG", "CandidateTable", "RoutingPolicyBase",
-           "WindowDecision"]
+__all__ = ["BACKENDS", "BIG", "CandidateTable", "DeviceResidency",
+           "RoutingPolicyBase", "WindowDecision"]

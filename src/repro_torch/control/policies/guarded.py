@@ -41,59 +41,25 @@ class GuardedAlgorithm1Policy(RoutingPolicyBase):
 
     name = "guarded_alg1"
 
-    def _fused_guard(self, lam: np.ndarray, tau: np.ndarray,
-                     home: np.ndarray, up: np.ndarray):
-        """Score + guard + pick in ONE ``routing_guard`` call — no (R, I)
-        matrix ever reaches the host. Padded rows carry up = -1 so the
-        guard holds them home; they are sliced off. Returns host
-        (primary (R,) int64, g_sel (R,), offload (R,))."""
-        from repro_torch.kernels import ops
-        if TRACER.on:
-            TRACER.stage("admission.upload")
-        cols = self._device_static()
-        r = lam.shape[0]
-        _, padded = self._pad_block(r)
-        lam32 = lam.astype(np.float32)
-        tau32 = tau.astype(np.float32)
-        home32 = home.astype(np.int32)
-        up32 = up.astype(np.int32)
-        if padded > r:
-            pad = padded - r
-            lam32 = np.concatenate(
-                [lam32, np.zeros((pad, lam.shape[1]), np.float32)])
-            tau32 = np.concatenate([tau32, np.zeros(pad, np.float32)])
-            home32 = np.concatenate([home32, np.zeros(pad, np.int32)])
-            up32 = np.concatenate([up32, np.full(pad, -1, np.int32)])
-        lam_d = self._upload(lam32)
-        tau_d = self._upload(tau32)
-        home_d = self._upload(home32, np.int32)
-        up_d = self._upload(up32, np.int32)
-        erlang = self._erlang()
-        if TRACER.on:
-            TRACER.stage("admission.kernel")
-        idx, g_sel, off = ops.routing_guard(
-            lam_d, cols["alpha"], cols["beta"], cols["gamma"], cols["mu"],
-            cols["n"], cols["rtt"], tau_d, home_d, up_d, erlang,
-            impl=self.cfg.backend)
-        if TRACER.on:
-            TRACER.stage("admission.download")
-        return (self._download(idx[:r]).astype(np.int64),
-                self._download(g_sel[:r]), self._download(off[:r]))
-
     def decide(self, reqs: list[Request], t_now: float) -> WindowDecision:
         lam, slo, mask = self.decision_rows(reqs, t_now)
 
         tbl = self.table
         rows = np.arange(len(reqs))
-        home = np.array([self.home_index(rq) for rq in reqs], np.int64)
+        home = np.array([tbl.home_index(rq) for rq in reqs], np.int64)
         up = tbl.upstream[home]                       # -1 at the top tier
         tau = slo[rows, home]
         if self.fused:
-            # whole decision in one kernel launch; the plane re-scores
-            # lazily through score_row on the rare engine-overflow path
-            primary, g_sel, offload = self._fused_guard(lam, tau, home, up)
+            # score + guard + pick in one launch, no (R, I) matrix on the
+            # host (the plane re-scores lazily through score_row on the
+            # rare engine-overflow path); padded rows carry up = -1 so
+            # the guard holds them home
+            primary, g_sel, offload = self._fused(
+                "routing_guard", ((lam, np.float32, 0), (tau, np.float32, 0),
+                                  (home, np.int32, 0), (up, np.int32, -1)))
             if TRACER.on:
                 TRACER.stage("admission.settle")
+            primary = primary.astype(np.int64)
             g = None
             predicted = g_sel.astype(np.float64)
         else:
@@ -102,12 +68,12 @@ class GuardedAlgorithm1Policy(RoutingPolicyBase):
             if TRACER.on:
                 TRACER.stage("admission.kernel")
             g_t = self.score_tensor(lam)
-            home_t = self._upload(home, np.int64)
-            up_t = self._upload(up, np.int64)
+            home_t = self.resident.upload(home, np.int64)
+            up_t = self.resident.upload(up, np.int64)
             g_home = g_t[torch.arange(len(reqs), device=g_t.device), home_t]
             target, off = apply_guard(
-                g_home, self._device_static()["rtt"][home_t],
-                self._upload(tau), up_t, up_t >= 0, home_t)
+                g_home, self.resident.columns()["rtt"][home_t],
+                self.resident.upload(tau), up_t, up_t >= 0, home_t)
             if TRACER.on:
                 TRACER.stage("admission.download")
             g = self._download(g_t)

@@ -57,12 +57,14 @@ class BurstAdaptiveHybridPolicy(RoutingPolicyBase):
 
     def __init__(self, cluster, router, config=None):
         super().__init__(cluster, router, config)
-        # the constituents are the REGISTERED strategy objects, built on
-        # the same (cluster, router, config) triple — same candidate
-        # table order, same fused/vmap backend selection.
-        self.steady = GuardedAlgorithm1Policy(cluster, router, config)
-        self.burst = SafeTailRedundantPolicy(cluster, router, config)
         cfg = self.cfg
+        # the constituents are the REGISTERED strategy objects on this
+        # policy's candidate table and device residency: one table, one
+        # upload of its columns, one Erlang table between the three
+        self.steady = GuardedAlgorithm1Policy(cluster, router, cfg,
+                                              _resident=self.resident)
+        self.burst = SafeTailRedundantPolicy(cluster, router, cfg,
+                                             _resident=self.resident)
         self.memory = float(cfg.burst_memory)
         self.enter = float(cfg.burst_enter)
         self.exit = float(cfg.burst_exit)
@@ -130,7 +132,7 @@ class BurstAdaptiveHybridPolicy(RoutingPolicyBase):
             dt = self._last_dt
             counts: dict[int, int] = {}
             for rq in reqs:
-                h = self.home_index(rq)
+                h = self.table.home_index(rq)
                 counts[h] = counts.get(h, 0) + 1
             deps = self.deps
             self._short = {deps[i].key: c / dt for i, c in counts.items()}

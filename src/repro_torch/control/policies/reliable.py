@@ -62,37 +62,8 @@ class ReliableSloPolicy(RoutingPolicyBase):
              for t in tiers], np.float64)
         self._avail = np.array(
             [1.0 - cfg.link_loss.get(t, 0.0) for t in tiers], np.float64)
-        # fused-path device residency of the distribution columns
-        # (float32, uploaded on the first fused flush)
-        self._dist_cols = None
-
-    def _fused_attain(self, lam: np.ndarray, slo: np.ndarray,
-                      mask: np.ndarray, k: int, margin: float):
-        """Whole-window attainment-argmax decision in one
-        ``routing_attain`` call: primary = argmax of the
-        delivery-weighted attainment probability, duplicate columns
-        headroom-gated, the (R, I) matrix device-only. Returns host
-        (idx (R, k), g (R, k), ok (R,))."""
-        from repro_torch.kernels import ops
-        if TRACER.on:
-            TRACER.stage("admission.upload")
-        if self._dist_cols is None:
-            self._dist_cols = (self._upload(self._sigma),
-                               self._upload(self._avail))
-        sigma, avail = self._dist_cols
-        cols = self._device_static()
-        lam_d, slo_d, r = self._fused_rows(lam, slo, mask)
-        erlang = self._erlang()
-        if TRACER.on:
-            TRACER.stage("admission.kernel")
-        idx, g, ok = ops.routing_attain(
-            lam_d, cols["alpha"], cols["beta"], cols["gamma"], cols["mu"],
-            cols["n"], cols["rtt"], slo_d, sigma, avail, erlang,
-            k=k, margin=float(margin), impl=self.cfg.backend)
-        if TRACER.on:
-            TRACER.stage("admission.download")
-        return (self._download(idx[:r]), self._download(g[:r]),
-                self._download(ok[:r]))
+        # registered with the device residency for the fused path
+        self.resident.host.update(sigma=self._sigma, avail=self._avail)
 
     def decide(self, reqs: list[Request], t_now: float) -> WindowDecision:
         lam, slo, mask = self.decision_rows(reqs, t_now)
@@ -101,23 +72,12 @@ class ReliableSloPolicy(RoutingPolicyBase):
         r_n = len(reqs)
 
         if self.fused:
-            idx_k, g_k, ok = self._fused_attain(lam, slo, mask,
-                                                k=k_extra + 1, margin=margin)
-            if TRACER.on:
-                TRACER.stage("admission.settle")
-            feasible = np.asarray(ok, bool).copy()
-            primary = idx_k[:, 0].astype(np.int64)
-            offload = np.zeros(r_n, bool)
-            predicted = g_k[:, 0].astype(np.float64)
-            for r in np.flatnonzero(~feasible):
-                primary[r], offload[r] = self.cheapest_lane_upstream(mask[r])
-            duplicates = tuple(
-                tuple(int(j) for j in row if j >= 0)
-                for row in idx_k[:, 1:])
-            return WindowDecision(primary=primary, feasible=feasible,
-                                  offload=offload, predicted=predicted,
-                                  lam=lam, slo=slo, mask=mask, g=None,
-                                  duplicates=duplicates)
+            # primary = argmax of the delivery-weighted attainment,
+            # duplicate columns headroom-gated, the (R, I) matrix
+            # device-only
+            return self.settle_topk(*self._fused(
+                "routing_attain", self._lane_rows(lam, slo, mask), "sigma",
+                "avail", k=k_extra + 1, margin=margin), lam, slo, mask)
 
         # vmap fallback: attainment over the full (R, I) matrix
         if TRACER.on:

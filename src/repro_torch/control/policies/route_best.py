@@ -29,6 +29,9 @@ class RouteBestPolicy(RoutingPolicyBase):
     def decide(self, reqs: list[Request], t_now: float) -> WindowDecision:
         lam, slo, mask = self.decision_rows(reqs, t_now)
         idx, ok, g_best, g = self.score_select(lam, slo, mask)
+        if g is None:
+            # the fused routing_score result: top-k with k = 1
+            return self.settle_topk(idx, g_best, ok, lam, slo, mask)
         if TRACER.on:
             TRACER.stage("admission.settle")
         r_n = len(reqs)
@@ -37,15 +40,12 @@ class RouteBestPolicy(RoutingPolicyBase):
         predicted = np.zeros(r_n, np.float64)
         feasible = np.asarray(ok, bool).copy()
         for r in range(r_n):
-            pred = float(g_best[r]) if g_best is not None \
-                else float(g[r, int(idx[r])])
             if feasible[r]:
                 primary[r] = int(idx[r])
+                predicted[r] = float(g[r, primary[r]])
             else:
                 primary[r], offload[r] = self.cheapest_lane_upstream(mask[r])
-                if g is not None:
-                    pred = float(np.min(g[r]))
-            predicted[r] = pred
+                predicted[r] = float(np.min(g[r]))
         return WindowDecision(primary=primary, feasible=feasible,
                               offload=offload, predicted=predicted,
                               lam=lam, slo=slo, mask=mask, g=g)

@@ -50,28 +50,11 @@ class SafeTailRedundantPolicy(RoutingPolicyBase):
         if self.fused:
             # primary + every duplicate column in ONE routing_topk
             # call: the (R, I) matrix never reaches the host, only the
-            # (R, k) winners do.
-            idx_k, g_k, ok = self._fused_topk(lam, slo, mask,
-                                              k=k_extra + 1)
-            if TRACER.on:
-                TRACER.stage("admission.settle")
-            feasible = np.asarray(ok, bool).copy()
-            primary = idx_k[:, 0].astype(np.int64)
-            offload = np.zeros(r_n, bool)
-            # column 0 of g_k is the winner's g on feasible rows and the
-            # row-min score on infeasible rows — the same predicted
-            # fallback the vmap loop computes
-            predicted = g_k[:, 0].astype(np.float64)
-            for r in np.flatnonzero(~feasible):
-                # route_best's infeasible fallback, no duplicates
-                primary[r], offload[r] = self.cheapest_lane_upstream(mask[r])
-            duplicates = tuple(
-                tuple(int(j) for j in row if j >= 0)
-                for row in idx_k[:, 1:])
-            return WindowDecision(primary=primary, feasible=feasible,
-                                  offload=offload, predicted=predicted,
-                                  lam=lam, slo=slo, mask=mask, g=None,
-                                  duplicates=duplicates)
+            # (R, k) winners do (route_best's fallback on infeasible
+            # rows, no duplicates, as the vmap loop)
+            return self.settle_topk(*self._fused(
+                "routing_topk", self._lane_rows(lam, slo, mask), "cost",
+                k=k_extra + 1), lam, slo, mask)
 
         # vmap fallback: full (R, I) matrix, then the per-row top-k scan
         if TRACER.on:

@@ -179,6 +179,14 @@ class TestDeviceColumnCache:
         # the columns and the Erlang table come with the first window
         assert copies[0] - copies[1] == want + 1
 
+    @pytest.mark.parametrize("backend", BACKENDS)
+    def test_hybrid_and_its_constituents_share_one_table(self, backend):
+        pol = make(PORT, "hybrid", backend=backend)
+        for part in (pol.steady, pol.burst):
+            assert part.table is pol.table
+            assert part.resident is pol.resident
+        assert pol.resident.table is pol.table
+
 
 def hybrid_pair(**cfg):
     """The hybrid policy of a ControlPlane in each package."""

@@ -210,6 +210,9 @@ class TestFlushSpans:
         ("guarded_alg1", 1, 4, 3),
         # hybrid's steady windows are the guard's
         ("hybrid", 1, 4, 3),
+        # its first burst window: the steady windows already put the
+        # shared columns and Erlang table up, so only lam and slo go
+        ("hybrid", 2, 2, 3),
         # its second burst window: SafeTail's top-k, lam and slo up
         ("hybrid", 3, 2, 3),
     ])
