@@ -1744,8 +1744,8 @@ def profile_call(fn, dev, label: str, warm: bool = True,
     """``torch.profiler`` over one call of ``fn`` (after one unprofiled
     call unless ``warm`` is False): device busy and idle share against
     its wall time, top device ops, and in ``kernel_launches`` how many
-    device ops each wrapper of ``kernels`` ran (its ``<name>_kernel``,
-    inside a replayed CUDA graph too). ``host_ops=False`` traces the
+    device ops each wrapper of ``kernels`` ran (``kernel_name``, inside a
+    replayed CUDA graph too). ``host_ops=False`` traces the
     device alone (a call of ~10^5 host ops takes minutes to summarise)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1774,7 +1774,7 @@ def profile_call(fn, dev, label: str, warm: bool = True,
                                  for k, (c, ms) in top},
            "kernel_launches": {k.__name__: sum(
                c for name, (c, _) in by_name.items()
-               if f"{k.__name__}_kernel" in name) for k in kernels}}
+               if kernel_name(k) in name) for k in kernels}}
     emit(row)
     return row
 
@@ -1785,15 +1785,15 @@ SSM_KINDS = ("mamba2", "hybrid_mamba")
 
 def path_kernels(cfg) -> tuple:
     """The kernels ``cfg``'s layers launch: the attention pair for
-    attention layers (and the encoder-decoder), ``ssd_scan`` and
-    ``ssd_step`` for Mamba-2 layers, ``moe_gemm`` for a hybrid stack's
-    expert layers."""
+    attention layers (and the encoder-decoder), ``ssd_scan`` and the
+    decode mixer's three for Mamba-2 layers, ``moe_gemm`` for a hybrid
+    stack's expert layers."""
     from repro_torch.models.transformer import layer_kinds
     if cfg.is_encoder_decoder:
         return attention_kernels()
     kinds = set(layer_kinds(cfg))
     out = attention_kernels() if kinds & set(ATTN_KINDS) else ()
-    out += (ssd_kernel(), ssd_step_kernel()) if kinds & set(SSM_KINDS) \
+    out += (ssd_kernel(), *mixer_kernels()) if kinds & set(SSM_KINDS) \
         else ()
     return out + ((expert_kernel(),) if "hybrid_moe" in kinds else ())
 
@@ -1803,8 +1803,9 @@ def expected_launches(cfg, steps: int) -> tuple[dict, dict]:
     decode step): one flash_attention per attention layer and prefill,
     one decode_attention per attention layer and decode step, one
     ssd_scan per Mamba-2 layer and prefill and none in a decode step,
-    one ssd_step per Mamba-2 layer and decode step and none in a
-    prefill, two moe_gemm (up, down) per expert layer and pass.
+    one of each of the decode mixer's three kernels per Mamba-2 layer and
+    decode step and none in a prefill, two moe_gemm (up, down) per
+    expert layer and pass.
     The encoder-decoder's prefill runs flash_attention in every encoder
     layer and twice in every decoder layer (self, cross), each decode
     step decode_attention (self) and flash_attention at Sq 1 (cross) in
@@ -1819,11 +1820,13 @@ def expected_launches(cfg, steps: int) -> tuple[dict, dict]:
     n_attn = sum(k in ATTN_KINDS for k in kinds)
     n_ssm = sum(k in SSM_KINDS for k in kinds)
     n_moe = 2 * kinds.count("hybrid_moe")
+    mixer = [k.__name__ for k in mixer_kernels()]
     gen = {"flash_attention": n_attn,
            "decode_attention": n_attn * (steps - 1), "ssd_scan": n_ssm,
-           "ssd_step": n_ssm * (steps - 1), "moe_gemm": n_moe * steps}
+           "moe_gemm": n_moe * steps,
+           **dict.fromkeys(mixer, n_ssm * (steps - 1))}
     step = {"flash_attention": 0, "decode_attention": n_attn,
-            "ssd_scan": 0, "ssd_step": n_ssm, "moe_gemm": n_moe}
+            "ssd_scan": 0, "moe_gemm": n_moe, **dict.fromkeys(mixer, n_ssm)}
     names = [k.__name__ for k in path_kernels(cfg)]
     return ({k: gen[k] for k in names}, {k: step[k] for k in names})
 
@@ -2481,6 +2484,19 @@ def ssd_step_kernel():
     return ssd_step
 
 
+def mixer_kernels() -> tuple:
+    """The Mamba-2 decode mixer's three wrappers, in launch order."""
+    from repro_torch.kernels import ssd_step as step
+    return step.ssd_conv_step, step.ssd_state_step, step.ssd_gated_norm
+
+
+def kernel_name(wrapper) -> str:
+    """The device kernel a wrapper launches: ``<name>_kernel``, except
+    ``ssd_state_step``'s ``ssd_step_kernel``."""
+    name = wrapper.__name__
+    return "ssd_step_kernel" if name == "ssd_state_step" else f"{name}_kernel"
+
+
 def expert_kernel():
     from repro_torch.kernels.moe_gemm import moe_gemm
     return moe_gemm
@@ -2861,6 +2877,125 @@ def phase_ssd_step(dev) -> dict:
     return out
 
 
+# The decode mixer's three kernels at the served steps (``SSD_STEP_SHAPES``'
+# batches and heads; conv width 4, bf16 and the parity dtype float32):
+# mamba2_370m (d_in 2048, rmsnorm(y) * silu(z)) and Nemotron-H (d_in 4096,
+# the gate first over 8 groups). Their CPU tests' cases are in
+# tests/test_torch_ssd_mixer.py, which also runs on the card.
+MIXER_ARCHS = {"mamba2_370m": "served_g1", "nemotron_3_nano": "served_g8"}
+
+
+def mixer_bytes_ops(kind: str, b: int, elem: int = 2, c: int = 0,
+                    h: int = 0, w: int = 0, g: int = 0, p: int = 0,
+                    n: int = 0, d: int = 0) -> tuple[int, int]:
+    """(bytes, FLOPs) of one launch, each input read once and each output
+    written once. conv: u, dt_raw, the buffer both ways, the taps and the
+    bias in the model dtype, dt_bias, the float32 output and dt; per
+    channel W products, W adds and SiLU (4), per head the add and
+    softplus (3). state: ``ssd_step_bytes_ops`` with B and C read per
+    group (and a_log read per head). norm: y (float32), z, scale and the
+    output; ~10 FLOPs an element (the square and its sum, the scale's
+    add and two products, SiLU, the gate's product)."""
+    if kind == "conv":
+        return (elem * (b * c * (2 * w - 1) + w * c + c + b * h)
+                + 4 * (h + b * c + b * h),
+                b * c * (2 * w + 4) + 3 * b * h)
+    if kind == "state":
+        nbytes, ops = ssd_step_bytes_ops(b, h, p, n)
+        return nbytes - 8 * b * h * n + 8 * b * g * n, ops + h
+    return (4 * b * d + 4 * d + 2 * elem * b * d, 10 * b * d)
+
+
+def phase_ssd_mixer(dev) -> dict:
+    """The decode mixer's kernels at the served steps: each against its
+    plain version (``tests/test_torch_ssd_mixer.py``'s ``mixer_args``:
+    the conv output, dt, the buffer and the state bit for bit, y within
+    its sum-order bound, the norm within ``norm_tol``), in bf16 and
+    float32; then in bf16 each kernel's device time, its plain version's,
+    its bytes bound and the launch floor, and the device time of one
+    layer's decode step (in_proj to out_proj) under ``"cuda"`` and under
+    ``"ref"`` (the eager passes).
+    Returns {arch: {kernel: times}, "layer": ...}."""
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_ssd_mixer as tm
+    from repro_torch.models import ssm
+    one = torch.zeros(1, device=dev)
+    floor = time_launches(lambda: one.fill_(1.0), dev)
+    out = {"launch_floor_ms": floor}
+    for arch, case in MIXER_ARCHS.items():
+        bsz = SSD_STEP_SHAPES[arch]["b"]
+        for dtype in (torch.float32, torch.bfloat16):
+            args = tm.mixer_args(case, dtype, bsz, 1500, dev)
+            for which in ("conv", "norm"):
+                got, got_m, want, want_m = tm.run_kernel(which, args[which])
+                if which == "conv":
+                    ok = all(torch.equal(u, v) for u, v in zip(
+                        (*got, got_m), (*want, want_m)))
+                    worst = max((u - v).abs().max().item()
+                                for u, v in zip(got, want))
+                else:
+                    err = (got.float() - want.float()).abs()
+                    worst = (err / tm.norm_tol(want, args["norm"][4])) \
+                        .max().item()
+                    ok = worst <= 1.0
+                emit({"phase": "ssd_mixer_parity", "arch": arch,
+                      "kernel": which, "dtype": str(dtype), "ok": ok,
+                      "worst": worst})
+                if not ok:
+                    fail(f"ssd_mixer {arch} {which} {dtype}: off its plain "
+                         f"version by {worst}")
+        st = args["state"]
+        rep = st[0].shape[1] // st[4].shape[1]
+        want_h = st[0].clone()
+        ref_y = tm.ref.ssd_step_ref(
+            want_h, st[1], -torch.exp(st[2]), st[3],
+            st[4].repeat_interleave(rep, 1).contiguous(),
+            st[5].repeat_interleave(rep, 1).contiguous(), st[6])
+        h = st[0].clone()
+        y = mixer_kernels()[1](h, *st[1:])
+        sync(dev)
+        tol = tm.y_tol(h, st[5].repeat_interleave(rep, 1), ref_y)
+        y_over = ((y - ref_y).abs() / tol).max().item()
+        emit({"phase": "ssd_mixer_parity", "arch": arch, "kernel": "state",
+              "h_bit_equal": bool(torch.equal(h, want_h)),
+              "y_err_over_bound": y_over})
+        if not torch.equal(h, want_h) or y_over > 1.0:
+            fail(f"ssd_mixer {arch} state: off ssd_step's plain version")
+        out[arch] = rows = {}
+        dd = ssm.dims(tm.arch_config(case, torch.bfloat16))
+        sizes = {"conv": dict(c=dd["conv_ch"], h=dd["n_heads"],
+                              w=dd["conv_w"]),
+                 "state": dict(h=dd["n_heads"], g=dd["groups"],
+                               p=dd["head_dim"], n=dd["state"]),
+                 "norm": dict(d=dd["d_in"])}
+        for which, wrapper in zip(("conv", "state", "norm"),
+                                  mixer_kernels()):
+            _, plain, _, _ = tm.WRAPPERS[which]
+            a = args[which]
+            nbytes, ops = mixer_bytes_ops(which, bsz, **sizes[which])
+            bms, by = bound_ms(nbytes, ops)
+            rows[which] = row = dict(
+                kernel=kernel_name(wrapper), shape=f"b{bsz}_{case}_bf16",
+                ms=time_launches(lambda: wrapper(*a), dev),
+                plain_ms=time_launches(lambda: plain(*a), dev),
+                bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops,
+                launch_floor_ms=floor)
+            emit({"phase": "times", "kernel": wrapper.__name__,
+                  "arch": arch, **row})
+        cfg, prm, state, x = tm.layer_case(case, torch.bfloat16, bsz, 1501,
+                                           dev)
+        rows["layer"] = row = {
+            kernels: time_launches(lambda: ssm.decode_step(
+                prm, cfg, x, state, kernels=kernels), dev)
+            for kernels in ("cuda", "ref")}
+        emit({"phase": "times", "kernel": "mamba2_decode_layer",
+              "arch": arch, "shape": f"b{bsz}_{case}_bf16",
+              "device_ms": row, "note": "one layer's decode step, in_proj "
+              "to out_proj, under the kernels and the eager passes"})
+        del args, st, h, want_h, state
+    return out
+
 # ----------------------------------------------------- training: phase --
 # The trainer (``repro_torch.training``) on the card, through the fused
 # path (``kernels="fused"``: blocked attention with its hand-written
@@ -2902,8 +3037,9 @@ def all_kernels() -> tuple:
                                                     routing_topk)
     from repro_torch.kernels.routing_score import routing_score
     return attention_kernels() + (ssd_kernel(), ssd_step_kernel(),
-                                  routing_score, routing_guard,
-                                  routing_topk, routing_attain)
+                                  *mixer_kernels(), routing_score,
+                                  routing_guard, routing_topk,
+                                  routing_attain)
 
 
 def example_config():
@@ -3694,8 +3830,8 @@ def served_costs(cfg, batch: int, prompt: int):
     served path's hand-written kernels take no meta tensors, so each is
     stood in for by an op that makes its outputs and adds its own bytes
     and FLOPs (``flash_bytes_ops``, ``decode_bytes_ops``,
-    ``ssd_bytes_ops``, ``ssd_step_bytes_ops``, the kernel table's
-    bounds); every other op is counted by the analysis. Returns
+    ``ssd_bytes_ops``, ``mixer_bytes_ops``, the kernel table's bounds);
+    every other op is counted by the analysis. Returns
     {"prefill", "decode"}: Costs."""
     import torch
     from repro_torch.kernels import ops
@@ -3732,14 +3868,32 @@ def served_costs(cfg, batch: int, prompt: int):
             return y
         return y, torch.empty((bs, h, p, b.shape[3]), dtype=torch.float32,
                               device=x.device)
-    def ssd_step(h, dt, a, x, b, c, d_skip, impl="cuda"):
-        charge(ssd_step_bytes_ops(*h.shape))
-        return torch.empty(h.shape[:3], dtype=torch.float32,
+    def ssd_conv_step(u, dt_raw, buf, w, bias, dt_bias, impl="cuda"):
+        bs, w1, ch = buf.shape
+        charge(mixer_bytes_ops("conv", b=bs, c=ch, h=dt_bias.shape[0],
+                               w=w1 + 1, elem=elem))
+        return (torch.empty((bs, ch), dtype=torch.float32, device=u.device),
+                torch.empty((bs, dt_bias.shape[0]), dtype=torch.float32,
+                            device=u.device))
+
+    def ssd_state_step(h, dt, a_log, x, b, c, d_skip, impl="cuda"):
+        bs, heads, hp, n = h.shape
+        charge(mixer_bytes_ops("state", b=bs, h=heads, g=b.shape[1], p=hp,
+                               n=n))
+        return torch.empty((bs, heads, hp), dtype=torch.float32,
                            device=h.device)
+
+    def ssd_gated_norm(y, z, scale, groups, gate_first, eps, impl="cuda"):
+        charge(mixer_bytes_ops("norm", b=y.shape[0], d=y.shape[1],
+                               elem=elem))
+        return torch.empty(y.shape, dtype=z.dtype, device=y.device)
     params = model.init_params(cfg, device="meta")
-    saved = (ops.attention, ops.decode_attention, ops.ssd_scan, ops.ssd_step)
-    ops.attention, ops.decode_attention, ops.ssd_scan, ops.ssd_step = \
-        attention, decode_attention, ssd_scan, ssd_step
+    names = ("attention", "decode_attention", "ssd_scan", "ssd_conv_step",
+             "ssd_state_step", "ssd_gated_norm")
+    saved = {k: getattr(ops, k) for k in names}
+    for k, fn in zip(names, (attention, decode_attention, ssd_scan,
+                             ssd_conv_step, ssd_state_step, ssd_gated_norm)):
+        setattr(ops, k, fn)
     out = {}
     try:
         with counter:
@@ -3753,8 +3907,8 @@ def served_costs(cfg, batch: int, prompt: int):
                               kernels="cuda")
         out["decode"] = counter.costs
     finally:
-        ops.attention, ops.decode_attention, ops.ssd_scan, \
-            ops.ssd_step = saved
+        for k, fn in saved.items():
+            setattr(ops, k, fn)
     return out
 
 
@@ -3951,6 +4105,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     step_times = phase_ssd_step(dev)
     torch.cuda.empty_cache()
+    mixer_times = phase_ssd_mixer(dev)
+    torch.cuda.empty_cache()
 
     # the decoders of slices 6 and 7: RecurrentGemma-2B whole, the dense
     # and MoE configs at full width (parity one period, serving the depth
@@ -4060,7 +4216,7 @@ def main() -> int:
         "name": "ssd_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd.cu",
         "replaces": "none: the reference's decode step is plain jnp",
-        "launches": mamba["launches"]["ssd_step"],
+        "launches": mamba["launches"]["ssd_state_step"],
         "max_abs_err": step_times["max_y_err"], "ms": tm["ms"],
         "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
@@ -4068,6 +4224,20 @@ def main() -> int:
         "nemotron_ms": nem["ms"], "nemotron_plain_ms": nem["plain_ms"],
         "nemotron_bound_ms": nem["bound_ms"],
         "launch_floor_ms": step_times["launch_floor_ms"]})
+    for which, wrapper in zip(("conv", "state", "norm"), mixer_kernels()):
+        tm, nem = (mixer_times[a][which] for a in MIXER_ARCHS)
+        rows.append({
+            "name": wrapper.__name__, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd.cu",
+            "replaces": "none: the reference's decode step is plain jnp",
+            "launches": mamba["launches"][wrapper.__name__],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": None, "shape": tm["shape"],
+            "nemotron_shape": nem["shape"], "nemotron_ms": nem["ms"],
+            "nemotron_plain_ms": nem["plain_ms"],
+            "nemotron_bound_ms": nem["bound_ms"],
+            "launch_floor_ms": mixer_times["launch_floor_ms"]})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -82,9 +82,16 @@ SIGNATURES = {
         "laimr_ssd_scan": [_VOIDP] * 9 + [_INT] * 7 + [_VOIDP],
         # dtype -> dynamic shared memory bytes of that body
         "laimr_ssd_smem_bytes": [_INT],
-        # h, dt, a, x, b, c, d_skip, y, x's three strides, B, H, P, N,
-        # stream
-        "laimr_ssd_step": [_VOIDP] * 8 + [_INT] * 7 + [_VOIDP],
+        # h, dt, a (or a_log), x, b, c, d_skip, y, x's three strides,
+        # b's and c's row stride, heads a group, a_log, B, H, P, N, stream
+        "laimr_ssd_step": [_VOIDP] * 8 + [_INT] * 10 + [_VOIDP],
+        # u, dt_raw, buf, w, bias, dt_bias, out, dt, dtype, u's and
+        # dt_raw's row strides, B, C, H, W, stream
+        "laimr_ssd_conv_step": [_VOIDP] * 8 + [_INT] * 7 + [_VOIDP],
+        # y, z, scale, out, dtype, z's row stride, B, D, groups,
+        # gate_first, eps, stream
+        "laimr_ssd_gated_norm": [_VOIDP] * 4 + [_INT] * 6 + [_FLOAT]
+        + [_VOIDP],
     },
     "moe": {
         # a, rows (or null), w, out, tile_expert, tile_row0, ends, n_tiles,

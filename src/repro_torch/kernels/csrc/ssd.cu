@@ -84,8 +84,10 @@
 // seg, far inside the bf16 bound. Hand PTX (wgmma, ldmatrix, TMA,
 // mbarrier, cp.async); no CUTLASS headers, no library call.
 //
-// ssd_step_kernel, beside it, is one decode token's state update (the
-// served decode step's recurrence; its note is at the kernel).
+// Beside it, the three launches of a Mamba-2 layer's decode mixer between
+// in_proj and out_proj (the served decode step; each note is at its
+// kernel): ssd_conv_step_kernel (the conv step and dt), ssd_step_kernel
+// (the state update, B and C read by group) and ssd_gated_norm_kernel.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,8 +123,26 @@ constexpr int kSmemFloats = kOffW + kQ;
 constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 __device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
+  *dst = __float2bfloat16_rn(x);
+}
+
+// x rounded to T and back: a cast to the model dtype, as PyTorch's .to()
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (std::is_same<T, float>::value) return x;
+  else return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// PyTorch's SiLU on the card: x / (1 + exp(-x)), IEEE division
+__device__ __forceinline__ float silu(float x) {
+  return __fdiv_rn(x, __fadd_rn(1.f, expf(-x)));
+}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = __fmaf_rn(a.x, b.x, acc);
@@ -1135,12 +1155,79 @@ int launch_ssd(SsdArgs a, int B, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
+// The decode mixer of a Mamba-2 layer, three launches a layer inside the
+// replayed step. The plain versions are kernels/ref.py: ssd_conv_step_ref,
+// ssd_state_step_ref (over ssd_step_ref) and ssd_gated_norm_ref; they
+// replace no TPU kernel (the reference's decode step is plain jnp) but the
+// ~33 eager passes a layer of that step. T is the model dtype (float32 or
+// bfloat16) of the in_proj output, the conv buffer and taps and the norm's
+// output; the conv output, dt, the state and y are float32.
+
+// ---------------------------------------------------------------------------
+// ssd_conv_step_kernel: the depthwise causal conv's one-token step and dt.
+// One thread per (row, conv channel): the channel's W - 1 buffered inputs
+// and its new input (the in_proj output's x | B | C, read in place),
+//
+//   acc = e_0 w_0 + e_1 w_1 + ... + e_{W-1} w_{W-1}   (float32, tap order)
+//   out = silu(acc + bias)                              (float32)
+//
+// each product and sum rounded on its own, then the channel's buffer
+// shifted by one in place (a channel's buffer is its own thread's: no
+// race). Past the channels, one thread per (row, head):
+// dt = softplus(dt_raw + dt_bias) in float32 (PyTorch's: x above 20 is
+// kept, else log1p(exp(x))). What bounds it: bytes, ~10 per channel
+// (2.6 MB at B 64 x 2,304 channels: ~1 us at 3.35 TB/s), far under a
+// launch.
+constexpr int kConvThreads = 256;
+constexpr int kConvMaxW = 8;
+
+// u (B, C) at row stride u_sb; dt_raw (B, H) at row stride dt_sb; buf
+// (B, W - 1, C), w (W, C), bias (C,) contiguous; dt_bias (H,); out (B, C)
+// and dt (B, H) contiguous float32. grid (ceil((C + H) / 256), B).
+template <typename T>
+__global__ void __launch_bounds__(kConvThreads)
+ssd_conv_step_kernel(const T* __restrict__ u, const T* __restrict__ dt_raw,
+                     T* __restrict__ buf, const T* __restrict__ w,
+                     const T* __restrict__ bias,
+                     const float* __restrict__ dt_bias,
+                     float* __restrict__ out, float* __restrict__ dt,
+                     int u_sb, int dt_sb, int C, int H, int W) {
+  const int row = blockIdx.y;
+  const int i = blockIdx.x * kConvThreads + threadIdx.x;
+  if (i < C) {
+    T* br = buf + static_cast<int64_t>(row) * (W - 1) * C + i;
+    const T un = u[static_cast<int64_t>(row) * u_sb + i];
+    T e[kConvMaxW];
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < kConvMaxW; ++k) {
+      if (k < W) {
+        e[k] = k < W - 1 ? br[static_cast<int64_t>(k) * C] : un;
+        const float p = __fmul_rn(to_float(e[k]),
+                                  to_float(w[static_cast<int64_t>(k) * C + i]));
+        acc = k == 0 ? p : __fadd_rn(acc, p);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k + 1 < kConvMaxW; ++k)
+      if (k + 1 < W) br[static_cast<int64_t>(k) * C] = e[k + 1];
+    out[static_cast<int64_t>(row) * C + i] =
+        silu(__fadd_rn(acc, to_float(bias[i])));
+  } else if (i < C + H) {
+    const int hd = i - C;
+    const float v = __fadd_rn(
+        to_float(dt_raw[static_cast<int64_t>(row) * dt_sb + hd]), dt_bias[hd]);
+    dt[static_cast<int64_t>(row) * H + hd] = v > 20.f ? v : log1pf(expf(v));
+  }
+}
+
+// ---------------------------------------------------------------------------
 // ssd_step_kernel: one decode token's SSM recurrence, the plain version
-// kernels/ref.py: ssd_step_ref. It replaces no TPU kernel: the reference's
-// decode step is plain jnp. Per (batch row, head), with the (P x N) state
+// kernels/ref.py: ssd_step_ref (ssd_state_step_ref when B and C come by
+// group and a from a_log). Per (batch row, head), with the (P x N) state
 // h in float32, updated in place:
 //
-//   decay = exp(dt * a)
+//   decay = exp(dt * a)                          (a = -exp(a_log) inline)
 //   h     = h * decay + (dt * x) b^T
 //   y     = h c + d_skip * x                     (P values, float32)
 //
@@ -1164,16 +1251,20 @@ constexpr int kStepThreads = 256;
 constexpr int kStepWarps = kStepThreads / 32;
 constexpr int kStepRows = kPMax / kStepWarps;   // rows a warp holds, at most
 
-// h (B, H, P, N); dt (B, H); a, d_skip (H,); x (B, H, P) at element
-// strides (x_sb, x_sh, x_sp), any layout (the decode step's is a view of
-// its conv output); b, c (B, H, N); y (B, H, P). N % 4 == 0.
+// h (B, H, P, N); dt (B, H); a, d_skip (H,), a holding a_log when a_log
+// is set; x (B, H, P) at element strides (x_sb, x_sh, x_sp), any layout
+// (the decode step's is a view of its conv output); head hd of row r
+// reads b and c at r * bc_sb + (hd / rep) * N (its group's N values);
+// y (B, H, P). N % 4 == 0, bc_sb % 4 == 0.
 __global__ void __launch_bounds__(kStepThreads)
 ssd_step_kernel(float* __restrict__ h, const float* __restrict__ dt,
                 const float* __restrict__ a, const float* __restrict__ x,
                 const float* __restrict__ b, const float* __restrict__ c,
                 const float* __restrict__ d_skip, float* __restrict__ y,
-                int x_sb, int x_sh, int x_sp, int H, int P, int N) {
+                int x_sb, int x_sh, int x_sp, int bc_sb, int rep, int a_log,
+                int H, int P, int N) {
   const int bh = blockIdx.x;              // batch row * H + head
+  const int row = bh / H;
   const int head = bh % H;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -1182,12 +1273,14 @@ ssd_step_kernel(float* __restrict__ h, const float* __restrict__ dt,
   const int n4 = N >> 2;
   const bool on = lane < n4;
   const float dtv = dt[bh];
-  const float decay = expf(__fmul_rn(dtv, a[head]));
-  const float* xr = x + static_cast<int64_t>(bh / H) * x_sb
+  const float a_h = a_log ? -expf(a[head]) : a[head];
+  const float decay = expf(__fmul_rn(dtv, a_h));
+  const float* xr = x + static_cast<int64_t>(row) * x_sb
                     + static_cast<int64_t>(head) * x_sh;
   float4* hr =
       reinterpret_cast<float4*>(h) + static_cast<int64_t>(bh) * P * n4;
-  const int64_t bc = static_cast<int64_t>(bh) * n4 + lane;
+  const int64_t bc = static_cast<int64_t>(row) * (bc_sb >> 2)
+                     + static_cast<int64_t>(head / rep) * n4 + lane;
   float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
   float4 cv = bv;
   if (on) {
@@ -1238,6 +1331,62 @@ ssd_step_kernel(float* __restrict__ h, const float* __restrict__ dt,
   }
 }
 
+// ---------------------------------------------------------------------------
+// ssd_gated_norm_kernel: the gated RMSNorm between the state step and
+// out_proj, in the dtype steps of models/ssm.py: _gate_out, with y first
+// cast to T as the decode step casts it. One block per (norm group, row)
+// over the group's D / groups columns; z is the in_proj output's, read in
+// place. Two passes over the columns (the second recomputes the value; the
+// row stays in L1): the sum of squares, reduced over the block, then
+//
+//   gate_first 0:  out = T( T(y r (1 + scale)) * T(silu(z)) )   groups 1
+//   gate_first 1:  out = T( y silu(z) r (1 + scale) )
+//
+// with r = rsqrt(mean(v^2) + eps) over the group's values v (T(y), or
+// T(y) silu(z)). Each product and sum rounded on its own; only the order
+// of the sum of squares differs from the plain version's. What bounds it:
+// a launch (B 64 x 2,048 columns read 0.8 MB).
+constexpr int kNormThreads = 256;
+
+// y (B, D) float32 contiguous; z (B, D) at row stride z_sb; scale (D,)
+// float32; out (B, D) contiguous. grid (groups, B), Dg = D / groups.
+template <typename T>
+__global__ void __launch_bounds__(kNormThreads)
+ssd_gated_norm_kernel(const float* __restrict__ y, const T* __restrict__ z,
+                      const float* __restrict__ scale, T* __restrict__ out,
+                      int z_sb, int D, int Dg, int gate_first, float eps) {
+  __shared__ float part[kNormThreads / 32];
+  const int row = blockIdx.y;
+  const int c0 = blockIdx.x * Dg;
+  const float* yr = y + static_cast<int64_t>(row) * D + c0;
+  const T* zr = z + static_cast<int64_t>(row) * z_sb + c0;
+  T* outr = out + static_cast<int64_t>(row) * D + c0;
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < Dg; i += kNormThreads) {
+    float v = round_to<T>(yr[i]);
+    if (gate_first) v = __fmul_rn(v, silu(to_float(zr[i])));
+    ss = __fadd_rn(ss, __fmul_rn(v, v));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ss = __fadd_rn(ss, __shfl_xor_sync(kFull, ss, off));
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = ss;
+  __syncthreads();
+  ss = part[0];
+#pragma unroll
+  for (int k = 1; k < kNormThreads / 32; ++k) ss = __fadd_rn(ss, part[k]);
+  const float r = rsqrtf(__fadd_rn(__fdiv_rn(ss, static_cast<float>(Dg)),
+                                   eps));
+  for (int i = threadIdx.x; i < Dg; i += kNormThreads) {
+    const float zf = to_float(zr[i]);
+    float v = round_to<T>(yr[i]);
+    if (gate_first) v = __fmul_rn(v, silu(zf));
+    v = __fmul_rn(__fmul_rn(v, r), __fadd_rn(1.f, scale[c0 + i]));
+    if (!gate_first) v = __fmul_rn(round_to<T>(v), round_to<T>(silu(zf)));
+    store(outr + i, v);
+  }
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype 0 is float32, 1 bfloat16
@@ -1264,20 +1413,80 @@ int laimr_ssd_scan(const void* x, const float* dt, const float* a,
 
 // One decode token's state update (ssd_step_kernel): h (B, H, P, N)
 // float32 in place, y (B, H, P) float32; x at element strides (x_sb,
-// x_sh, x_sp). The wrapper checks shapes, the contiguity and 16-byte
-// alignment of h, b and c.
+// x_sh, x_sp); head hd of row r reads b and c at r * bc_sb + (hd / rep) *
+// N; a holds a_log when a_log is set. The wrapper checks shapes, the
+// contiguity and 16-byte alignment of h, b and c.
 int laimr_ssd_step(float* h, const float* dt, const float* a, const float* x,
                    const float* b, const float* c, const float* d_skip,
-                   float* y, int x_sb, int x_sh, int x_sp, int B, int H,
-                   int P, int N, void* stream) {
+                   float* y, int x_sb, int x_sh, int x_sp, int bc_sb, int rep,
+                   int a_log, int B, int H, int P, int N, void* stream) {
   if (B < 0 || H < 1 || P < 1 || P > kPMax || N < 4 || N > kNMax ||
-      N % 4 != 0 || x_sb < 0 || x_sh < 0 || x_sp < 0 ||
+      N % 4 != 0 || x_sb < 0 || x_sh < 0 || x_sp < 0 || bc_sb < 0 ||
+      bc_sb % 4 != 0 || rep < 1 || H % rep != 0 ||
       static_cast<int64_t>(B) * H > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   ssd_step_kernel<<<B * H, kStepThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
-      h, dt, a, x, b, c, d_skip, y, x_sb, x_sh, x_sp, H, P, N);
+      h, dt, a, x, b, c, d_skip, y, x_sb, x_sh, x_sp, bc_sb, rep, a_log, H,
+      P, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The conv step and dt (ssd_conv_step_kernel); dtype 0 float32, 1
+// bfloat16 (of u, dt_raw, buf, w and bias).
+int laimr_ssd_conv_step(const void* u, const void* dt_raw, void* buf,
+                        const void* w, const void* bias, const float* dt_bias,
+                        float* out, float* dt, int dtype, int u_sb,
+                        int dt_sb, int B, int C, int H, int W, void* stream) {
+  if (B < 0 || B > 65535 || C < 1 || H < 1 || W < 2 || W > kConvMaxW ||
+      u_sb < 0 || dt_sb < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  const dim3 grid((C + H + kConvThreads - 1) / kConvThreads, B);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    ssd_conv_step_kernel<float><<<grid, kConvThreads, 0, st>>>(
+        static_cast<const float*>(u), static_cast<const float*>(dt_raw),
+        static_cast<float*>(buf), static_cast<const float*>(w),
+        static_cast<const float*>(bias), dt_bias, out, dt, u_sb, dt_sb, C, H,
+        W);
+  else if (dtype == 1)
+    ssd_conv_step_kernel<__nv_bfloat16><<<grid, kConvThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(u),
+        static_cast<const __nv_bfloat16*>(dt_raw),
+        static_cast<__nv_bfloat16*>(buf),
+        static_cast<const __nv_bfloat16*>(w),
+        static_cast<const __nv_bfloat16*>(bias), dt_bias, out, dt, u_sb,
+        dt_sb, C, H, W);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gated RMSNorm (ssd_gated_norm_kernel); dtype as above (of z and
+// out).
+int laimr_ssd_gated_norm(const float* y, const void* z, const float* scale,
+                         void* out, int dtype, int z_sb, int B, int D,
+                         int groups, int gate_first, float eps,
+                         void* stream) {
+  if (B < 0 || B > 65535 || D < 1 || groups < 1 || D % groups != 0 ||
+      z_sb < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  const dim3 grid(groups, B);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    ssd_gated_norm_kernel<float><<<grid, kNormThreads, 0, st>>>(
+        y, static_cast<const float*>(z), scale, static_cast<float*>(out),
+        z_sb, D, D / groups, gate_first, eps);
+  else if (dtype == 1)
+    ssd_gated_norm_kernel<__nv_bfloat16><<<grid, kNormThreads, 0, st>>>(
+        y, static_cast<const __nv_bfloat16*>(z), scale,
+        static_cast<__nv_bfloat16*>(out), z_sb, D, D / groups, gate_first,
+        eps);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
-"""Dispatch facade for the port's kernels (routing, attention, SSD scan
-and state step, experts).
+"""Dispatch facade for the port's kernels (routing, attention, SSD scan,
+state step and decode mixer, experts).
 
 Each op has three execution paths, chosen per call with ``impl=``:
 
@@ -12,8 +12,9 @@ Each op has three execution paths, chosen per call with ``impl=``:
 * ``"fused"`` — the attention and SSD scan ops through
   ``repro_torch.kernels.fused`` (plain torch on any device, blocked
   attention with a hand-written backward: the path training takes); the
-  routing ops, the SSD state step and the expert GEMM, which have no
-  fused form, run their plain versions, as the reference's facade does.
+  routing ops, the SSD state step and decode mixer and the expert GEMM,
+  which have no fused form, run their plain versions, as the reference's
+  facade does.
 """
 from __future__ import annotations
 
@@ -150,6 +151,37 @@ def ssd_step(h, dt, a, x, b, c, d_skip, impl: str = "ref"):
         return _ref.ssd_step_ref(h, dt, a, x, b, c, d_skip)
     from repro_torch.kernels import ssd_step as step
     return step.ssd_step(h, dt, a, x, b, c, d_skip)
+
+
+def ssd_conv_step(u, dt_raw, buf, w, bias, dt_bias, impl: str = "ref"):
+    """One decode token of the Mamba-2 conv with SiLU, its buffer shifted
+    in place, and dt. See ``ref.ssd_conv_step_ref``; ``"fused"`` runs
+    the plain version."""
+    _require_cuda("ssd_conv_step", buf, impl)
+    if impl in ("ref", "fused"):
+        return _ref.ssd_conv_step_ref(u, dt_raw, buf, w, bias, dt_bias)
+    from repro_torch.kernels import ssd_step as step
+    return step.ssd_conv_step(u, dt_raw, buf, w, bias, dt_bias)
+
+
+def ssd_state_step(h, dt, a_log, x, b, c, d_skip, impl: str = "ref"):
+    """``ssd_step`` with a from a_log and B, C by group. See
+    ``ref.ssd_state_step_ref``; ``"fused"`` runs the plain version."""
+    _require_cuda("ssd_state_step", h, impl)
+    if impl in ("ref", "fused"):
+        return _ref.ssd_state_step_ref(h, dt, a_log, x, b, c, d_skip)
+    from repro_torch.kernels import ssd_step as step
+    return step.ssd_state_step(h, dt, a_log, x, b, c, d_skip)
+
+
+def ssd_gated_norm(y, z, scale, groups, gate_first, eps, impl: str = "ref"):
+    """The Mamba-2 gated RMSNorm of one decode token. See
+    ``ref.ssd_gated_norm_ref``; ``"fused"`` runs the plain version."""
+    _require_cuda("ssd_gated_norm", y, impl)
+    if impl in ("ref", "fused"):
+        return _ref.ssd_gated_norm_ref(y, z, scale, groups, gate_first, eps)
+    from repro_torch.kernels import ssd_step as step
+    return step.ssd_gated_norm(y, z, scale, groups, gate_first, eps)
 
 
 def moe_gemm(a, rows, w, plan, act: str = "none", out_dtype=None,

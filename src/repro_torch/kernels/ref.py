@@ -32,7 +32,11 @@ reference's sequential oracle ``repro.kernels.ref.ssd_scan``, a float32
 recurrence over the sequence, one step at a time. ``ssd_step_ref`` is
 one decode token of that recurrence with the state updated in place,
 the plain version of ``ssd_step_kernel``: the eager passes of the
-reference's decode step.
+reference's decode step. ``ssd_conv_step_ref``, ``ssd_state_step_ref``
+and ``ssd_gated_norm_ref`` are the plain versions of the decode mixer's
+three launches (``ssd_conv_step_kernel``, ``ssd_step_kernel`` with B and
+C by group, ``ssd_gated_norm_kernel``): the conv step in tap order and
+the gated norm in ``models/ssm.py: _gate_out``'s dtype steps.
 """
 from __future__ import annotations
 
@@ -392,6 +396,65 @@ def ssd_step_ref(h: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         (dt[..., None] * x)[..., None] * b[:, :, None, :])
     y = torch.einsum("bhpn,bhn->bhp", h, c)               # (B, H, P)
     return y + x * d_skip[None, :, None]
+
+
+def ssd_conv_step_ref(u: torch.Tensor, dt_raw: torch.Tensor,
+                      buf: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                      dt_bias: torch.Tensor):
+    """One decode token of the depthwise causal conv, and dt; the plain
+    version of ``ssd_conv_step``. u: (B, C) new inputs; dt_raw: (B, H);
+    buf: (B, W-1, C) the W-1 inputs before u, shifted in place; w: (W, C)
+    taps; bias: (C,), all in the model dtype; dt_bias: (H,) float32::
+
+        out = silu(e_0 w_0 + ... + e_{W-1} w_{W-1} + bias)   (float32)
+        dt  = softplus(dt_raw + dt_bias)                       (float32)
+
+    over the window e = [buf, u], the sum in tap order with each product
+    and sum rounded on its own. Returns (out (B, C), dt (B, H))."""
+    ext = torch.cat([buf, u[:, None]], dim=1)            # (B, W, C)
+    acc = ext[:, 0].to(torch.float32) * w[0].to(torch.float32)
+    for k in range(1, w.shape[0]):
+        acc = acc + ext[:, k].to(torch.float32) * w[k].to(torch.float32)
+    out = torch.nn.functional.silu(acc + bias.to(torch.float32))
+    buf.copy_(ext[:, 1:])
+    dt = torch.nn.functional.softplus(dt_raw.to(torch.float32) + dt_bias)
+    return out, dt
+
+
+def ssd_state_step_ref(h: torch.Tensor, dt: torch.Tensor,
+                       a_log: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, d_skip: torch.Tensor) -> torch.Tensor:
+    """``ssd_step_ref`` with a = -exp(a_log) and B and C given by group:
+    b, c (B, G, N), head h reading group h / (H / G); the plain version
+    of ``ssd_state_step``. Returns y (B, H, P) float32, h updated in
+    place."""
+    rep = h.shape[1] // b.shape[1]
+    return ssd_step_ref(h, dt, -torch.exp(a_log), x,
+                        b.repeat_interleave(rep, dim=1),
+                        c.repeat_interleave(rep, dim=1), d_skip)
+
+
+def ssd_gated_norm_ref(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                       groups: int, gate_first: bool,
+                       eps: float) -> torch.Tensor:
+    """The Mamba-2 gated RMSNorm of one decode token; the plain version of
+    ``ssd_gated_norm``. y: (B, D) float32, cast first to z's dtype (the
+    model dtype) as the decode step casts it; z: (B, D); scale: (D,)
+    float32. ``gate_first`` False: rmsnorm(y) * silu(z), the norm over
+    the whole width, the SiLU in float32 cast to the model dtype;
+    ``gate_first``: rmsnorm(y * silu(z)) over each of ``groups`` groups
+    of the width, in float32 and cast once. Returns (B, D) in z's
+    dtype."""
+    dtype = z.dtype
+    yf = y.to(dtype).to(torch.float32)
+    zs = torch.nn.functional.silu(z.to(torch.float32))
+    if not gate_first:
+        var = yf.square().mean(dim=-1, keepdim=True)
+        n = (yf * torch.rsqrt(var + eps) * (1.0 + scale)).to(dtype)
+        return n * zs.to(dtype)
+    g = (yf * zs).unflatten(-1, (groups, -1))
+    g = g * torch.rsqrt(g.square().mean(dim=-1, keepdim=True) + eps)
+    return (g.flatten(-2) * (1.0 + scale)).to(dtype)
 
 
 # ------------------------------------------------------------ experts

@@ -27,10 +27,14 @@ made contiguous here (the kernel's wrapper takes nothing else).
 Decode carries two pieces of state per layer, a conv buffer (B, W-1,
 conv channels) in the model dtype and the SSM state (B, H, P, N) in
 float32; ``decode_step`` updates both in place, as the attention layers
-update their caches. Its state recurrence goes through
-``ops.ssd_step`` (one launch a layer under ``kernels="cuda"``, x a
-strided view of the conv output); the conv, dt's softplus, the
-repeat of B and C over the heads and the gated norm stay plain ops.
+update their caches. Under ``kernels="cuda"`` on plain tensors its mixer
+between in_proj and out_proj is three launches a layer: ``ops.
+ssd_conv_step`` (the conv step over the in_proj output read in place,
+and dt), ``ops.ssd_state_step`` (the state update, B and C by group) and
+``ops.ssd_gated_norm``. Under ``"ref"`` / ``"fused"``, and for a DTensor
+state (sharded by ``sharding.local_state_step``), the conv, dt's
+softplus, the repeat of B and C over the heads and the gated norm are
+plain ops around ``ops.ssd_step``.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import _is_dtensor
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -183,17 +188,46 @@ def init_state(cfg: ArchConfig, batch: int, dtype, device="cuda") -> dict:
     }
 
 
+def _mixer_kernels(params: dict, cfg: ArchConfig, proj: torch.Tensor,
+                   state: dict) -> torch.Tensor:
+    """The decode mixer from the in_proj output proj (B, proj_out) to
+    out_proj's input (B, d_in) in three hand-written launches, the state
+    updated in place: the conv step and dt, the state step (x, B and C
+    views of the conv output), the gated norm in the config's gate
+    order."""
+    dd = dims(cfg)
+    d_in, ch = dd["d_in"], dd["conv_ch"]
+    gn = dd["groups"] * dd["state"]
+    conv, dt = ops.ssd_conv_step(
+        proj[:, d_in:d_in + ch], proj[:, d_in + ch:], state["conv"],
+        params["conv_w"], params["conv_b"], params["dt_bias"], impl="cuda")
+    y = ops.ssd_state_step(
+        state["ssm"], dt, params["a_log"],
+        conv[:, :d_in].unflatten(1, (dd["n_heads"], dd["head_dim"])),
+        conv[:, d_in:d_in + gn].unflatten(1, (dd["groups"], dd["state"])),
+        conv[:, d_in + gn:].unflatten(1, (dd["groups"], dd["state"])),
+        params["d_skip"], impl="cuda")
+    return ops.ssd_gated_norm(
+        y.flatten(1), proj[:, :d_in], params["norm"]["scale"],
+        cfg.ssm_groups if cfg.ssm_gate_first else 1, cfg.ssm_gate_first,
+        cfg.norm_eps or 1e-6, impl="cuda")
+
+
 def decode_step(params: dict, cfg: ArchConfig, x: torch.Tensor,
                 state: dict, kernels: str = "cuda"):
     """One-token step, O(1) in the sequence length. x: (B, 1, d).
     Returns (out (B, 1, d), state), with ``state["conv"]`` and
     ``state["ssm"]`` updated in place. The state recurrence is
-    ``ops.ssd_step`` under ``kernels`` (``"cuda"``: the hand-written
-    kernel, one launch; ``"ref"`` / ``"fused"``: its plain version); the
-    rest is plain ops."""
+    ``ops.ssd_step`` under ``kernels`` (``"ref"`` / ``"fused"``: its
+    plain version) and the rest plain ops, or under ``"cuda"`` on plain
+    tensors the three launches of ``_mixer_kernels``."""
     dd = dims(cfg)
     bsz = x.shape[0]
     proj = layers.matmul(x, params["in_proj"])          # (B, 1, proj_out)
+    if kernels == "cuda" and not (_is_dtensor(x)
+                                  or _is_dtensor(state["ssm"])):
+        y = _mixer_kernels(params, cfg, proj[:, 0], state)
+        return layers.matmul(y[:, None], params["out_proj"]), state
     z, xs, b, c, dt = _split(cfg, proj)
     conv_in = torch.cat([xs, b, c], dim=-1)              # (B, 1, C)
     buf = state["conv"]

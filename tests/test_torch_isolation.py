@@ -152,7 +152,8 @@ def test_kernel_scan_sees_every_kernel():
                               "moe_gemm_kernel",
                               "routing_score_kernel", "routing_guard_kernel",
                               "routing_topk_kernel", "routing_attain_kernel",
-                              "ssd_scan_kernel", "ssd_step_kernel"]
+                              "ssd_scan_kernel", "ssd_conv_step_kernel",
+                              "ssd_step_kernel", "ssd_gated_norm_kernel"]
 
 
 @pytest.mark.parametrize("kernel", cuda_kernels())

@@ -221,33 +221,80 @@ def test_step_counters_read_the_graph_counter():
     assert "step" not in ts.counters(window(fleet_records()))
 
 
-def test_ssd_step_counter_reads_the_device_trace():
-    """``program_counters.step.ssd_step``: the state-step kernel's device
-    launches over the ``engine.step`` spans that began inside the trace
-    (10 to 20), and that count over the model's Mamba-2 layers."""
+def traced_steps() -> tuple:
+    """``served_records`` with three replayed steps at 15, 16 and 17; the
+    records and the four steps that began inside the trace (10 to 20)."""
     rec = served_records()                  # a step at 6, one at 14
     for t0 in (15.0, 16.0, 17.0):
         span(rec, "engine.step", -1, t0, t0 + 0.02, graph=1)
-    traced = [i for i in ts.ids_of(rec, "engine.step") if rec.start[i] > 10]
+    return rec, [i for i in ts.ids_of(rec, "engine.step")
+                 if rec.start[i] > 10]
+
+
+def test_ssd_step_counter_reads_the_device_trace():
+    """``program_counters.step.ssd_mixer``'s state step: the state-step
+    kernel's device launches over the ``engine.step`` spans that began
+    inside the trace; steps through it alone (the conv and the norm as
+    plain passes) read a share of 0."""
+    rec, traced = traced_steps()
     kern = "void (anonymous namespace)::ssd_step_kernel(float*, ...)"
     ops = [op(kern, rec.start[s] + 0.001 * k, rec.start[s] + 0.001 * k
               + 5e-4) for s in traced for k in range(3)]
     ops += [op("ssd_scan_kernel", 12.0, 12.1), op("elementwise", 15.5,
                                                     15.6)]
     w = window(rec, ops)
-    want = {"launches": 12, "steps": 4, "per_step": 3.0, "share": 1.0}
-    assert ts.ssd_step_counter(w, 3) == want
-    assert ts.counters(w, 3)["step"]["ssd_step"] == want
-    assert ts.ssd_step_counter(w, 6)["share"] == pytest.approx(0.5)
+    got = ts.ssd_mixer_counter(w, 3)
+    assert got["launches"] == {"ssd_conv_step_kernel": 0,
+                               "ssd_step_kernel": 12,
+                               "ssd_gated_norm_kernel": 0}
+    assert got["steps"] == 4 and got["per_step"]["ssd_step_kernel"] == 3.0
+    assert got["share"] == 0.0 and got["kernels_per_step"] == 3.0
+    assert ts.counters(w, 3)["step"]["ssd_mixer"] == got
     # a model without Mamba-2 layers: no launches, no share
-    plain = window(rec, ops[-2:])
-    assert ts.ssd_step_counter(plain, 0) == {
-        "launches": 0, "steps": 4, "per_step": 0.0, "share": None}
+    plain = ts.ssd_mixer_counter(window(rec, ops[-2:]), 0)
+    assert set(plain["launches"].values()) == {0}
+    assert plain["share"] is None and plain["kernels_per_step"] == 0.0
     # no layer count given, or no step traced: nothing added
-    assert "ssd_step" not in ts.counters(w)["step"]
+    assert "ssd_mixer" not in ts.counters(w)["step"]
     late = window(rec, ops, t_start=18.0)
-    assert ts.ssd_step_counter(late, 3) is None
-    assert "ssd_step" not in ts.counters(late, 3)["step"]
+    assert ts.ssd_mixer_counter(late, 3) is None
+    assert "ssd_mixer" not in ts.counters(late, 3)["step"]
+
+
+def test_ssd_mixer_counter_reads_the_device_trace():
+    """Each of the mixer's three kernels once a layer and step (3
+    layers) reads a share of 1.0; the kernels that started inside the
+    traced steps count per step, copies and fills aside, and nothing
+    outside a step."""
+    rec, traced = traced_steps()
+    ops = []
+    for s in traced:
+        t = rec.start[s]
+        for k in range(3):
+            for j, name in enumerate(("ssd_conv_step_kernel<__nv_bfloat16>",
+                                      "ssd_step_kernel",
+                                      "ssd_gated_norm_kernel<float>")):
+                t0 = t + 0.001 * (3 * k + j)
+                ops.append(op(f"void (anonymous namespace)::{name}(...)",
+                              t0, t0 + 5e-4))
+        ops += [op("elementwise", t + 0.0095, t + 0.0099),
+                op("Memcpy DtoH (Device -> Pinned)", t + 0.0199,
+                   t + 0.01995),
+                op("Memset (Device)", t + 0.0101, t + 0.0102)]
+    ops += [op("ssd_scan_kernel", 12.0, 12.1), op("elementwise", 15.5,
+                                                    15.6)]
+    w = window(rec, ops)
+    got = ts.ssd_mixer_counter(w, 3)
+    assert got == {"steps": 4,
+                   "launches": dict.fromkeys(ts.MIXER_KERNELS, 12),
+                   "per_step": dict.fromkeys(ts.MIXER_KERNELS, 3.0),
+                   "share": 1.0, "kernels_per_step": 10.0}
+    assert ts.ssd_mixer_counter(w, 6)["share"] == pytest.approx(0.5)
+    # one layer's norm missing: the share reads the least of the three
+    short = window(rec, [o for o in ops if not (
+        "gated_norm" in o[0] and o[1] > 17.0)])
+    assert ts.ssd_mixer_counter(short, 3)["share"] == pytest.approx(
+        (12 - 3) / 4 / 3)
 
 
 def test_expert_counters_per_launch_by_phase():

@@ -69,10 +69,11 @@ def test_a_traced_run_reports_every_metric_of_its_cell(which, request):
         setup, steps = counters["setup_step"], counters["step"]
         assert setup["steps"] > 0 and steps["steps"] > 0
         assert setup["captures"] == setup["replays"] == steps["replays"] == 0
-        # the plain versions run on the CPU: no state-step kernel
-        assert steps["ssd_step"]["steps"] > 0
-        assert steps["ssd_step"]["launches"] == 0
-        assert steps["ssd_step"]["share"] == 0.0
+        # the plain versions run on the CPU: no mixer kernel
+        mixer = steps["ssd_mixer"]
+        assert mixer["steps"] > 0
+        assert set(mixer["launches"].values()) == {0}
+        assert mixer["share"] == 0.0
         assert tc.mamba_layers(run.conf) == run.conf["model"]["n_layer"]
     assert not TRACER.on and len(TRACER.drain()) == 0
 

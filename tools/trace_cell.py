@@ -18,10 +18,11 @@ harness's earlier lines and its result line, then three lines of its
 own (reductions in ``tools/trace_spans.py``):
 
 * ``program_spans``: span counts by name, ``program_counters``
-  (``trace_spans.counters``, with ``step.ssd_step``: the traced steps'
-  launches of the Mamba-2 state-step kernel against the model's Mamba-2
-  layers; and ``setup_step``: the set-up's decode steps and the engine's
-  graph captures there) and ``clock_check``
+  (``trace_spans.counters``, with ``step.ssd_mixer``: the traced steps'
+  launches of the Mamba-2 decode mixer's three kernels against the
+  model's Mamba-2 layers, and the device kernels a step; and
+  ``setup_step``: the set-up's decode steps and the engine's graph
+  captures there) and ``clock_check``
   (``trace_spans.clock_check``: routing kernels in their flush and
   device busy time in program spans, each with the device's own stamps
   and with each operation placed by its launch call), and how far the
@@ -136,7 +137,7 @@ def window_of(run) -> trace_spans.Window:
 
 def mamba_layers(conf: dict) -> int:
     """The Mamba-2 layers of a cell's model: those whose prefill launches
-    ``ssd_scan`` (and whose decode step ``ssd_step``)."""
+    ``ssd_scan`` (and whose decode step the mixer's three kernels)."""
     return families.launches(conf["layer_kind"], replica.dims(conf),
                              "ssd_scan")
 

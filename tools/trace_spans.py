@@ -251,21 +251,40 @@ def step_counters(rec):
             "captures": len(ids_of(rec, "engine.step.capture"))}
 
 
-def ssd_step_counter(w: Window, mamba_layers: int):
-    """Launches of ``ssd_step_kernel`` (the Mamba-2 decode state step) in
-    the device trace, per ``engine.step`` span that began inside it, and
-    that per-step count over ``mamba_layers`` (one launch a Mamba-2 layer
-    and step reads 1.0; None for a model without such layers); None
-    without a traced step."""
+#: the decode mixer's kernels, one launch each a Mamba-2 layer and step
+MIXER_KERNELS = ("ssd_conv_step_kernel", "ssd_step_kernel",
+                 "ssd_gated_norm_kernel")
+
+
+def ssd_mixer_counter(w: Window, mamba_layers: int):
+    """The Mamba-2 decode mixer's kernels in the device trace, per
+    ``engine.step`` span that began inside it: each kernel's launches
+    and launches per step, their share of ``mamba_layers`` (the least of
+    the three per-step counts over the layers: 1.0 when every layer goes
+    through all of them; None for a model without such layers), and the
+    device kernels (copies and fills aside) that started inside those
+    steps, per step; None without a traced step."""
     rec = w.rec
-    steps = [i for i in ids_of(rec, "engine.step")
-             if w.t_start <= rec.start[i] <= w.t_stop]
+    steps = sorted((rec.start[i], rec.end[i])
+                   for i in ids_of(rec, "engine.step")
+                   if w.t_start <= rec.start[i] <= w.t_stop)
     if not steps:
         return None
-    n = sum("ssd_step_kernel" in name for name, *_ in w.ops)
-    per_step = n / len(steps)
-    return {"launches": n, "steps": len(steps), "per_step": per_step,
-            "share": per_step / mamba_layers if mamba_layers else None}
+    n = len(steps)
+    launches = {k: sum(k in name for name, *_ in w.ops)
+                for k in MIXER_KERNELS}
+    per_step = {k: v / n for k, v in launches.items()}
+    starts = [s for s, _ in steps]
+    kernels = 0
+    for name, s, *_ in w.ops:
+        j = bisect.bisect_right(starts, s) - 1
+        if j >= 0 and s <= steps[j][1] \
+                and not name.startswith(("Memcpy", "Memset")):
+            kernels += 1
+    return {"steps": n, "launches": launches, "per_step": per_step,
+            "share": (min(per_step.values()) / mamba_layers
+                      if mamba_layers else None),
+            "kernels_per_step": kernels / n}
 
 
 def expert_counters(rec):
@@ -293,9 +312,9 @@ def counters(w: Window, mamba_layers: int | None = None) -> dict:
     decided and as padded for the routing kernel, and bytes copied each
     way. Per wave (untraced): rows, steps, and ``engine.prefill`` ms by
     rows. Decode steps (the whole window): ``step_counters``, and given
-    the model's ``mamba_layers``, its ``ssd_step`` (``ssd_step_counter``,
-    the traced steps). Expert layers (the whole window):
-    ``expert_counters``."""
+    the model's ``mamba_layers``, its ``ssd_mixer``
+    (``ssd_mixer_counter``, the traced steps). Expert layers (the whole
+    window): ``expert_counters``."""
     rec, out = w.rec, {}
     fl = sorted(flush_ids(w, untraced=False), key=lambda i: rec.start[i])
     if fl:
@@ -319,9 +338,9 @@ def counters(w: Window, mamba_layers: int | None = None) -> dict:
     steps = step_counters(rec)
     if steps:
         if mamba_layers is not None:
-            state = ssd_step_counter(w, mamba_layers)
-            if state:
-                steps["ssd_step"] = state
+            mixer = ssd_mixer_counter(w, mamba_layers)
+            if mixer:
+                steps["ssd_mixer"] = mixer
         out["step"] = steps
     experts = expert_counters(rec)
     if experts:
