@@ -1779,8 +1779,16 @@ def profile_call(fn, dev, label: str, warm: bool = True,
     return row
 
 
-ATTN_KINDS = ("attn", "local", "hybrid_attn")
-SSM_KINDS = ("mamba2", "hybrid_mamba")
+ATTN_KINDS = ("attn", "local", "hybrid_attn", "parallel_hybrid")
+SSM_KINDS = ("mamba2", "hybrid_mamba", "parallel_hybrid")
+
+
+def scan_slices(cfg) -> int:
+    """The ``ssd_scan`` launches of one Mamba-2 layer's prefill: one a
+    slice of the state that the kernel's tiles hold (Falcon-H1's N 256:
+    two)."""
+    from repro_torch.kernels.ssd_scan import MAX_STATE
+    return max(1, cfg.ssm_state // MAX_STATE)
 
 
 def path_kernels(cfg) -> tuple:
@@ -1802,7 +1810,8 @@ def expected_launches(cfg, steps: int) -> tuple[dict, dict]:
     """(launches of one ``generate`` of ``steps`` tokens, launches of one
     decode step): one flash_attention per attention layer and prefill,
     one decode_attention per attention layer and decode step, one
-    ssd_scan per Mamba-2 layer and prefill and none in a decode step,
+    ssd_scan per Mamba-2 layer, slice of its state (``scan_slices``) and
+    prefill and none in a decode step,
     one of each of the decode mixer's three kernels per Mamba-2 layer and
     decode step and none in a prefill, two moe_gemm (up, down) per
     expert layer and pass.
@@ -1822,7 +1831,8 @@ def expected_launches(cfg, steps: int) -> tuple[dict, dict]:
     n_moe = 2 * kinds.count("hybrid_moe")
     mixer = [k.__name__ for k in mixer_kernels()]
     gen = {"flash_attention": n_attn,
-           "decode_attention": n_attn * (steps - 1), "ssd_scan": n_ssm,
+           "decode_attention": n_attn * (steps - 1),
+           "ssd_scan": n_ssm * scan_slices(cfg),
            "moe_gemm": n_moe * steps,
            **dict.fromkeys(mixer, n_ssm * (steps - 1))}
     step = {"flash_attention": 0, "decode_attention": n_attn,
@@ -2628,6 +2638,36 @@ def phase_nemotron(dev) -> dict:
     return served
 
 
+# ------------------------------------------------------ Falcon-H1-34B
+#: the served shapes of ``falcon_h1_34b.robot_chat``: 16 slots, prompts
+#: of 128, 64 tokens out, ``max_len`` 192; a partial wave of 8
+FALCON_SERVE = dict(slots=16, max_len=192, prompt=128, steps=64, partial=8)
+
+
+def phase_falcon(dev) -> dict:
+    """Falcon-H1-34B whole in bf16 (72 parallel layers, the full
+    vocabulary; weights from generator seed 0) served through
+    ``ServingEngine`` at ``FALCON_SERVE``: exact launches (two
+    ``ssd_scan`` a layer and prefill), one graph, every later step
+    replayed with ``decode_attention`` and the three mixer launches in
+    every layer, a prefill and a step profiled, the peak memory."""
+    import torch
+    from repro_torch.models import model
+    cfg = full_width("falcon_h1_34b", "bfloat16")
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device=dev)
+    sync(dev)
+    emit({"phase": "falcon_params", "seconds": time.perf_counter() - t0,
+          "params": model.param_count(cfg),
+          "bytes": torch.cuda.memory_allocated(dev)})
+    served = phase_engine(dev, cfg, **FALCON_SERVE, params=params)
+    emit({"phase": "falcon_memory",
+          "memory_peak_bytes": torch.cuda.max_memory_allocated(dev)})
+    del params
+    torch.cuda.empty_cache()
+    return served
+
+
 def ssd_inputs(seed, b, l, h, p, g, n, dtype, dev, h0=False, dt_scale=1.0,
                bc_scale=0.3, skip=True, model_a=False):
     """x ~ N(0, 1); dt = softplus(N(0, 1)) * dt_scale; a = -exp(N(0, 1)
@@ -2656,7 +2696,8 @@ def ssd_bodies(log: str, lib) -> list:
     """Registers, spills and dynamic shared memory of each body of
     ``ssd_scan_kernel`` from ptxas's lines in the build log."""
     import re
-    bodies = {"IfE": ("float32", 0), "I13__nv_bfloat16E": ("bf16", 1)}
+    bodies = {"IfLb0E": ("float32", 0), "I13__nv_bfloat16Lb0E": ("bf16", 1),
+              "I13__nv_bfloat16Lb1E": ("bf16, a slice of N", 1)}
     out, current = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S*ssd_scan_kernel\S*)'",
@@ -2772,17 +2813,87 @@ def phase_ssd_times(dev) -> dict:
     return out
 
 
+# The scan at Falcon-H1's head (P 128, N 256 over 2 groups), which the
+# wrapper runs as whole tiles (P in two slices of 64 as heads, N in two
+# launches of 128 whose y it sums): small cases with initial states and
+# ragged L, then the served prefill of ``falcon_h1_34b.robot_chat`` (16 x
+# 128) and a long one (8 x 2048), the model's a.
+SSD_WIDE_CASES = [
+    (2, 130, 4, 128, 2, 256, dict(h0=True)), (1, 65, 2, 128, 1, 128, {}),
+    (1, 100, 2, 64, 1, 256, dict(h0=True)), (2, 1, 4, 128, 2, 256,
+                                              dict(h0=True)),
+]
+SSD_WIDE = {"falcon_prefill": dict(b=16, l=128, h=32, p=128, g=2, n=256),
+            "falcon_long": dict(b=8, l=2048, h=32, p=128, g=2, n=256)}
+
+
+def phase_ssd_wide(dev) -> dict:
+    """``ssd_scan`` at P 128 / N 256 against its plain version (y and the
+    final state, float32 within ``SSD_TOL``, bf16 within
+    ``MODEL_BF16_TOL``) at ``SSD_WIDE_CASES`` and ``SSD_WIDE``; then at
+    ``SSD_WIDE`` in bf16 the device time of the whole call (its
+    launches), the plain version's wall time, and the bound."""
+    import torch
+    from repro_torch.kernels import ref
+    kernel = ssd_kernel()
+    cases = [(f"b{b}_l{l}_h{h}_p{p}_g{g}_n{n}", dict(b=b, l=l, h=h, p=p,
+                                                   g=g, n=n, **kw), 1600 + i)
+             for i, (b, l, h, p, g, n, kw) in enumerate(SSD_WIDE_CASES)]
+    cases += [(k, dict(**v, model_a=True), 1650 + i)
+              for i, (k, v) in enumerate(SSD_WIDE.items())]
+    for dtype in ("float32", "bfloat16"):
+        tol = SSD_TOL if dtype == "float32" else MODEL_BF16_TOL
+        for label, kw, seed in cases:
+            args, _ = ssd_inputs(seed, dtype=getattr(torch, dtype),
+                                 dev=dev, **kw)
+            before = kernel.launches
+            got = kernel(*args[:6], initial_state=args[6],
+                         return_final_state=True)
+            launches = kernel.launches - before
+            want = ref.ssd_scan_ref(*args[:6], initial_state=args[6],
+                                    return_final_state=True)
+            for out, g, w in zip(("y", "h_final"), got, want):
+                compare_attention("ssd_scan", f"{label}_{out}", g, w, dtype,
+                                  tol, phase="ssd_wide_parity")
+            emit({"phase": "ssd_wide_launches", "case": label,
+                  "dtype": dtype, "launches": launches})
+            del args, got, want
+    out = {}
+    for key, shape in SSD_WIDE.items():
+        args, _ = ssd_inputs(1700, dtype=torch.bfloat16, dev=dev,
+                             model_a=True, **shape)
+        nbytes, ops = ssd_bytes_ops(**shape)
+        bms, by = bf16_bound_ms(nbytes, ops)
+        out[key] = dict(
+            shape="b{b}_l{l}_h{h}_p{p}_g{g}_n{n}_bf16".format(**shape),
+            ms=time_launches(lambda: kernel(*args[:6],
+                                            return_final_state=True),
+                             dev, n=50),
+            plain_ms=time_host(lambda: ref.ssd_scan_ref(
+                *args[:6], return_final_state=True), dev, n=PLAIN_RUNS,
+                warm=1),
+            plain_runs=PLAIN_RUNS, library_ms=None, bound_ms=bms,
+            bound_by=by, bytes=nbytes, ops=ops)
+        emit({"phase": "times", "kernel": "ssd_scan", "arch":
+              "falcon_h1_34b", **out[key]})
+        del args
+    return out
+
+
 # The decode step's state update (``ssd_step``) at the served steps:
-# mamba2_370m's robot_chat (64 slots, 32 heads over 1 group) and
-# Nemotron-H's (32 slots, 64 heads over 8 groups), P 64, N 128; before
-# them the CPU tests' shapes (tests/test_torch_ssd_step.py), with P and N
-# at their limits
+# mamba2_370m's robot_chat (64 slots, 32 heads over 1 group),
+# Nemotron-H's (32 slots, 64 heads over 8 groups), P 64, N 128, and
+# Falcon-H1's (16 slots, 32 heads over 2 groups, P 128, N 256: two
+# slices of rows, two float4s a lane); before them the CPU tests' shapes
+# (tests/test_torch_ssd_step.py), with P and N at their limits
 SSD_STEP_SHAPES = {"mamba2_370m": dict(b=64, h=32, g=1, p=64, n=128),
-                   "nemotron_3_nano": dict(b=32, h=64, g=8, p=64, n=128)}
+                   "nemotron_3_nano": dict(b=32, h=64, g=8, p=64, n=128),
+                   "falcon_h1_34b": dict(b=16, h=32, g=2, p=128, n=256)}
 SSD_STEP_CASES = [(2, 32, 1, 64, 128), (2, 64, 8, 64, 128), (3, 3, 1, 5, 4),
                   (1, 4, 2, 7, 12), (2, 6, 3, 24, 20), (5, 2, 2, 1, 8),
                   (2, 4, 4, 40, 72), (1, 1, 1, 64, 128), (3, 5, 1, 33, 124),
-                  (2, 3, 3, 63, 4)]
+                  (2, 3, 3, 63, 4), (2, 32, 2, 128, 256), (3, 5, 1, 100, 252),
+                  (2, 3, 3, 65, 132)]
 
 
 def ssd_step_inputs(seed, b, h, g, p, n, dev, cols=True) -> list:
@@ -2879,10 +2990,12 @@ def phase_ssd_step(dev) -> dict:
 
 # The decode mixer's three kernels at the served steps (``SSD_STEP_SHAPES``'
 # batches and heads; conv width 4, bf16 and the parity dtype float32):
-# mamba2_370m (d_in 2048, rmsnorm(y) * silu(z)) and Nemotron-H (d_in 4096,
-# the gate first over 8 groups). Their CPU tests' cases are in
+# mamba2_370m (d_in 2048, rmsnorm(y) * silu(z)), Nemotron-H (d_in 4096,
+# the gate first over 8 groups) and Falcon-H1 (d_in 4096, P 128, N 256,
+# the gate first over 2 groups). Their CPU tests' cases are in
 # tests/test_torch_ssd_mixer.py, which also runs on the card.
-MIXER_ARCHS = {"mamba2_370m": "served_g1", "nemotron_3_nano": "served_g8"}
+MIXER_ARCHS = {"mamba2_370m": "served_g1", "nemotron_3_nano": "served_g8",
+               "falcon_h1_34b": "served_g2"}
 
 
 def mixer_bytes_ops(kind: str, b: int, elem: int = 2, c: int = 0,
@@ -4103,6 +4216,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssd_times = phase_ssd_times(dev)
     torch.cuda.empty_cache()
+    phase_ssd_wide(dev)
+    torch.cuda.empty_cache()
     step_times = phase_ssd_step(dev)
     torch.cuda.empty_cache()
     mixer_times = phase_ssd_mixer(dev)
@@ -4123,6 +4238,10 @@ def main() -> int:
     served = phase_nemotron(dev)
     decoders["nemotron_3_nano"] = {"engine": served,
                                    "launches": served["launches"]}
+    torch.cuda.empty_cache()
+    falcon = phase_falcon(dev)
+    decoders["falcon_h1_34b"] = {"engine": falcon,
+                                 "launches": falcon["launches"]}
     torch.cuda.empty_cache()
 
     # the launch layer: the dry run's records, the H100 catalogue that

@@ -11,7 +11,8 @@ architecture of the reference is ported: each is a module
 (architectures not ported yet) is empty. ``REFERENCE_IDS`` are the
 reference's architectures; ``ARCH_IDS`` adds the port's own
 (NVIDIA-Nemotron-3-Nano-30B-A3B, a Mamba-2 / expert / attention
-hybrid).
+hybrid, and Falcon-H1-34B, whose every layer runs attention and a
+Mamba-2 mixer side by side).
 """
 from __future__ import annotations
 
@@ -26,11 +27,12 @@ REFERENCE_IDS = [
     "gemma2_27b", "dbrx_132b", "stablelm_3b", "arctic_480b",
     "whisper_small", "phi3_medium_14b",
 ]
-ARCH_IDS = REFERENCE_IDS + ["nemotron_3_nano"]
+ARCH_IDS = REFERENCE_IDS + ["nemotron_3_nano", "falcon_h1_34b"]
 #: architectures the port runs
 PORTED = ("stablelm_3b", "mamba2_370m", "recurrentgemma_2b", "gemma2_27b",
           "phi3_medium_14b", "chameleon_34b", "nemotron_4_340b",
-          "dbrx_132b", "arctic_480b", "whisper_small", "nemotron_3_nano")
+          "dbrx_132b", "arctic_480b", "whisper_small", "nemotron_3_nano",
+          "falcon_h1_34b")
 #: the layer kind of each character of ``ArchConfig.hybrid_pattern``
 HYBRID_KINDS = {"M": "hybrid_mamba", "E": "hybrid_moe", "*": "hybrid_attn"}
 #: architectures not ported yet -> where they wait in ROADMAP.md (none)
@@ -51,7 +53,9 @@ class ArchConfig:
     head_dim: int = 0              # 0 -> d_model // n_heads
 
     # layer pattern, cycled over layers; entries:
-    #   "attn" (global), "local" (sliding window), "rglru", "mamba2"
+    #   "attn" (global), "local" (sliding window), "rglru", "mamba2",
+    #   "parallel_hybrid" (attention and a Mamba-2 mixer on one normed
+    #   input, then the MLP; the reference has no such layer)
     layer_pattern: tuple = ("attn",)
     window: int = 4096             # sliding-window size for "local" layers
     global_window: int = 0         # >0: window for "attn" layers too
@@ -162,7 +166,8 @@ def reduced(cfg: ArchConfig, seq_hint: int = 128) -> ArchConfig:
 
     2 layers (rounded up to one full pattern period), d_model <= 256,
     <= 4 experts, vocab truncated, float32. A hybrid stack keeps its
-    whole pattern, with at most 8 SSM heads and widths of at most 512.
+    whole pattern, with at most 8 SSM heads and widths of at most 512; a
+    stack of ``"parallel_hybrid"`` layers keeps at most 8 SSM heads too.
     """
     period = max(len(cfg.layer_pattern), 2)
     hybrid = {}
@@ -170,6 +175,10 @@ def reduced(cfg: ArchConfig, seq_hint: int = 128) -> ArchConfig:
         period = len(cfg.hybrid_pattern)
         hybrid = dict(
             shared_d_ff=min(cfg.shared_d_ff, 512),
+            ssm_heads=min(cfg.ssm_heads, 8),
+            ssm_groups=math.gcd(cfg.ssm_groups, min(cfg.ssm_heads, 8)))
+    elif "parallel_hybrid" in cfg.layer_pattern:
+        hybrid = dict(
             ssm_heads=min(cfg.ssm_heads, 8),
             ssm_groups=math.gcd(cfg.ssm_groups, min(cfg.ssm_heads, 8)))
     d_model = min(cfg.d_model, 256)

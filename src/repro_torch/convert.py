@@ -10,7 +10,10 @@ is its weights: :func:`model_params_from_numpy` takes a reference
 ``init_params`` pytree with numpy leaves and returns the port's
 parameters, and :func:`opt_state_from_numpy` its AdamW state. Only
 numpy crosses the boundary, so this module imports
-neither framework's package.
+neither framework's package. :func:`falcon_h1_params` maps a published
+Falcon-H1 state dict (``transformers``' ``FalconH1ForCausalLM`` names)
+to the port's tree, with the model's muP multipliers folded into the
+weights.
 """
 from __future__ import annotations
 
@@ -184,3 +187,115 @@ def opt_state_from_numpy(opt_state: dict, cfg, device="cuda") -> dict:
             "v": model_params_from_numpy(opt_state["v"], cfg, device, dt),
             "step": torch.tensor(int(np.asarray(opt_state["step"])),
                                  dtype=torch.int32, device=device)}
+
+
+def _mup_vector(cfg, ssm_multipliers) -> torch.Tensor:
+    """The published ``compute_mup_vector``: one multiplier per column of
+    the Mamba-2 in_proj output, by segment z, x, B, C, dt."""
+    from repro_torch.models import ssm
+    dd = ssm.dims(cfg)
+    gn = dd["groups"] * dd["state"]
+    sizes = [dd["d_in"], dd["d_in"], gn, gn, dd["n_heads"]]
+    return torch.cat([torch.full((n,), float(m), dtype=torch.float32)
+                      for n, m in zip(sizes, ssm_multipliers)])
+
+
+def falcon_h1_params(state_dict: dict, cfg,
+                     multipliers: dict | None = None) -> dict:
+    """The port's tree of a Falcon-H1 stack (``cfg`` of
+    ``"parallel_hybrid"`` layers) from a ``FalconH1ForCausalLM`` state
+    dict, with the muP multipliers (``multipliers``, by default the
+    published ones of
+    ``repro_torch.configs.falcon_h1_34b.MULTIPLIERS``) folded into the
+    weights, so the served model carries no multiplier pass:
+
+    * ``embedding_multiplier`` into ``embed``, ``lm_head_multiplier``
+      into ``lm_head``;
+    * ``attention_in_multiplier`` into q, k and v, ``key_multiplier``
+      into k (rotary is linear: scaling k before or after it is one),
+      ``attention_out_multiplier`` into o;
+    * ``ssm_in_multiplier`` and the five ``ssm_multipliers`` segments
+      (``compute_mup_vector``) into the columns of ``in_proj``,
+      ``ssm_out_multiplier`` into ``out_proj``;
+    * ``mlp_multipliers`` into the gate (a SiLU reads it, after the
+      product) and the down projection.
+
+    Each fold is a product in float32 cast once to the model dtype. The
+    published RMSNorm weights w become the port's scales w - 1 (the port
+    computes ``x * (1 + scale)``), in float32. Layouts: every Linear
+    (out, in) is transposed to the port's (in, out), attention split by
+    head (``wq`` (d, H, hd), ``wo`` (H, hd, d)), the conv's (C, 1, W)
+    taps to (W, C); every leaf stays on the state dict's device. A
+    missing, extra or misshapen leaf raises ``ValueError``."""
+    from repro_torch.models import model
+    if multipliers is None:
+        from repro_torch.configs.falcon_h1_34b import MULTIPLIERS
+        multipliers = MULTIPLIERS
+    mu = multipliers
+    sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
+    used: set = set()
+
+    def w(name: str) -> torch.Tensor:
+        if name not in sd:
+            raise ValueError(f"falcon_h1_params: no {name!r} in the state "
+                             "dict")
+        used.add(name)
+        return sd[name].detach().to(torch.float32)
+
+    def scale(name: str) -> torch.Tensor:
+        return w(name) - 1.0
+
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gm, dm = mu["mlp_multipliers"]
+    attn_in = mu["attention_in_multiplier"]
+    mup = _mup_vector(cfg, mu["ssm_multipliers"]) * mu["ssm_in_multiplier"]
+    flat = {"embed": w("embed_tokens.weight") * mu["embedding_multiplier"],
+            "final_norm/scale": scale("final_layernorm.weight")}
+    if not cfg.tie_embeddings:
+        flat["lm_head"] = w("lm_head.weight").T * mu["lm_head_multiplier"]
+    for i in range(cfg.n_layers):
+        src, dst = f"layers.{i}.", f"layers/{i}/"
+        at, mb, ff = src + "self_attn.", src + "mamba.", src + "feed_forward."
+        flat.update({
+            dst + "norm1/scale": scale(src + "input_layernorm.weight"),
+            dst + "norm2/scale": scale(src + "pre_ff_layernorm.weight"),
+            dst + "attn/wq": (w(at + "q_proj.weight").T * attn_in)
+            .reshape(d, h, hd),
+            dst + "attn/wk": (w(at + "k_proj.weight").T
+                              * (attn_in * mu["key_multiplier"]))
+            .reshape(d, hkv, hd),
+            dst + "attn/wv": (w(at + "v_proj.weight").T * attn_in)
+            .reshape(d, hkv, hd),
+            dst + "attn/wo": (w(at + "o_proj.weight").T
+                              * mu["attention_out_multiplier"])
+            .reshape(h, hd, d),
+            dst + "mixer/in_proj": w(mb + "in_proj.weight").T * mup,
+            dst + "mixer/conv_w": w(mb + "conv1d.weight")[:, 0, :].T,
+            dst + "mixer/conv_b": w(mb + "conv1d.bias"),
+            dst + "mixer/dt_bias": w(mb + "dt_bias"),
+            dst + "mixer/a_log": w(mb + "A_log"),
+            dst + "mixer/d_skip": w(mb + "D"),
+            dst + "mixer/norm/scale": scale(mb + "norm.weight"),
+            dst + "mixer/out_proj": w(mb + "out_proj.weight").T
+            * mu["ssm_out_multiplier"],
+            dst + "mlp/wg": w(ff + "gate_proj.weight").T * gm,
+            dst + "mlp/wi": w(ff + "up_proj.weight").T,
+            dst + "mlp/wo": w(ff + "down_proj.weight").T * dm,
+        })
+    extra = sorted(set(sd) - used)
+    if extra:
+        raise ValueError(f"falcon_h1_params: unexpected {extra}")
+    shapes = model.init_params(cfg, device="meta")
+    want = _leaves(shapes)
+    if set(want) != set(flat):
+        raise ValueError(f"falcon_h1_params: missing "
+                         f"{sorted(set(want) - set(flat))}, unexpected "
+                         f"{sorted(set(flat) - set(want))}")
+    out = {}
+    for path, like in want.items():
+        if tuple(flat[path].shape) != tuple(like.shape):
+            raise ValueError(f"falcon_h1_params: {path} shape "
+                             f"{tuple(flat[path].shape)}, expected "
+                             f"{tuple(like.shape)}")
+        out[path] = flat[path].to(dtype=like.dtype).contiguous()
+    return _unflatten_like(shapes, out)

@@ -131,7 +131,12 @@ class SpanRecords:
     replayed the engine's CUDA graph; ``expert_*`` sum the expert layers
     an ``engine.generate`` (its prefill) or ``engine.step`` ran:
     launches (one a layer), rows routed, experts touched and the most
-    rows on one expert."""
+    rows on one expert; ``parallel_layers``, ``ssm_state_bytes`` and
+    ``kv_bytes`` count, from the cache's shapes alone, the layers that
+    run attention and a Mamba-2 mixer side by side, and the SSM state's
+    and the attention rings' bytes the call streams (a step reads and
+    writes every state and reads every ring whole; a prefill writes its
+    rows' states and the prompt's keys and values)."""
 
     name: list = dataclasses.field(default_factory=list)
     start: list = dataclasses.field(default_factory=list)
@@ -149,6 +154,9 @@ class SpanRecords:
     expert_rows: list = dataclasses.field(default_factory=list)
     expert_touched: list = dataclasses.field(default_factory=list)
     expert_max_rows: list = dataclasses.field(default_factory=list)
+    parallel_layers: list = dataclasses.field(default_factory=list)
+    ssm_state_bytes: list = dataclasses.field(default_factory=list)
+    kv_bytes: list = dataclasses.field(default_factory=list)
 
     def __len__(self) -> int:
         return len(self.name)
@@ -207,6 +215,9 @@ class Tracer:
         rec.expert_rows.append(0)
         rec.expert_touched.append(0)
         rec.expert_max_rows.append(0)
+        rec.parallel_layers.append(0)
+        rec.ssm_state_bytes.append(0)
+        rec.kv_bytes.append(0)
         return sid
 
     def open(self, name: str, rows: int = 0, steps: int = 0) -> int:
@@ -282,6 +293,16 @@ class Tracer:
             rec.expert_rows[sid] += rows
             rec.expert_touched[sid] += touched
             rec.expert_max_rows[sid] += max_rows
+
+    def streams(self, parallel_layers: int, ssm_state_bytes: int,
+                kv_bytes: int) -> None:
+        """The innermost scope's parallel layers and the SSM-state and
+        KV bytes it streams."""
+        if self._scopes:
+            rec, sid = self.records, self._scopes[-1][0]
+            rec.parallel_layers[sid] += parallel_layers
+            rec.ssm_state_bytes[sid] += ssm_state_bytes
+            rec.kv_bytes[sid] += kv_bytes
 
     def d2h(self, nbytes: int) -> None:
         """One device-to-host copy of ``nbytes``."""

@@ -80,6 +80,9 @@ SIGNATURES = {
         # x, dt, a, b, c, d_skip, h0 (or null), y, h_final, dtype, B, L,
         # H, P, G, N, stream
         "laimr_ssd_scan": [_VOIDP] * 9 + [_INT] * 7 + [_VOIDP],
+        # the bf16 scan of a slice of N: as above with y_part and part in
+        # place of dtype
+        "laimr_ssd_scan_part": [_VOIDP] * 10 + [_INT] * 7 + [_VOIDP],
         # dtype -> dynamic shared memory bytes of that body
         "laimr_ssd_smem_bytes": [_INT],
         # h, dt, a (or a_log), x, b, c, d_skip, y, x's three strides,

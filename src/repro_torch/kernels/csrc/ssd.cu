@@ -617,6 +617,11 @@ struct SsdArgs {
   int L, H, P, G, N;
   int tma;    // 1: b and c tiles arrive as TMA boxes (maps below)
   int tma_x;  // 1: so does x
+  // a state wider than the tiles, scanned a slice of N per launch (the
+  // bf16 body): 1 writes y's float32 partial sum (before its rounding)
+  // to y_part as well, 2 adds y_part's to y before the rounding; 0 neither
+  float* y_part;
+  int part;
 };
 
 // The bf16 body's TMA maps over b, c and x: boxes of 64 rows x 64 columns.
@@ -706,6 +711,10 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
 // column tiles; per chunk they first hand y_off = exp(seg_i) C H_prev^T
 // to the y warpgroup through shared memory (H_prev as A fragments
 // straight from the accumulators), then update H.
+// kPart: a.part may be set (a slice of a wider state's N); the body
+// without it is compiled apart, so the launches of a state the tiles hold
+// run the code they ran before slices existed.
+template <bool kPart>
 __device__ __forceinline__ void ssd_mma(const SsdArgs& a, const BCMaps& maps) {
   using S = MmaSmem;
   using bf16 = __nv_bfloat16;
@@ -929,9 +938,22 @@ __device__ __forceinline__ void ssd_mma(const SsdArgs& a, const BCMaps& maps) {
           const float2 xv =
               __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
                   x_t + bc_off(i, p & ~7) + 2 * (p & 7)));
+          float v0 = o[t][2 * r] + yo.x + xv.x * d_h;
+          float v1 = o[t][2 * r + 1] + yo.y + xv.y * d_h;
+          if (kPart && i < valid && p < a.P) {
+            float* yp = a.y_part + xy_off
+                        + static_cast<int64_t>(c0 + i) * x_row + p;
+            const bool two = p + 1 < a.P;
+            if (a.part == 1) {
+              yp[0] = v0;
+              if (two) yp[1] = v1;
+            } else {
+              v0 += yp[0];
+              if (two) v1 += yp[1];
+            }
+          }
           *reinterpret_cast<__nv_bfloat162*>(y_s + i * S::ld_y + p) =
-              __floats2bfloat162_rn(o[t][2 * r] + yo.x + xv.x * d_h,
-                                    o[t][2 * r + 1] + yo.y + xv.y * d_h);
+              __floats2bfloat162_rn(v0, v1);
         }
       bar_sync_y();
       for (int idx = tid; idx < kQ * kPMax / 8; idx += kThreads / 2) {
@@ -1054,12 +1076,13 @@ __device__ __forceinline__ void ssd_mma(const SsdArgs& a, const BCMaps& maps) {
   }
 }
 
-// One __global__: the input dtype picks the body.
-template <typename T>
+// One __global__: the input dtype picks the body, kPart the bf16 body's
+// slice mode.
+template <typename T, bool kPart = false>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_scan_kernel(const SsdArgs a, const __grid_constant__ BCMaps maps) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    ssd_mma(a, maps);
+    ssd_mma<kPart>(a, maps);
   } else {
     ssd_cuda_core<T>(static_cast<const T*>(a.x), a.dt, a.a,
                      static_cast<const T*>(a.b), static_cast<const T*>(a.c),
@@ -1119,7 +1142,7 @@ cudaError_t box_map(CUtensorMap* map, const void* ptr, int B, int L,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, bool kPart = false>
 int launch_ssd(SsdArgs a, int B, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   // + 1024: the bf16 body aligns its base for the swizzled boxes
@@ -1144,13 +1167,13 @@ int launch_ssd(SsdArgs a, int B, cudaStream_t stream) {
   static bool reserved = false;
   if (!reserved) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssd_scan_kernel<T, kPart>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     reserved = true;
   }
   const dim3 grid(a.H, B);
-  ssd_scan_kernel<T><<<grid, kThreads, smem, stream>>>(a, maps);
+  ssd_scan_kernel<T, kPart><<<grid, kThreads, smem, stream>>>(a, maps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1237,25 +1260,35 @@ ssd_conv_step_kernel(const T* __restrict__ u, const T* __restrict__ dt_raw,
 // N 128) a layer's state is 67 MB, more than the 50 MB L2, so nothing of
 // it is found there by the next layer or the next step.
 //
-// Design: one block of 256 threads per (row, head), B x H blocks. Warp w
-// owns state rows [w R, (w + 1) R), R = ceil(P / 8) <= 8; lane l owns
-// columns 4l .. 4l + 3 (one float4; lanes past N / 4 idle) with its four
-// b and c values in registers. Every lane issues its R 16-byte state
-// loads before it computes, so each SM keeps tens of KB in flight, and
-// they stream (__ldcs / __stcs, evict-first). The update keeps the plain
-// version's rounding (h * decay, dt * x, (dt x) * b, their sum, each
-// rounded: no contraction; expf as PyTorch's exp), so the new h equals
-// the plain version's bit for bit. y sums over N per lane (fmaf) and then
-// over the lanes by 5 xor shuffles: only its order differs.
+// Design: one block of 256 threads per (row, head) and slice of at most
+// kStepPBlock = 64 state rows, B x H x ceil(P / 64) blocks (one slice up
+// to P 64; Falcon-H1's P 128 takes two). Warp w owns rows [w R, (w + 1)
+// R) of its slice, R = ceil(rows / 8) <= 8; lane l owns the float4
+// columns l, l + 32, ..., kC4 of them (kC4 = 1 up to N 128, 2 up to N
+// 256; lanes past N / 4 idle), with its b and c values in registers.
+// Every lane issues its R x kC4 16-byte state loads before it computes,
+// so each SM keeps tens of KB in flight, and they stream (__ldcs /
+// __stcs, evict-first). The update keeps the plain version's rounding
+// (h * decay, dt * x, (dt x) * b, their sum, each rounded: no
+// contraction; expf as PyTorch's exp), so the new h equals the plain
+// version's bit for bit. y sums over N per lane (fmaf, float4 by float4)
+// and then over the lanes by 5 xor shuffles: only its order differs. At
+// P <= 64 and N <= 128 (kC4 1, one slice) this is the single-slice body
+// that Mamba2-370m and Nemotron-H have run since it was written.
 constexpr int kStepThreads = 256;
 constexpr int kStepWarps = kStepThreads / 32;
-constexpr int kStepRows = kPMax / kStepWarps;   // rows a warp holds, at most
+constexpr int kStepPBlock = 64;                       // rows a block holds
+constexpr int kStepRows = kStepPBlock / kStepWarps;   // rows a warp holds
+constexpr int kStepPMax = 2 * kStepPBlock;            // P the launcher takes
+constexpr int kStepNMax = 256;                        // N the launcher takes
 
 // h (B, H, P, N); dt (B, H); a, d_skip (H,), a holding a_log when a_log
 // is set; x (B, H, P) at element strides (x_sb, x_sh, x_sp), any layout
 // (the decode step's is a view of its conv output); head hd of row r
 // reads b and c at r * bc_sb + (hd / rep) * N (its group's N values);
-// y (B, H, P). N % 4 == 0, bc_sb % 4 == 0.
+// y (B, H, P). N % 4 == 0, N <= 128 kC4, bc_sb % 4 == 0; block
+// (bh * n_pb + slice), n_pb = ceil(P / kStepPBlock).
+template <int kC4>
 __global__ void __launch_bounds__(kStepThreads)
 ssd_step_kernel(float* __restrict__ h, const float* __restrict__ dt,
                 const float* __restrict__ a, const float* __restrict__ x,
@@ -1263,15 +1296,17 @@ ssd_step_kernel(float* __restrict__ h, const float* __restrict__ dt,
                 const float* __restrict__ d_skip, float* __restrict__ y,
                 int x_sb, int x_sh, int x_sp, int bc_sb, int rep, int a_log,
                 int H, int P, int N) {
-  const int bh = blockIdx.x;              // batch row * H + head
+  const int n_pb = (P + kStepPBlock - 1) / kStepPBlock;
+  const int bh = blockIdx.x / n_pb;       // batch row * H + head
+  const int pb = (blockIdx.x - bh * n_pb) * kStepPBlock;
   const int row = bh / H;
   const int head = bh % H;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int rows = (P + kStepWarps - 1) / kStepWarps;
-  const int p0 = warp * rows;
+  const int p_end = min(P, pb + kStepPBlock);
+  const int rows = (p_end - pb + kStepWarps - 1) / kStepWarps;
+  const int p0 = pb + warp * rows;
   const int n4 = N >> 2;
-  const bool on = lane < n4;
   const float dtv = dt[bh];
   const float a_h = a_log ? -expf(a[head]) : a[head];
   const float decay = expf(__fmul_rn(dtv, a_h));
@@ -1281,22 +1316,31 @@ ssd_step_kernel(float* __restrict__ h, const float* __restrict__ dt,
       reinterpret_cast<float4*>(h) + static_cast<int64_t>(bh) * P * n4;
   const int64_t bc = static_cast<int64_t>(row) * (bc_sb >> 2)
                      + static_cast<int64_t>(head / rep) * n4 + lane;
-  float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 cv = bv;
-  if (on) {
-    bv = __ldg(reinterpret_cast<const float4*>(b) + bc);
-    cv = __ldg(reinterpret_cast<const float4*>(c) + bc);
+  bool on[kC4];
+  float4 bv[kC4], cv[kC4];
+#pragma unroll
+  for (int k = 0; k < kC4; ++k) {
+    on[k] = lane + 32 * k < n4;
+    bv[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    cv[k] = bv[k];
+    if (on[k]) {
+      bv[k] = __ldg(reinterpret_cast<const float4*>(b) + bc + 32 * k);
+      cv[k] = __ldg(reinterpret_cast<const float4*>(c) + bc + 32 * k);
+    }
   }
-  float4 hv[kStepRows];
+  float4 hv[kStepRows][kC4];
   float xv[kStepRows];
 #pragma unroll
   for (int j = 0; j < kStepRows; ++j) {
     const int p = p0 + j;
-    hv[j] = make_float4(0.f, 0.f, 0.f, 0.f);
     xv[j] = 0.f;
-    if (j < rows && p < P) {
+#pragma unroll
+    for (int k = 0; k < kC4; ++k) hv[j][k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j < rows && p < p_end) {
       xv[j] = __ldg(xr + static_cast<int64_t>(p) * x_sp);
-      if (on) hv[j] = __ldcs(hr + p * n4 + lane);
+#pragma unroll
+      for (int k = 0; k < kC4; ++k)
+        if (on[k]) hv[j][k] = __ldcs(hr + p * n4 + lane + 32 * k);
     }
   }
   float s[kStepRows];
@@ -1304,15 +1348,19 @@ ssd_step_kernel(float* __restrict__ h, const float* __restrict__ dt,
   for (int j = 0; j < kStepRows; ++j) {
     const int p = p0 + j;
     s[j] = 0.f;
-    if (j < rows && p < P && on) {
+    if (j < rows && p < p_end) {
       const float dx = __fmul_rn(dtv, xv[j]);
-      float4 v = hv[j];
-      v.x = __fadd_rn(__fmul_rn(v.x, decay), __fmul_rn(dx, bv.x));
-      v.y = __fadd_rn(__fmul_rn(v.y, decay), __fmul_rn(dx, bv.y));
-      v.z = __fadd_rn(__fmul_rn(v.z, decay), __fmul_rn(dx, bv.z));
-      v.w = __fadd_rn(__fmul_rn(v.w, decay), __fmul_rn(dx, bv.w));
-      __stcs(hr + p * n4 + lane, v);
-      s[j] = dot4(v, cv, 0.f);
+#pragma unroll
+      for (int k = 0; k < kC4; ++k) {
+        if (!on[k]) continue;
+        float4 v = hv[j][k];
+        v.x = __fadd_rn(__fmul_rn(v.x, decay), __fmul_rn(dx, bv[k].x));
+        v.y = __fadd_rn(__fmul_rn(v.y, decay), __fmul_rn(dx, bv[k].y));
+        v.z = __fadd_rn(__fmul_rn(v.z, decay), __fmul_rn(dx, bv[k].z));
+        v.w = __fadd_rn(__fmul_rn(v.w, decay), __fmul_rn(dx, bv[k].w));
+        __stcs(hr + p * n4 + lane + 32 * k, v);
+        s[j] = dot4(v, cv[k], s[j]);
+      }
     }
   }
 #pragma unroll
@@ -1325,7 +1373,7 @@ ssd_step_kernel(float* __restrict__ h, const float* __restrict__ dt,
 #pragma unroll
   for (int j = 0; j < kStepRows; ++j) {
     const int p = p0 + j;
-    if (lane == j && j < rows && p < P)
+    if (lane == j && j < rows && p < p_end)
       y[static_cast<int64_t>(bh) * P + p] =
           __fadd_rn(s[j], __fmul_rn(xv[j], d));
   }
@@ -1405,10 +1453,30 @@ int laimr_ssd_scan(const void* x, const float* dt, const float* a,
   if (B == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const SsdArgs args{x, dt, a, b, c, d_skip, h0, y, h_final, L, H, P, G, N,
-                     0, 0};
+                     0, 0, nullptr, 0};
   if (dtype == 0) return launch_ssd<float>(args, B, st);
   if (dtype == 1) return launch_ssd<__nv_bfloat16>(args, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 scan of one slice of a wider state's N, with y's float32
+// partial sum in y_part (B, L, H, P): part 1 writes it (beside y), part 2
+// adds it to y before y's rounding, so a state scanned in two slices
+// rounds y once.
+int laimr_ssd_scan_part(const void* x, const float* dt, const float* a,
+                        const void* b, const void* c, const float* d_skip,
+                        const float* h0, void* y, float* h_final,
+                        float* y_part, int part, int B, int L, int H, int P,
+                        int G, int N, void* stream) {
+  if (B < 0 || B > 65535 || L < 1 || H < 1 || G < 1 || H % G != 0 ||
+      P < 1 || P > kPMax || N < 1 || N > kNMax || part < 1 || part > 2 ||
+      y_part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  const SsdArgs args{x, dt, a, b, c, d_skip, h0, y, h_final, L, H, P, G, N,
+                     0, 0, y_part, part};
+  return launch_ssd<__nv_bfloat16, true>(args, B,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 // One decode token's state update (ssd_step_kernel): h (B, H, P, N)
@@ -1420,16 +1488,22 @@ int laimr_ssd_step(float* h, const float* dt, const float* a, const float* x,
                    const float* b, const float* c, const float* d_skip,
                    float* y, int x_sb, int x_sh, int x_sp, int bc_sb, int rep,
                    int a_log, int B, int H, int P, int N, void* stream) {
-  if (B < 0 || H < 1 || P < 1 || P > kPMax || N < 4 || N > kNMax ||
+  const int n_pb = (P + kStepPBlock - 1) / kStepPBlock;
+  if (B < 0 || H < 1 || P < 1 || P > kStepPMax || N < 4 || N > kStepNMax ||
       N % 4 != 0 || x_sb < 0 || x_sh < 0 || x_sp < 0 || bc_sb < 0 ||
       bc_sb % 4 != 0 || rep < 1 || H % rep != 0 ||
-      static_cast<int64_t>(B) * H > 0x7fffffff)
+      static_cast<int64_t>(B) * H * n_pb > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  ssd_step_kernel<<<B * H, kStepThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      h, dt, a, x, b, c, d_skip, y, x_sb, x_sh, x_sp, bc_sb, rep, a_log, H,
-      P, N);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= 128)
+    ssd_step_kernel<1><<<B * H * n_pb, kStepThreads, 0, st>>>(
+        h, dt, a, x, b, c, d_skip, y, x_sb, x_sh, x_sp, bc_sb, rep, a_log, H,
+        P, N);
+  else
+    ssd_step_kernel<2><<<B * H * n_pb, kStepThreads, 0, st>>>(
+        h, dt, a, x, b, c, d_skip, y, x_sb, x_sh, x_sp, bc_sb, rep, a_log, H,
+        P, N);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,8 @@ Per batch row and head, with the (P, N) state ``h`` in float32 updated in
 place: ``h = exp(dt a) h + (dt x) b^T`` and ``y = h c + d_skip x``. On
 the card this is the hand-written CUDA kernel ``ssd_step_kernel`` in
 ``csrc/ssd.cu`` (built into the ``ssd`` library beside ``ssd_scan``): one
-block per (row, head) that reads the state once and writes it once. It
+block per (row, head) and slice of 64 state rows that reads its state
+once and writes it once; N up to 128 a float4 a lane, up to 256 two. It
 replaces no TPU kernel (the reference's decode step is plain jnp); it
 replaces the eager passes of ``kernels/ref.py: ssd_step_ref``, which read
 the state three times and write it twice a layer. The new state equals
@@ -36,15 +37,15 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import refuse_grad
 from repro_torch.kernels.routing_score import check_input, stream_ptr
 
-MAX_HEAD_DIM = 64       # P: eight rows a warp at most
-MAX_STATE = 128         # N: one float4 a lane at most
+MAX_HEAD_DIM = 128      # P: two slices of 64 rows, eight a warp
+MAX_STATE = 256         # N: two float4s a lane at most
 MAX_CONV_WIDTH = 8      # W: the conv step's window in registers
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the model dtype's code
 
 
 def check_state(h: torch.Tensor) -> None:
     """Raise unless h is a (B, H, P, N) state the kernel takes: 1 <= P
-    <= 64, N a multiple of 4 up to 128."""
+    <= 128, N a multiple of 4 up to 256."""
     if h.ndim != 4:
         raise ValueError(f"ssd_step: h {tuple(h.shape)}: expected (B, H, "
                          "P, N)")
@@ -101,7 +102,8 @@ def check_inputs(h: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """Raise on what the kernel does not take: everything on h's device,
     float32; h (B, H, P, N), b and c (B, H, N) contiguous and 16-byte
     aligned (float4 loads); dt (B, H), a and d_skip (H,) contiguous; x
-    (B, H, P) at any strides; 1 <= P <= 64, N a multiple of 4 up to 128.
+    (B, H, P) at any strides; 1 <= P <= 128, N a multiple of 4 up to
+    256.
     Device-blind apart from comparing devices, so the CPU tests can hold
     the decode step's own arguments to it."""
     check_state(h)

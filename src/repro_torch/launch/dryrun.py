@@ -55,7 +55,8 @@ def applicability(arch_id: str, shape_name: str) -> str | None:
     """Return a skip reason, or None if the pair must run."""
     if arch_id not in REFERENCE_IDS:
         return ("SKIP: the reference's dry run has no such architecture; "
-                "the dropless expert layer has no sharding rules yet")
+                "the dropless expert layer and the parallel hybrid layer "
+                "have no sharding rules yet")
     if shape_name == "long_500k":
         if arch_id == "whisper_small":
             return ("SKIP: enc-dec with full-attention encoder; 512k frames "

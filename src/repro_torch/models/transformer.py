@@ -38,6 +38,16 @@ of experts alone, ``layers.moe_dropless``, no cache) and
 Norms take ``cfg.norm_eps`` where it is set. ``prefill`` and
 ``decode_step`` add each expert layer's routing to the device's expert
 counters (``layers.expert_counters``), phase 0 and phase 1.
+
+A ``"parallel_hybrid"`` layer (Falcon-H1; the reference has none) runs
+attention and a Mamba-2 mixer side by side on ONE normed input and adds
+both into the residual, then the MLP behind its own norm::
+
+  h = norm1(x);  x = x + attn(h) + mamba(h);  x = x + mlp(norm2(x))
+
+through the same kernels as an attention and a Mamba-2 layer. Its cache
+is one dict with both kinds of state: the attention ring (``k``, ``v``,
+``pos``) and the mixer's ``conv`` buffer and ``ssm`` state.
 """
 from __future__ import annotations
 
@@ -51,6 +61,8 @@ from repro_torch.distributed.sharding import constrain_batch, embed_lookup
 from repro_torch.models import layers, rglru, ssm
 
 ATTN_KINDS = ("attn", "local", "hybrid_attn")
+#: attention and a Mamba-2 mixer side by side, then an MLP
+PARALLEL = "parallel_hybrid"
 #: recurrent layer kind -> its module: init, forward (with state,
 #: return_state and kernels), init_state and an in-place decode_step
 #: (with kernels)
@@ -66,7 +78,7 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 def check_ported(cfg: ArchConfig) -> None:
     """Raise unless every layer of ``cfg`` is of a kind the port runs."""
     for kind in cfg.layer_pattern:
-        if kind not in ATTN_KINDS + tuple(MIXERS):
+        if kind not in ATTN_KINDS + tuple(MIXERS) + (PARALLEL,):
             raise ValueError(f"unknown layer kind {kind}")
     for c in cfg.hybrid_pattern:
         if c not in HYBRID_KINDS:
@@ -120,6 +132,9 @@ def layer_init(init: layers.Init, cfg: ArchConfig, kind: str) -> dict:
                                    shared_d_ff=cfg.shared_d_ff)
     elif kind in ATTN_KINDS:
         p["attn"] = layers.attention_init(init, attn_spec(cfg, kind), dt)
+    elif kind == PARALLEL:
+        p["attn"] = layers.attention_init(init, attn_spec(cfg, kind), dt)
+        p["mixer"] = ssm.init(init, cfg, dt)
     else:
         p["mixer"] = MIXERS[kind].init(init, cfg, dt)
     if _has_mlp(cfg, kind):
@@ -226,6 +241,10 @@ def _layer(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor,
     if kind in ATTN_KINDS:
         x = x + layers.self_attention(p["attn"], attn_spec(cfg, kind), h,
                                       positions, kernels)
+    elif kind == PARALLEL:
+        x = x + (layers.self_attention(p["attn"], attn_spec(cfg, kind), h,
+                                       positions, kernels)
+                 + ssm.forward(p["mixer"], cfg, h, kernels=kernels))
     else:
         x = x + MIXERS[kind].forward(p["mixer"], cfg, h, kernels=kernels)
     return _mlp_block(p, cfg, kind, x)
@@ -273,10 +292,13 @@ def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
         return MIXERS[kind].init_state(cfg, batch, dtype_of(cfg), device)
     c = cache_len_for(cfg, kind, max_len)
     shape = (batch, c, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+    ring = {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
             "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
             "pos": torch.full((batch, c), -1, dtype=torch.int32,
                               device=device)}
+    if kind == PARALLEL:
+        ring.update(ssm.init_state(cfg, batch, dtype_of(cfg), device))
+    return ring
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"
@@ -287,6 +309,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"
     never written; {"conv" (batch, W-1, conv channels), "ssm" (batch, H,
     P, N) float32} for Mamba-2 layers, {"conv" (batch, W-1, w), "h"
     (batch, w) float32} for RG-LRU layers, zeros; {} for an expert
+    layer; both a ring's and a Mamba-2 layer's keys for a parallel
     layer."""
     check_ported(cfg)
     return {"layers": [init_layer_cache(cfg, kind, batch, max_len, device)
@@ -319,6 +342,14 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             y, c = layers.self_attention_prefill(
                 p["attn"], attn_spec(cfg, kind), h, positions,
                 cache_len_for(cfg, kind, max_len), kernels)
+        elif kind == PARALLEL:
+            y, c = layers.self_attention_prefill(
+                p["attn"], attn_spec(cfg, kind), h, positions,
+                cache_len_for(cfg, kind, max_len), kernels)
+            m, state = ssm.forward(p["mixer"], cfg, h, return_state=True,
+                                   kernels=kernels)
+            y = y + m
+            c.update(state)
         else:
             y, c = MIXERS[kind].forward(p["mixer"], cfg, h,
                                         return_state=True, kernels=kernels)
@@ -350,6 +381,10 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         if kind in ATTN_KINDS:
             y, _ = layers.self_attention_decode(
                 p["attn"], attn_spec(cfg, kind), h, c, pos, kernels)
+        elif kind == PARALLEL:
+            y, _ = layers.self_attention_decode(
+                p["attn"], attn_spec(cfg, kind), h, c, pos, kernels)
+            y = y + ssm.decode_step(p["mixer"], cfg, h, c, kernels)[0]
         else:
             y, _ = MIXERS[kind].decode_step(p["mixer"], cfg, h, c, kernels)
         x, _ = _mlp_block(p, cfg, kind, x + y)

@@ -97,6 +97,7 @@ class ServingEngine:
         self._experts = layers.expert_counters(self.device).phase \
             if "E" in cfg.hybrid_pattern else None
         self._experts_read = None
+        self._shape_counts = cache_counts(self.cache, slots)
         self._calls = 0              # generate and step calls
         self._graphable = self.device.type == "cuda" \
             and not any_dtensor(params)
@@ -165,6 +166,9 @@ class ServingEngine:
             out = self.current.to("cpu", copy=True).numpy()
             if sid >= 0:
                 self._trace_experts(before, 1)
+                par, ssm_row, ring_row, _ = self._shape_counts
+                TRACER.streams(par, 2 * self.slots * ssm_row,
+                               self.slots * ring_row)
             return out
         finally:
             if sid >= 0:
@@ -291,6 +295,9 @@ class ServingEngine:
             out = [self.current[:b].to("cpu", copy=True).numpy()]
             if sid >= 0:
                 self._trace_experts(before, 0)
+                par, ssm_row, ring_row, kv_pos = self._shape_counts
+                TRACER.streams(par, b * ssm_row,
+                               b * min(s, self.max_len) * kv_pos)
                 # the decode steps nest in generate as engine.step spans
                 TRACER.end_stage()
             for _ in range(steps - 1):
@@ -310,6 +317,26 @@ def _merge_batch(full: torch.Tensor, new: torch.Tensor) -> None:
     length < max_len), so every differing axis is sliced to ``new``'s
     extent — not just the first mismatch."""
     full[tuple(slice(0, ns) for ns in new.shape)] = new
+
+
+def cache_counts(cache: dict, slots: int) -> tuple[int, int, int, int]:
+    """From a cache's shapes, no device read: (its layers that hold both
+    an attention ring and a Mamba-2 state, the SSM state's bytes a row,
+    the rings' key and value bytes a row, their bytes a position and
+    row)."""
+    par = ssm_row = ring_row = kv_pos = 0
+    for layer in cache.get("layers", ()):
+        if "ssm" in layer and "k" in layer:
+            par += 1
+        if "ssm" in layer:
+            t = layer["ssm"]
+            ssm_row += t.numel() // slots * t.element_size()
+        if "k" in layer:
+            kv = layer["k"].numel() // slots * layer["k"].element_size() \
+                + layer["v"].numel() // slots * layer["v"].element_size()
+            ring_row += kv
+            kv_pos += kv // layer["k"].shape[1]
+    return par, ssm_row, ring_row, kv_pos
 
 
 def any_dtensor(tree) -> bool:

@@ -72,7 +72,8 @@ def test_port_has_the_slice_modules():
             "distributed/__init__.py", "distributed/sharding.py",
             "launch/__init__.py", "launch/mesh.py", "launch/specs.py",
             "launch/op_analysis.py", "launch/dryrun.py",
-            "configs/nemotron_3_nano.py", "kernels/moe_gemm.py"]
+            "configs/nemotron_3_nano.py", "kernels/moe_gemm.py",
+            "configs/falcon_h1_34b.py"]
     missing = [m for m in want if not (PORT / m).is_file()]
     assert not missing, missing
 

@@ -2073,6 +2073,11 @@ class TestCudaSSDKernel:
         dict(b=5, l=1, h=32, p=64, g=1, n=8, h0=True),
         dict(b=5, l=70, h=32, p=50, g=1, n=12, h0=True),
         dict(b=5, l=70, h=32, p=20, g=2, n=16),
+        # Falcon-H1's head, wider than the tiles: P 128 as two heads of
+        # 64, N 256 in two launches (and each alone)
+        dict(b=2, l=130, h=4, p=128, g=2, n=256, h0=True),
+        dict(b=1, l=65, h=2, p=128, g=1, n=128),
+        dict(b=1, l=100, h=2, p=64, g=1, n=256, h0=True),
     ]
 
     @pytest.mark.parametrize("case", range(len(CASES)))
@@ -2082,7 +2087,9 @@ class TestCudaSSDKernel:
         t = [None if a is None else a.to(cuda_device) for a in targs]
         before = tss.ssd_scan.launches
         got = torch_ssd(t, tss.ssd_scan)
-        assert tss.ssd_scan.launches == before + 1
+        # one launch a slice of N the tiles hold
+        slices = -(-self.CASES[case]["n"] // tss.MAX_STATE)
+        assert tss.ssd_scan.launches == before + slices
         want = torch_ssd(t)
         check_ssd([v.cpu() for v in got], [v.cpu() for v in want],
                   tol=SSD_PALLAS_TOL if dtype == "float32"

@@ -42,8 +42,9 @@ LAYER_TOL = dict(atol=2e-5, rtol=2e-5)
 MODEL_BF16_TOL = dict(atol=1e-3, rtol=1e-2)
 
 # (base config, overrides): 1 group and rmsnorm(y) * silu(z); 8 groups
-# and the gate first; then the two served head layouts (P 64, N 128) at
-# a small d_model
+# and the gate first; then the served head layouts (P 64, N 128; and
+# Falcon-H1's P 128, N 256 over 2 groups, the gate first) at a small
+# d_model
 ARCHS = {
     "g1": ("mamba2_370m", dict(ssm_heads=8, ssm_head_dim=16, ssm_state=16)),
     "g8": ("nemotron_3_nano", dict(ssm_heads=16, ssm_head_dim=8,
@@ -52,6 +53,8 @@ ARCHS = {
                                       ssm_state=128)),
     "served_g8": ("nemotron_3_nano", dict(ssm_heads=64, ssm_head_dim=64,
                                           ssm_state=128, ssm_groups=8)),
+    "served_g2": ("falcon_h1_34b", dict(ssm_heads=32, ssm_head_dim=128,
+                                        ssm_state=256, ssm_groups=2)),
 }
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -358,7 +361,8 @@ def held_to_the_kernels(monkeypatch) -> list:
     return calls
 
 
-@pytest.mark.parametrize("arch", ["mamba2_370m", "nemotron_3_nano"])
+@pytest.mark.parametrize("arch", ["mamba2_370m", "nemotron_3_nano",
+                                  "falcon_h1_34b"])
 @pytest.mark.parametrize("b", [2, 3], ids=["b_lt_slots", "b_eq_slots"])
 def test_the_engine_hands_the_kernels_what_they_take(monkeypatch, arch, b):
     """Every decode step of a served wave under ``"cuda"`` (both slot
@@ -379,7 +383,8 @@ def test_the_engine_hands_the_kernels_what_they_take(monkeypatch, arch, b):
     prompt = torch.randint(0, cfg.vocab_size, (b, 8),
                            generator=torch.Generator().manual_seed(b))
     eng.generate(prompt, steps=3)
-    n_ssm = sum(k in ("mamba2", "hybrid_mamba") for k in layer_kinds(cfg))
+    n_ssm = sum(k in ("mamba2", "hybrid_mamba", "parallel_hybrid")
+                for k in layer_kinds(cfg))
     assert n_ssm and calls == ["conv", "state", "norm"] * (2 * n_ssm)
 
 
@@ -393,9 +398,11 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-# the served steps: mamba2_370m's 64 slots x 32 heads over 1 group, and
-# Nemotron's 32 slots x 64 heads over 8 groups; then a small batch
-SERVED = [("served_g1", 64), ("served_g8", 32), ("g1", 3), ("g8", 5)]
+# the served steps: mamba2_370m's 64 slots x 32 heads over 1 group,
+# Nemotron's 32 slots x 64 heads over 8 groups and Falcon-H1's 16 slots x
+# 32 heads of P 128, N 256 over 2 groups; then a small batch
+SERVED = [("served_g1", 64), ("served_g8", 32), ("served_g2", 16),
+          ("g1", 3), ("g8", 5)]
 
 
 def served_id(case) -> str:
@@ -472,7 +479,7 @@ class TestCudaSSDMixerKernels:
         assert bool((err <= tol).all()), \
             f"norm off by {(err / tol).max().item()} of its bound"
 
-    @pytest.mark.parametrize("case", SERVED[:2], ids=served_id)
+    @pytest.mark.parametrize("case", SERVED[:3], ids=served_id)
     def test_steps_chain(self, cuda_device, case):
         """Eight decode steps of one layer in a row on the same state:
         the kernels' buffer and state stay bit-equal to the plain

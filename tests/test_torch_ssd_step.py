@@ -4,7 +4,7 @@
 On the CPU: the plain version is the decode step's former eager update
 (kept here as ``state_step_before``, verbatim) bit for bit, at both
 served head layouts (mamba2_370m: H 32 over G 1; Nemotron-H: H 64 over
-G 8; P 64, N 128) and at small ragged shapes, with x a strided view of
+G 8; P 64, N 128; Falcon-H1: H 32 over G 2, P 128, N 256) and at small ragged shapes, with x a strided view of
 a conv output row as the decode step hands it over; the wrapper takes
 the plain version for CPU tensors and the facade refuses ``"cuda"``
 there. The model's decode step under ``kernels="ref"`` is held to the
@@ -34,14 +34,17 @@ from repro_torch.models import model
 from repro_torch.models.transformer import layer_kinds
 from repro_torch.serving import ServingEngine
 
-# (B, H, G, P, N): the two served head layouts (at B 2: the shapes of
-# a head, not of the batch, are what they pin), then ragged ones
-SERVED = [(2, 32, 1, 64, 128), (2, 64, 8, 64, 128)]
+# (B, H, G, P, N): the three served head layouts (at B 2: the shapes of
+# a head, not of the batch, are what they pin; Falcon-H1's P 128, N 256
+# over two slices of rows and two float4s a lane), then ragged ones
+SERVED = [(2, 32, 1, 64, 128), (2, 64, 8, 64, 128), (2, 32, 2, 128, 256)]
 RAGGED = [(3, 3, 1, 5, 4), (1, 4, 2, 7, 12), (2, 6, 3, 24, 20),
           (5, 2, 2, 1, 8), (2, 4, 4, 40, 72), (1, 1, 1, 64, 128)]
 # the card's extra cases: the served batches, and P / N at their limits
 CARD = SERVED + RAGGED + [(64, 32, 1, 64, 128), (32, 64, 8, 64, 128),
-                          (3, 5, 1, 33, 124), (2, 3, 3, 63, 4)]
+                          (16, 32, 2, 128, 256), (3, 5, 1, 33, 124),
+                          (2, 3, 3, 63, 4), (3, 5, 1, 100, 252),
+                          (2, 3, 3, 65, 132)]
 
 
 def state_step_before(h, dt1, a, xs1, b1, c1, d_skip):
@@ -162,7 +165,8 @@ def held_to_the_kernel(monkeypatch) -> list:
     return calls
 
 
-@pytest.mark.parametrize("arch", ["mamba2_370m", "nemotron_3_nano"])
+@pytest.mark.parametrize("arch", ["mamba2_370m", "nemotron_3_nano",
+                                  "falcon_h1_34b"])
 @pytest.mark.parametrize("b", [2, 3], ids=["b_lt_slots", "b_eq_slots"])
 def test_the_engine_hands_the_kernel_what_it_takes(monkeypatch, arch, b):
     """Every state step of a served wave (both slot paths: states merged
@@ -182,7 +186,8 @@ def test_the_engine_hands_the_kernel_what_it_takes(monkeypatch, arch, b):
     prompt = torch.from_numpy(np.random.default_rng(b).integers(
         0, cfg.vocab_size, (b, 8)))
     eng.generate(prompt, steps=3)
-    n_ssm = sum(k in ("mamba2", "hybrid_mamba") for k in layer_kinds(cfg))
+    n_ssm = sum(k in ("mamba2", "hybrid_mamba", "parallel_hybrid")
+                for k in layer_kinds(cfg))
     assert n_ssm and len(calls) == 2 * n_ssm
 
 
@@ -281,11 +286,11 @@ class TestCudaSSDStepKernel:
         with pytest.raises(ValueError, match="N 6"):
             tstep.ssd_step(*step_case(105, 1, 2, 1, 8, 6,
                                       device=cuda_device))
-        with pytest.raises(ValueError, match="N 132"):
-            tstep.ssd_step(*step_case(106, 1, 2, 1, 8, 132,
+        with pytest.raises(ValueError, match="N 260"):
+            tstep.ssd_step(*step_case(106, 1, 2, 1, 8, 260,
                                       device=cuda_device))
-        with pytest.raises(ValueError, match="P 65"):
-            tstep.ssd_step(*step_case(107, 1, 2, 1, 65, 8,
+        with pytest.raises(ValueError, match="P 129"):
+            tstep.ssd_step(*step_case(107, 1, 2, 1, 129, 8,
                                       device=cuda_device))
         with pytest.raises(TypeError):
             tstep.ssd_step(*swap(0, args[0].double()))

@@ -465,6 +465,42 @@ def _raise(*args, **kwargs):
     raise RuntimeError("raised inside the span")
 
 
+class TestStreamCounters:
+    """The parallel layers and the SSM-state and KV bytes a call streams,
+    counted on the host from the cache's shapes."""
+
+    @pytest.mark.parametrize("arch", ["falcon_h1_34b", "mamba2_370m",
+                                      "stablelm_3b"])
+    def test_counts_follow_the_shapes(self, tracing, arch):
+        cfg = reduced(get_config(arch))
+        params = model.init_params(cfg, seed=0, device="cpu")
+        slots, max_len, b, s = 4, 24, 3, 10
+        eng = ServingEngine(cfg, params, slots=slots, max_len=max_len,
+                            device="cpu", kernels="ref")
+        eng.generate(np.random.default_rng(6).integers(
+            0, cfg.vocab_size, (b, s)), 3)
+        rec = tracing.drain()
+        kinds = [k for k in model.transformer.layer_kinds(cfg)]
+        par = kinds.count("parallel_hybrid")
+        ssm = sum(k in ("mamba2", "parallel_hybrid") for k in kinds)
+        attn = sum(k in ("attn", "local", "parallel_hybrid")
+                   for k in kinds)
+        state = cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4 \
+            if cfg.ssm_heads else cfg.ssm_expand * cfg.d_model \
+            * cfg.ssm_state * 4
+        kv = 2 * cfg.n_kv_heads * cfg.head_dim * 4        # float32 k, v
+        gen = rec.name.index("engine.generate")
+        assert (rec.parallel_layers[gen], rec.ssm_state_bytes[gen],
+                rec.kv_bytes[gen]) == (par, ssm * b * state,
+                                       attn * b * s * kv)
+        steps = [i for i in range(len(rec)) if rec.name[i] == "engine.step"]
+        assert len(steps) == 2
+        for i in steps:
+            assert (rec.parallel_layers[i], rec.ssm_state_bytes[i],
+                    rec.kv_bytes[i]) == (par, 2 * ssm * slots * state,
+                                         attn * slots * max_len * kv)
+
+
 @pytest.mark.parametrize("where", ["flush", "step", "generate"])
 def test_a_call_that_raises_closes_its_span(tracing, engine_setup,
                                             monkeypatch, where):

@@ -297,6 +297,54 @@ def test_ssd_mixer_counter_reads_the_device_trace():
         (12 - 3) / 4 / 3)
 
 
+def test_ssd_mixer_counter_reads_the_parallel_layers_attention():
+    """Steps that ran 3 parallel layers (the spans' counter), each with
+    one ``decode_attention`` launch a layer beside the mixer's three
+    kernels: a share of 1.0 and one attention launch per parallel layer
+    and step; a model without such layers gets neither key."""
+    rec = served_records()
+    traced = [span(rec, "engine.step", -1, t0, t0 + 0.02, graph=1,
+                   parallel_layers=3) for t0 in (15.0, 16.0)]
+    ops = []
+    for s in traced:
+        for k in range(3):
+            t0 = rec.start[s] + 0.001 * k
+            ops += [op(f"{name}(...)", t0, t0 + 1e-4) for name in
+                    ts.MIXER_KERNELS + ("decode_attention_kernel",)]
+    got = ts.ssd_mixer_counter(window(rec, ops, t_start=14.5), 3)
+    assert got["share"] == 1.0 and got["parallel_layers"] == 3
+    assert got["decode_attention_per_parallel_layer"] == 1.0
+    got = ts.ssd_mixer_counter(window(rec, ops[:-1], t_start=14.5), 3)
+    assert got["decode_attention_per_parallel_layer"] == \
+        pytest.approx(5 / 6)
+    rec2, _ = traced_steps()
+    assert "parallel_layers" not in ts.ssd_mixer_counter(
+        window(rec2, ops), 3)
+
+
+def test_stream_counters_per_call_by_phase():
+    """``program_counters.streams``: the parallel layers and the bytes
+    of SSM state and KV a prefill and a step stream, per call."""
+    rec = served_records()
+    gen = next(i for i in range(len(rec)) if rec.name[i] == "engine.generate")
+    rec.parallel_layers[gen] = 72
+    rec.ssm_state_bytes[gen] = 1000
+    rec.kv_bytes[gen] = 64
+    for t0 in (15.0, 16.0):
+        span(rec, "engine.step", -1, t0, t0 + 0.02, parallel_layers=72,
+             ssm_state_bytes=4000, kv_bytes=500)
+    got = ts.counters(window(rec))["streams"]
+    steps = len(ts.ids_of(rec, "engine.step"))
+    gens = len(ts.ids_of(rec, "engine.generate"))
+    assert got["decode"] == {"calls": steps,
+                             "parallel_layers": 144 / steps,
+                             "ssm_state_bytes": 8000 / steps,
+                             "kv_bytes": 1000 / steps}
+    assert got["prefill"]["parallel_layers"] == 72 / gens
+    assert ts.stream_counters(served_records()) is None
+    assert "streams" not in ts.counters(window(served_records()))
+
+
 def test_expert_counters_per_launch_by_phase():
     """``program_counters.experts``: the expert layers' launches of the
     prefills (``engine.generate``) and of the steps, and per launch their

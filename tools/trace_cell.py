@@ -20,7 +20,10 @@ own (reductions in ``tools/trace_spans.py``):
 * ``program_spans``: span counts by name, ``program_counters``
   (``trace_spans.counters``, with ``step.ssd_mixer``: the traced steps'
   launches of the Mamba-2 decode mixer's three kernels against the
-  model's Mamba-2 layers, and the device kernels a step; and
+  model's Mamba-2 layers, the device kernels a step and, for parallel
+  layers, ``decode_attention`` launches per such layer and step;
+  ``streams``: the parallel layers and the SSM-state and KV bytes a
+  prefill and a step stream, counted from shapes; and
   ``setup_step``: the set-up's decode steps and the engine's graph
   captures there) and ``clock_check``
   (``trace_spans.clock_check``: routing kernels in their flush and

@@ -263,11 +263,15 @@ def ssd_mixer_counter(w: Window, mamba_layers: int):
     the three per-step counts over the layers: 1.0 when every layer goes
     through all of them; None for a model without such layers), and the
     device kernels (copies and fills aside) that started inside those
-    steps, per step; None without a traced step."""
+    steps, per step; None without a traced step. Where the steps ran
+    parallel layers (attention and a Mamba-2 mixer side by side: the
+    spans' ``parallel_layers`` counter), also ``decode_attention``'s
+    launches per parallel layer and step (1.0 when each such layer's
+    attention is one launch)."""
     rec = w.rec
-    steps = sorted((rec.start[i], rec.end[i])
-                   for i in ids_of(rec, "engine.step")
-                   if w.t_start <= rec.start[i] <= w.t_stop)
+    ids = [i for i in ids_of(rec, "engine.step")
+           if w.t_start <= rec.start[i] <= w.t_stop]
+    steps = sorted((rec.start[i], rec.end[i]) for i in ids)
     if not steps:
         return None
     n = len(steps)
@@ -281,10 +285,38 @@ def ssd_mixer_counter(w: Window, mamba_layers: int):
         if j >= 0 and s <= steps[j][1] \
                 and not name.startswith(("Memcpy", "Memset")):
             kernels += 1
-    return {"steps": n, "launches": launches, "per_step": per_step,
-            "share": (min(per_step.values()) / mamba_layers
-                      if mamba_layers else None),
-            "kernels_per_step": kernels / n}
+    out = {"steps": n, "launches": launches, "per_step": per_step,
+           "share": (min(per_step.values()) / mamba_layers
+                     if mamba_layers else None),
+           "kernels_per_step": kernels / n}
+    parallel = max(rec.parallel_layers[i] for i in ids)
+    if parallel:
+        attn = sum("decode_attention_kernel" in name for name, *_ in w.ops)
+        out["parallel_layers"] = parallel
+        out["decode_attention_per_parallel_layer"] = attn / n / parallel
+    return out
+
+
+def stream_counters(rec):
+    """The host's counts from shapes on ``engine.generate`` (its prefill)
+    and ``engine.step`` spans: per span kind, the parallel layers a call
+    ran and the SSM-state and KV bytes it streamed, per call; None where
+    no span counted any."""
+    out = {}
+    for key, name in (("prefill", "engine.generate"),
+                      ("decode", "engine.step")):
+        ids = ids_of(rec, name)
+        if ids and any(rec.parallel_layers[i] or rec.ssm_state_bytes[i]
+                       or rec.kv_bytes[i] for i in ids):
+            n = len(ids)
+            out[key] = {
+                "calls": n,
+                "parallel_layers": sum(rec.parallel_layers[i]
+                                       for i in ids) / n,
+                "ssm_state_bytes": sum(rec.ssm_state_bytes[i]
+                                       for i in ids) / n,
+                "kv_bytes": sum(rec.kv_bytes[i] for i in ids) / n}
+    return out or None
 
 
 def expert_counters(rec):
@@ -314,7 +346,8 @@ def counters(w: Window, mamba_layers: int | None = None) -> dict:
     rows. Decode steps (the whole window): ``step_counters``, and given
     the model's ``mamba_layers``, its ``ssd_mixer``
     (``ssd_mixer_counter``, the traced steps). Expert layers (the whole
-    window): ``expert_counters``."""
+    window): ``expert_counters``; parallel layers and the bytes streamed
+    (the whole window): ``stream_counters``."""
     rec, out = w.rec, {}
     fl = sorted(flush_ids(w, untraced=False), key=lambda i: rec.start[i])
     if fl:
@@ -345,6 +378,9 @@ def counters(w: Window, mamba_layers: int | None = None) -> dict:
     experts = expert_counters(rec)
     if experts:
         out["experts"] = experts
+    streams = stream_counters(rec)
+    if streams:
+        out["streams"] = streams
     return out
 
 
